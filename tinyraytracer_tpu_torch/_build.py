@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
+one shared library with a plain C interface, under `_build/` beside this
+file. The library's name carries a hash of the sources and the flags, so
+a changed source builds anew and an unchanged one loads what is there.
+If `nvcc` is missing or fails, the compiler's error is raised.
+
+Flags that matter for the numbers (see csrc/megakernel_packed.cu):
+`--fmad=false` keeps every multiply and add separately rounded, as in the
+reference; no `--use_fast_math`, so `sqrtf` and `/` stay IEEE.
+`-Xptxas -v` writes each kernel's registers and spills into the build log.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default
+    install prefix."""
+    cands = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(Path(home) / "bin" / "nvcc")
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(Path(which))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH "
+                       "and /usr/local/cuda/bin): the CUDA kernels cannot "
+                       "be built")
+
+
+def flags(fmad: bool = False) -> list:
+    return [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
+            "-Xptxas", "-v"]
+
+
+def library_path(fmad: bool = False) -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(flags(fmad)).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtinyrt_torch_{h.hexdigest()[:16]}.so"
+
+
+def build(fmad: bool = False) -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists.
+    Returns its path; the compiler's output is kept beside it (.log)."""
+    out = library_path(fmad)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *flags(fmad), "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)     # atomic: concurrent builders agree
+    return out
+
+
+def load(fmad: bool = False) -> ctypes.CDLL:
+    """The kernel library, built if needed and loaded once per process."""
+    with _lock:
+        lib = _loaded.get(fmad)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(fmad)))
+            _declare(lib)
+            _loaded[fmad] = lib
+        return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    # argtypes for every exported function: without them ctypes passes
+    # ints as 32 bits and would cut pointers
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    fn = lib.tinyrt_megakernel_packed
+    fn.argtypes = [p, p, i, i, i, p, i, i, u, u, i, i, f, i, i, i, p]
+    fn.restype = i
+    lib.tinyrt_error_string.argtypes = [i]
+    lib.tinyrt_error_string.restype = ctypes.c_char_p
