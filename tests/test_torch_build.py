@@ -5,6 +5,8 @@ logic around it (source hashing, the build cache, error reporting) is
 checked on any machine.
 """
 
+import ctypes
+
 import pytest
 
 from tinyraytracer_tpu_torch import _build
@@ -18,42 +20,81 @@ def _fake_nvcc(tmp_path, body: str) -> str:
 
 
 @pytest.fixture
-def sandbox(tmp_path, monkeypatch):
+def fake_tree(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// v1\n")
+    (src / "j.cu").write_text('#include "c.cuh"\n')
+    (src / "c.cuh").write_text("// header v1\n")
     monkeypatch.setattr(_build, "CSRC_DIR", src)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     return tmp_path
 
 
-def test_build_caches_by_source_and_flag_hash(sandbox, monkeypatch):
-    calls = sandbox / "calls"
-    nvcc = _fake_nvcc(sandbox, (
+def test_build_caches_by_source_and_flag_hash(fake_tree, monkeypatch):
+    """One nvcc per source (-c), then one link (-shared); a rebuild only
+    when a source, a header or the flags change."""
+    calls = fake_tree / "calls"
+    nvcc = _fake_nvcc(fake_tree, (
+        f'echo "$*" >> "{calls}"\n'
         'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
-        f'echo x >> "{calls}"\n'
         'echo "ptxas info : Used 8 registers" >&2\n'
         ': > "$out"\n'))
     monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
+
+    def links():
+        return [c for c in calls.read_text().splitlines() if "-shared" in c]
+
     first = _build.build()
-    assert first.is_file() and first.parent == sandbox / "_build"
+    assert first.is_file() and first.parent == fake_tree / "_build"
     assert "Used 8 registers" in first.with_suffix(".log").read_text()
+    compiles = [c for c in calls.read_text().splitlines() if " -c " in c]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == [
+        "j.cu", "k.cu"]
+    assert len(links()) == 1 and links()[0].count(".o") == 2
     assert _build.build() == first                  # cached: no rebuild
-    assert calls.read_text().count("x") == 1
+    assert len(links()) == 1
     fma = _build.build(fmad=True)                   # other flags, other file
-    assert fma != first and calls.read_text().count("x") == 2
-    (sandbox / "csrc" / "k.cu").write_text("// v2\n")
+    assert fma != first and len(links()) == 2
+    (fake_tree / "csrc" / "k.cu").write_text("// v2\n")
     second = _build.build()                         # changed source
-    assert second != first and calls.read_text().count("x") == 3
-    assert not list((sandbox / "_build").glob("*.tmp"))
+    assert second != first and len(links()) == 3
+    (fake_tree / "csrc" / "c.cuh").write_text("// header v2\n")
+    assert _build.build() not in (first, second)    # changed header
+    assert len(links()) == 4
+    left = {p.suffix for p in (fake_tree / "_build").iterdir()}
+    assert left == {".so", ".log"}                  # no objects, no .tmp
 
 
-def test_build_failure_raises_compiler_output(sandbox, monkeypatch):
-    nvcc = _fake_nvcc(sandbox, 'echo "k.cu(3): error: boom" >&2\nexit 2\n')
+def test_declare_types_every_exported_function():
+    """Each kernel entry point gets argtypes, pointers as c_void_p: with
+    untyped arguments ctypes would pass them as 32-bit ints."""
+    from types import SimpleNamespace
+
+    names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
+             "tinyrt_error_string")
+    lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
+    _build._declare(lib)
+    p = ctypes.c_void_p
+    packed = lib.tinyrt_megakernel_packed.argtypes
+    assert len(packed) == 17
+    assert [k for k, t in enumerate(packed) if t is p] == [0, 1, 5, 16]
+    flat = lib.tinyrt_megakernel_flat.argtypes
+    assert len(flat) == 23
+    assert [k for k, t in enumerate(flat) if t is p] == [0, 1, 4, 6, 8, 11,
+                                                         22]
+    assert flat[18] is ctypes.c_float
+    assert flat[14] is flat[15] is ctypes.c_uint
+    for n in names[:2]:
+        assert getattr(lib, n).restype is ctypes.c_int
+
+
+def test_build_failure_raises_compiler_output(fake_tree, monkeypatch):
+    nvcc = _fake_nvcc(fake_tree, 'echo "k.cu(3): error: boom" >&2\nexit 2\n')
     monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
     with pytest.raises(RuntimeError, match="error: boom"):
         _build.build()
-    assert not list((sandbox / "_build").glob("*.so*"))
+    assert not list((fake_tree / "_build").glob("*.so*"))
 
 
 def test_flags_target_hopper_without_fast_math():

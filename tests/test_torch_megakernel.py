@@ -82,13 +82,6 @@ def test_spp_offset_partitions_samples():
     _assert_image_close(b.numpy(), np.asarray(jb))
 
 
-def test_large_scene_not_implemented():
-    world, camera, kw = tpresets.random_spheres(width=8, height=6, n=60)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tmk.MegakernelRenderer(world.build(), camera, kw["background"],
-                               "cpu")
-
-
 def _shade_inputs(seed: int, n: int = 4096):
     """Random bounce state and winner payloads, as numpy f32/bool."""
     r = np.random.default_rng(seed)

@@ -109,12 +109,8 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_entry_points_raise():
-    world, camera, _ = presets.sphere_ground(width=4, height=4)
-    r = Renderer(1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        r.render_batch(camera, world, [0, 1])
-    with pytest.raises(NotImplementedError):
-        r.render_async(camera, world)
+    """An unknown accelerator is refused (render_batch and render_async
+    are ported: tests/test_torch_render_api.py)."""
     with pytest.raises(ValueError):
         Renderer(1, device="cpu", accelerator="warp")
 

@@ -4,10 +4,11 @@ megakernel hand-written in CUDA for NVIDIA Hopper (sm_90a).
 A port of the JAX package `tinyraytracer_tpu`, which stays the reference
 it is tested against. This package imports neither JAX nor the JAX
 package. Implemented so far: the scene API (cameras, spheres, quads,
-groups, materials, worlds, presets), the forward render path for scenes
-of up to 48 primitives (`Renderer.render` -> scene table -> packed
-megakernel -> gamma-2.2 `Image` -> PNG), and the CLI
-(`python -m tinyraytracer_tpu_torch`).
+groups, materials, worlds, presets), the forward render path
+(`Renderer.render` -> scene lowering -> the packed megakernel for scenes
+of up to 48 primitives, the classic-layout megakernel above -> gamma-2.2
+`Image` -> PNG), `Renderer.render_batch` and `Renderer.render_async`, and
+the CLI (`python -m tinyraytracer_tpu_torch`).
 
 A CUDA device renders with the CUDA kernel (csrc/, built with nvcc at
 first use); `device="cpu"` renders with the kernel's plain PyTorch twin.
@@ -26,7 +27,7 @@ from tinyraytracer_tpu_torch.models.world import (
     World,
     scene_from_numpy,
 )
-from tinyraytracer_tpu_torch.renderer import Renderer
+from tinyraytracer_tpu_torch.renderer import Renderer, RenderHandle
 from tinyraytracer_tpu_torch.utils.image import Image
 
 __version__ = "0.1.0"
@@ -45,5 +46,6 @@ __all__ = [
     "SceneArrays",
     "scene_from_numpy",
     "Renderer",
+    "RenderHandle",
     "Image",
 ]

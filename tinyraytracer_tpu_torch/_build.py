@@ -1,12 +1,14 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface, under `_build/` beside this
-file. The library's name carries a hash of the sources and the flags, so
-a changed source builds anew and an unchanged one loads what is there.
-If `nvcc` is missing or fails, the compiler's error is raised.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, for Hopper (`sm_90a`); the objects are then linked into one
+shared library with a plain C interface, under `_build/` beside this
+file. The library's name carries a hash of the sources (headers
+included) and the flags, so a changed source builds anew and an
+unchanged one loads what is there. If `nvcc` is missing or fails, the
+compiler's error is raised.
 
-Flags that matter for the numbers (see csrc/megakernel_packed.cu):
+Flags that matter for the numbers (see csrc/common.cuh):
 `--fmad=false` keeps every multiply and add separately rounded, as in the
 reference; no `--use_fast_math`, so `sqrtf` and `/` stay IEEE.
 `-Xptxas -v` writes each kernel's registers and spills into the build log.
@@ -51,9 +53,9 @@ def nvcc_path() -> str:
 
 
 def flags(fmad: bool = False) -> list:
-    return [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
-            "-Xptxas", "-v"]
+    """Compile flags of every source."""
+    return [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            f"--fmad={'true' if fmad else 'false'}", "-Xptxas", "-v"]
 
 
 def library_path(fmad: bool = False) -> Path:
@@ -65,22 +67,44 @@ def library_path(fmad: bool = False) -> Path:
     return BUILD_DIR / f"libtinyrt_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> list:
+    """Runs the commands side by side; returns their (code, output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return [(p.returncode, out) for p, out in
+            ((p, p.communicate()[0]) for p in procs)]
+
+
 def build(fmad: bool = False) -> Path:
     """Compile csrc/*.cu unless the library for these sources exists.
-    Returns its path; the compiler's output is kept beside it (.log)."""
+    Returns its path; the compilers' output is kept beside it (.log)."""
     out = library_path(fmad)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags(fmad), "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    steps = [[[nvcc, *flags(fmad), "-c", "-o", str(o), str(s)]
+              for s, o in zip(srcs, objs)],
+             [[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]]]
+    log = []
+    try:
+        for cmds in steps:
+            for cmd, (code, text) in zip(cmds, _run(cmds)):
+                log.append(text)
+                if code != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"nvcc failed with code {code}: "
+                                       f"{' '.join(cmd)}\n{text}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)     # atomic: concurrent builders agree
     return out
 
@@ -102,6 +126,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.tinyrt_megakernel_packed
     fn.argtypes = [p, p, i, i, i, p, i, i, u, u, i, i, f, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_megakernel_flat
+    fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, i, i, u, u, i, i, f,
+                   i, i, i, p]
     fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

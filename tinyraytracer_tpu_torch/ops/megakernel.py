@@ -1,30 +1,56 @@
-"""Forward megakernel: one bounce's shading and the scene-bound renderer.
+"""Forward megakernels: the shared per-pixel sampler, the classic-layout
+kernel (K2) and the scene-bound renderer.
 
 `shade_bounce` is the plain PyTorch twin of one bounce of the JAX
 package's `megakernel._shade_bounce` (emission / background, the material
 scatter lobes, throughput update), written op for op in the same order so
-that the twin, the JAX kernels and the CUDA kernel
-(csrc/megakernel_packed.cu) run the same arithmetic per pixel. It works on
-tensors of any one shape.
+that the twins, the JAX kernels and the CUDA kernels (csrc/common.cuh)
+run the same arithmetic per pixel. It works on tensors of any one shape.
+`lockstep_render` is the sample and bounce loop both twins share, and
+`dense_closest_hit` their closest-hit search.
+
+`render_flat` is the wrapper of K2, the port of the JAX package's
+`megakernel._make_kernel` (ops/megakernel.py:489) in its default regen
+mode: the same sampler as the packed kernel over the compacted scene rows
+of `scene_table.lower_flat`, for scenes of any size, with an optional
+per-block AABB cull of the sphere rows. On a CPU tensor it runs
+`render_flat_reference`, the plain twin; on a CUDA tensor it launches
+csrc/megakernel.cu and raises if the launch fails. `render_flat.launches`
+counts kernel launches.
 
 `MegakernelRenderer` binds a scene and camera and renders (H, W, 3)
-linear radiance through the packed megakernel (ops/megakernel_packed.py):
-on a CUDA device the hand-written kernel, on the CPU its plain twin. Only
-the packed route (scenes of at most PACKED_MAX_PRIMS real primitives) is
-ported; larger scenes need the classic-layout kernel, which is not.
+linear radiance: scenes of at most PACKED_MAX_PRIMS real primitives
+through the packed kernel (ops/megakernel_packed.py), larger ones through
+K2, as the JAX package routes them.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays
-from tinyraytracer_tpu_torch.ops import scene_table
+from tinyraytracer_tpu_torch.ops import rng, scene_table
 
 T_MIN = 1.0e-3      # sampler/cpu.rs:48
 MISS = 3.0e38
 TWO_PI = 6.283185307179586   # used as f32: 6.2831855
+
+# The JAX package culls row blocks when the scene has more padded active
+# rows than its dense kernel fits at the 128-lane floor:
+# `auto_tile_rays(n_rows) == 0` means n_rows * 128 > 512 * 1024
+# (megakernel.py:67, MAX_ROWS_X_TILE). Its VMEM model is not ported; this
+# one threshold is, so that both packages Morton-order the rows of the
+# same scenes: row order decides exact ties.
+AUTO_CULL_ROWS = 4096
+
+# Most elements of one candidate matrix (rows x pixels) the twin builds
+# when no pixel chunk is given (16 MiB of f32 per intermediate).
+CANDIDATE_BUDGET = 1 << 22
 
 
 def normalize3(x, y, z):
@@ -174,36 +200,350 @@ def shade_bounce(ox, oy, oz, dx, dy, dz,
             tput_r, tput_g, tput_b, col_r, col_g, col_b, sf)
 
 
+def sphere_ts(sph: torch.Tensor, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
+    """(S, P) hit distances of rays (P,) against spheres `sph` (S, 4+):
+    the near root, else the far one, at t >= T_MIN; MISS when neither
+    (sphere.rs:29-54)."""
+    ocx = ox - sph[:, 0:1]
+    ocy = oy - sph[:, 1:2]
+    ocz = oz - sph[:, 2:3]
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    c_term = ocx * ocx + ocy * ocy + ocz * ocz - sph[:, 3:4]
+    disc = half_b * half_b - c_term
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = -half_b - sq
+    t1 = -half_b + sq
+    t = torch.where(t0 >= T_MIN, t0, torch.where(t1 >= T_MIN, t1, MISS))
+    return torch.where(disc >= 0.0, t, MISS)
+
+
+def dense_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
+                      pay: torch.Tensor):
+    """Closest hit over a dense (rows, pixels) candidate matrix.
+
+    `sph` is (S, 4+) with (cx, cy, cz, r^2) first, `quad` (Q, 12+) with
+    (n, n.corner, av, ca, bv, cb) first, both real rows only; `pay` is
+    (S + Q, 13): is_quad, normal source (3), kind, albedo (3), fuzz, ior,
+    emission (3). argmin's first index over spheres-then-quads is the
+    kernels' strict-`<` running minimum over the same order. Returns
+    f(ox, oy, oz, dx, dy, dz) -> (best t, hit, 13 payload columns, all
+    zero on a miss)."""
+    n_sph, n_quad = sph.shape[0], quad.shape[0]
+
+    def closest_hit(ox, oy, oz, dx, dy, dz):
+        ts = []
+        if n_sph:
+            ts.append(sphere_ts(sph, ox, oy, oz, dx, dy, dz))
+        if n_quad:
+            # plane + planar coordinates, half-open [0, 1) (quad.rs:33-54)
+            q = [quad[:, k:k + 1] for k in range(12)]
+            qnx, qny, qnz, qdp, avx, avy, avz, qca, bvx, bvy, bvz, qcb = q
+            den = qnx * dx + qny * dy + qnz * dz
+            ok_den = torch.abs(den) >= 1e-12
+            den = torch.where(ok_den, den, 1e-12)
+            tq = (qdp - (qnx * ox + qny * oy + qnz * oz)) / den
+            al = (avx * ox + avy * oy + avz * oz) + tq * (
+                avx * dx + avy * dy + avz * dz) - qca
+            be = (bvx * ox + bvy * oy + bvz * oz) + tq * (
+                bvx * dx + bvy * dy + bvz * dz) - qcb
+            ok = (ok_den & (tq >= T_MIN) & (al >= 0.0) & (al < 1.0)
+                  & (be >= 0.0) & (be < 1.0))
+            ts.append(torch.where(ok, tq, MISS))
+        ts = torch.cat(ts, 0)
+        win = torch.argmin(ts, 0)
+        best = ts.gather(0, win[None])[0]
+        hit = best < MISS
+        w = torch.where(hit[:, None], pay[win], 0.0)
+        return best, hit, w.unbind(1)
+
+    return closest_hit
+
+
+def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
+                    height: int, spp: int, max_bounces: int, seed: int,
+                    spp_offset: int, has_met: bool, has_die: bool,
+                    sky: bool, pixel_chunk: int = 0) -> torch.Tensor:
+    """The twins' sampler: (H, W, 3) f32 mean radiance over samples
+    [spp_offset, spp_offset + spp).
+
+    Lockstep sample and bounce loops with every pixel of a chunk a lane.
+    A pixel whose path ended adds +0.0 until its sample is folded, exactly
+    as a lane of the JAX regeneration loop does, so each pixel sees the
+    kernels' op sequence; chunking the pixels changes no bit.
+    `closest_hit(ox, oy, oz, dx, dy, dz)` returns (best t, hit, the 13
+    payload columns of `dense_closest_hit`). `pixel_chunk` 0 takes all
+    pixels at once.
+    """
+    dev = cam.device
+    n = width * height
+    c = cam.unbind(0)     # 0-dim f32 tensors: scalar math stays in f32
+    pos, ul, hor, ver = c[0:3], c[3:6], c[6:9], c[9:12]
+    du, dv = c[12:15], c[15:18]
+    inv_w1, inv_h1 = c[18], c[19]
+    bg = c[20:23]
+    bg2 = c[24:27] if sky else None
+    inv = float(np.float32(1.0 / spp))
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    step = pixel_chunk or n
+    for p0 in range(0, n, step):
+        pid = torch.arange(p0, min(p0 + step, n), dtype=torch.int64,
+                           device=dev)
+        px = (pid % width).to(torch.float32)
+        py = (pid // width).to(torch.float32)
+
+        def gen_camera_ray(samp):
+            r1, r2, r3, r4 = rng.uniform4(seed, pid, samp, 0)
+            # pointgen.rs:41-42 (w-1)/(h-1) normalization
+            u = (px + r1) * inv_w1
+            v = (py + r2) * inv_h1
+            # defocus disk, polar form (math/vec3extend.rs:45-53)
+            rad = torch.sqrt(r3)
+            th = TWO_PI * r4
+            cth, sth = torch.cos(th), torch.sin(th)
+            o = [pos[k] + rad * cth * du[k] + rad * sth * dv[k]
+                 for k in range(3)]
+            t = [ul[k] + u * hor[k] - v * ver[k] - o[k] for k in range(3)]
+            return (*o, *normalize3(*t))
+
+        one = torch.ones(pid.shape[0], dtype=torch.float32, device=dev)
+        acc = [torch.zeros_like(one) for _ in range(3)]
+        for s in range(spp):
+            samp = (spp_offset + s) & 0xFFFFFFFF
+            ox, oy, oz, dx, dy, dz = gen_camera_ray(samp)
+            tput = [one, one, one]
+            col = [torch.zeros_like(one) for _ in range(3)]
+            alive = torch.ones(pid.shape[0], dtype=torch.bool, device=dev)
+            for b in range(max_bounces):
+                best, hit, w = closest_hit(ox, oy, oz, dx, dy, dz)
+                u1, u2, u3, u4 = rng.uniform4(seed, pid, samp, 1 + b)
+                (ox, oy, oz, dx, dy, dz, *tput, c_r, c_g, c_b,
+                 alive_f) = shade_bounce(
+                    ox, oy, oz, dx, dy, dz, *tput, *col, alive, best, hit,
+                    *w, u1, u2, u3, u4, bg, bg2, has_met=has_met,
+                    has_die=has_die)
+                col = [c_r, c_g, c_b]
+                alive = alive_f > 0.5
+                if not bool(alive.any()):
+                    break
+            acc = [a + x for a, x in zip(acc, col)]
+        out[p0:p0 + pid.shape[0]] = torch.stack([a * inv for a in acc], -1)
+    return out.view(height, width, 3)
+
+
+# --- K2: the classic-layout megakernel ------------------------------------
+
+def _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
+                spp, max_bounces):
+    ts = dict(sph=sph, quad=quad, pay=pay, cam=cam)
+    if aabbs is not None:
+        ts["aabbs"] = aabbs
+    for name, t in ts.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{t.dtype}")
+        if t.device != sph.device:
+            raise ValueError(f"{name} on {t.device}, sph on {sph.device}")
+    if sph.dim() != 2 or sph.shape[1] != 4 or sph.shape[0] < 1:
+        raise ValueError(f"sph must be (ns, 4), got {tuple(sph.shape)}")
+    if quad.dim() != 2 or quad.shape[1] != 12 or quad.shape[0] < 1:
+        raise ValueError(f"quad must be (nq, 12), got {tuple(quad.shape)}")
+    ns, nq = sph.shape[0], quad.shape[0]
+    if not (0 <= n_sph <= ns and 0 <= n_quad <= nq and n_sph + n_quad):
+        raise ValueError(f"{n_sph} spheres and {n_quad} quads do not fit "
+                         f"{ns} sphere and {nq} quad rows")
+    na = (ns if n_sph else 0) + (nq if n_quad else 0)
+    if tuple(pay.shape) != (na, 16):
+        raise ValueError(f"pay must be ({na}, 16), got {tuple(pay.shape)}")
+    if tuple(cam.shape) != (32,):
+        raise ValueError(f"cam must be (32,), got {tuple(cam.shape)}")
+    if aabbs is not None:
+        k = -(-ns // min(scene_table.ROW_CHUNK, ns))
+        if tuple(aabbs.shape) != (k, 8):
+            raise ValueError(f"aabbs must be ({k}, 8), got "
+                             f"{tuple(aabbs.shape)}")
+    if width < 2 or height < 2:
+        raise ValueError(f"image must be at least 2x2, got {width}x{height}")
+    if spp < 1 or max_bounces < 1:
+        raise ValueError(f"spp={spp} and max_bounces={max_bounces} must "
+                         "be >= 1")
+
+
+def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
+                cam: torch.Tensor, aabbs: torch.Tensor | None = None, *,
+                n_sph: int, n_quad: int, width: int, height: int, spp: int,
+                max_bounces: int, seed: int = 0, spp_offset: int = 0,
+                has_met: bool = True, has_die: bool = True,
+                sky: bool = False, fmad: bool = False) -> torch.Tensor:
+    """(H, W, 3) f32 mean radiance over samples [spp_offset,
+    spp_offset + spp) on the device of `sph`.
+
+    The inputs are `scene_table.FlatScene`'s arrays as tensors. With
+    `aabbs` the kernel skips a block of ROW_CHUNK sphere rows when the
+    pixel's ray does not enter the block's AABB before its best hit so
+    far; the cull is exact, so the image is the same. `fmad=True` selects
+    a build compiled with FMA contraction, for numerics comparisons only.
+    The CPU twin ignores `aabbs` and `fmad`.
+    """
+    _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
+                spp, max_bounces)
+    kw = dict(n_sph=n_sph, n_quad=n_quad, width=width, height=height,
+              spp=spp, max_bounces=max_bounces, seed=seed,
+              spp_offset=spp_offset, has_met=has_met, has_die=has_die,
+              sky=sky)
+    if sph.device.type == "cpu":
+        return render_flat_reference(sph, quad, pay, cam, **kw)
+    if sph.device.type != "cuda":
+        raise ValueError(f"no megakernel for device {sph.device}")
+    rows = [t for t in (sph, quad, pay, aabbs) if t is not None]
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError("sph, quad, pay and aabbs must be 16-byte aligned: "
+                         "the kernel reads their rows as float4")
+    lib = _build.load(fmad=fmad)
+    ns = sph.shape[0]
+    out = torch.empty((height, width, 3), dtype=torch.float32,
+                      device=sph.device)
+    with torch.cuda.device(sph.device):
+        stream = torch.cuda.current_stream(sph.device).cuda_stream
+        err = lib.tinyrt_megakernel_flat(
+            cam.data_ptr(), sph.data_ptr(), n_sph, ns, quad.data_ptr(),
+            n_quad, pay.data_ptr(), ns if n_sph else 0,
+            aabbs.data_ptr() if aabbs is not None else None,
+            aabbs.shape[0] if aabbs is not None else 0,
+            min(scene_table.ROW_CHUNK, ns),
+            out.data_ptr(), width, height,
+            seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
+            float(np.float32(1.0 / spp)),
+            int(has_met), int(has_die), int(sky), stream)
+    if err != 0:
+        msg = lib.tinyrt_error_string(err).decode()
+        raise RuntimeError(f"megakernel_flat launch failed: CUDA error "
+                           f"{err} ({msg})")
+    render_flat.launches += 1
+    return out
+
+
+render_flat.launches = 0
+
+
+def flat_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
+                     pay: torch.Tensor, n_sph: int, n_quad: int):
+    """`dense_closest_hit` over the real rows of K2's inputs, the winner
+    payload gathered from the (NA, 16) payload rows by index."""
+    q0 = sph.shape[0] if n_sph else 0
+    isq = pay[:, 0:1]
+    pay13 = torch.cat([isq, torch.where(isq > 0.5, pay[:, 4:7], pay[:, 1:4]),
+                       pay[:, 7:16]], 1)
+    pay13 = torch.cat([pay13[:n_sph], pay13[q0:q0 + n_quad]], 0)
+    return dense_closest_hit(sph[:n_sph], quad[:n_quad], pay13)
+
+
+def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
+                          pay: torch.Tensor, cam: torch.Tensor, *,
+                          n_sph: int, n_quad: int, width: int, height: int,
+                          spp: int, max_bounces: int, seed: int = 0,
+                          spp_offset: int = 0, has_met: bool = True,
+                          has_die: bool = True, sky: bool = False,
+                          pixel_chunk: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of K2 (no cull: the cull is exact, so this is
+    what the culled and the unculled kernel are both held to).
+
+    The closest hit is `flat_closest_hit`. Pixels go in chunks of
+    `pixel_chunk` (0: as many as keep the candidate matrix within
+    CANDIDATE_BUDGET elements)."""
+    _check_flat(sph, quad, pay, cam, None, n_sph, n_quad, width, height,
+                spp, max_bounces)
+    if not pixel_chunk:
+        pixel_chunk = max(1, CANDIDATE_BUDGET // (n_sph + n_quad))
+    return lockstep_render(
+        cam, flat_closest_hit(sph, quad, pay, n_sph, n_quad),
+        width=width, height=height, spp=spp,
+        max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
+        has_met=has_met, has_die=has_die, sky=sky, pixel_chunk=pixel_chunk)
+
+
+# --- the scene-bound renderer ---------------------------------------------
+
 class MegakernelRenderer:
-    """Scene-bound forward renderer: one kernel launch per image."""
+    """Scene-bound forward renderer: one kernel launch per image.
+
+    `chunk_cull` (K2 only): None culls when the scene has more than
+    AUTO_CULL_ROWS padded active rows and at least one sphere, as the JAX
+    package does; True or False forces it. Host lowerings and their
+    device copies are made at first use and kept.
+    """
 
     def __init__(self, scene: SceneArrays, camera: Camera, background,
-                 device):
-        # deferred: megakernel_packed imports this module's shading
-        from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
-
+                 device, chunk_cull: bool | None = None):
         self.device = torch.device(device)
+        self.scene = scene
         self.camera = camera
-        low = scene_table.lower(scene, camera, background)
-        n_real = low.n_sph + low.n_quad
-        if n_real == 0:
+        self.background = background
+        a = scene.numpy()
+        self.n_sph = int(a["sph_valid"].sum())
+        self.n_quad = int(a["quad_valid"].sum())
+        if self.n_sph + self.n_quad == 0:
             raise ValueError("scene has no primitives")
-        if n_real > mkp.PACKED_MAX_PRIMS:
-            raise NotImplementedError(
-                f"scene has {n_real} primitives; scenes above "
-                f"{mkp.PACKED_MAX_PRIMS} need the classic-layout megakernel "
-                "(K2, ops/megakernel.py:_make_kernel), which is not ported "
-                "yet")
-        self.lowered = low
-        self.table = torch.from_numpy(low.table).to(self.device)
-        self.cam = torch.from_numpy(low.cam).to(self.device)
+        if chunk_cull is None:
+            rows = ((scene_table.pad8(self.n_sph) if self.n_sph else 0)
+                    + (scene_table.pad8(self.n_quad) if self.n_quad else 0))
+            chunk_cull = rows > AUTO_CULL_ROWS
+        self.chunk_cull = bool(chunk_cull) and self.n_sph > 0
+
+    @functools.cached_property
+    def lowered(self) -> scene_table.LoweredScene:
+        """The packed kernel's host lowering."""
+        return scene_table.lower(self.scene, self.camera, self.background)
+
+    @functools.cached_property
+    def table(self) -> torch.Tensor:
+        return torch.from_numpy(self.lowered.table).to(self.device)
+
+    @functools.cached_property
+    def cam(self) -> torch.Tensor:
+        return torch.from_numpy(self.lowered.cam).to(self.device)
+
+    @functools.cached_property
+    def flat(self) -> scene_table.FlatScene:
+        """K2's host lowering."""
+        return scene_table.lower_flat(self.scene, self.camera,
+                                      self.background,
+                                      chunk_cull=self.chunk_cull)
+
+    @functools.cached_property
+    def flat_tensors(self) -> dict:
+        """K2's inputs on the renderer's device, keyed as `render_flat`
+        takes them."""
+        f = self.flat
+        dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        return dict(sph=dev(f.sph), quad=dev(f.quad), pay=dev(f.pay),
+                    cam=dev(f.cam),
+                    aabbs=None if f.aabbs is None else dev(f.aabbs))
+
+    def flat_args(self, *, spp: int, max_bounces: int, seed: int = 0,
+                  spp_offset: int = 0) -> dict:
+        """Keyword arguments of `render_flat` for this scene."""
+        f = self.flat
+        return dict(self.flat_tensors, n_sph=f.n_sph, n_quad=f.n_quad,
+                    width=self.camera.width, height=self.camera.height,
+                    spp=spp, max_bounces=max_bounces, seed=seed,
+                    spp_offset=spp_offset, has_met=f.has_met,
+                    has_die=f.has_die, sky=f.sky)
 
     def render(self, *, spp: int, max_bounces: int, seed: int = 0,
-               spp_offset: int = 0) -> torch.Tensor:
+               spp_offset: int = 0, packed: bool | None = None
+               ) -> torch.Tensor:
         """(H, W, 3) f32 mean radiance over samples [spp_offset,
-        spp_offset + spp), on the renderer's device."""
+        spp_offset + spp), on the renderer's device. `packed` None takes
+        the packed kernel for at most PACKED_MAX_PRIMS real primitives and
+        K2 above (megakernel.py:1455-1466); True or False forces one."""
         from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 
+        if packed is None:
+            packed = self.n_sph + self.n_quad <= mkp.PACKED_MAX_PRIMS
+        if not packed:
+            return render_flat(**self.flat_args(
+                spp=spp, max_bounces=max_bounces, seed=seed,
+                spp_offset=spp_offset))
         low = self.lowered
         return mkp.render_packed(
             self.table, self.cam,
@@ -216,7 +556,9 @@ class MegakernelRenderer:
 
 def render_image_megakernel(scene: SceneArrays, camera: Camera, *, spp: int,
                             max_bounces: int, background, device,
-                            seed: int = 0) -> torch.Tensor:
+                            seed: int = 0,
+                            packed: bool | None = None) -> torch.Tensor:
     """One-shot megakernel render. Returns (H, W, 3) linear radiance."""
     r = MegakernelRenderer(scene, camera, background, device)
-    return r.render(spp=spp, max_bounces=max_bounces, seed=seed)
+    return r.render(spp=spp, max_bounces=max_bounces, seed=seed,
+                    packed=packed)

@@ -12,13 +12,18 @@ bit:
 - `camera_vector`: the (1, 32) camera/background row
   (megakernel._camera_vector).
 - `used_kind_flags`: which scatter lobes the scene can reach.
+- `morton_order`, `build_chunk_aabbs`: the spatial sphere order and the
+  per-block AABBs of the culled row sweep (megakernel._morton_order,
+  megakernel._build_chunk_aabbs).
 
-`lower` runs all of them for a renderer.
+`lower` runs them for the packed kernel (K1), `lower_flat` for the
+classic-layout kernel (K2).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -64,14 +69,17 @@ class CompactScene:
         return int(self.quad_n.shape[0])
 
 
-def _pad8(n: int) -> int:
+def pad8(n: int) -> int:
+    """Rows a block of n primitives takes: a multiple of 8, at least 8."""
     return max(8, ((n + 7) // 8) * 8)
 
 
-def compact_scene(scene: SceneArrays) -> CompactScene:
+def compact_scene(scene: SceneArrays, sphere_order=None) -> CompactScene:
     """Drop padded slots, re-pad to 8 with inert rows, precompute quad
     planes. Order is preserved, so a first-minimum tie-break over the
-    compacted rows equals one over the full arrays."""
+    compacted rows equals one over the full arrays. `sphere_order`, a
+    permutation of range(n_valid_spheres), reorders the sphere rows
+    (`morton_order` for the culled sweep); `index_map` follows it."""
     a = scene.numpy()
     sc = a["sph_center"].astype(np.float32)
     sr = a["sph_radius"].astype(np.float32)
@@ -82,8 +90,10 @@ def compact_scene(scene: SceneArrays) -> CompactScene:
     qvl = a["quad_valid"].astype(bool)
 
     s_idx = np.nonzero(sv)[0]
+    if sphere_order is not None:
+        s_idx = s_idx[np.asarray(sphere_order)]
     q_idx = np.nonzero(qvl)[0]
-    ns, nq = _pad8(len(s_idx)), _pad8(len(q_idx))
+    ns, nq = pad8(len(s_idx)), pad8(len(q_idx))
 
     sph_c = np.full((ns, 3), _FAR, np.float32)
     sph_r2 = np.zeros((ns, 1), np.float32)
@@ -248,6 +258,10 @@ class LoweredScene:
     sky: bool
 
 
+def _is_sky(background) -> bool:
+    return np.asarray(background, np.float32).shape == (2, 3)
+
+
 def lower(scene: SceneArrays, camera: Camera, background) -> LoweredScene:
     cs = compact_scene(scene)
     tab, _ = scene_table(cs, payload_matrix(scene, cs))
@@ -259,5 +273,123 @@ def lower(scene: SceneArrays, camera: Camera, background) -> LoweredScene:
         n_quad=cs.n_quad_real,
         has_met=has_met,
         has_die=has_die,
-        sky=np.asarray(background, np.float32).shape == (2, 3),
+        sky=_is_sky(background),
+    )
+
+
+# Sphere rows per block of the culled sweep: one AABB per block. The JAX
+# package's default row-streaming width (TINYRT_ROW_CHUNK).
+ROW_CHUNK = 256
+
+
+def morton_order(centers: np.ndarray) -> np.ndarray:
+    """Stable argsort of the spheres' Morton (Z-order) codes, 10 bits per
+    axis over the centers' bounding box: spheres near each other land in
+    the same block of the culled sweep."""
+    lo = centers.min(axis=0)
+    span = np.maximum(centers.max(axis=0) - lo, 1e-12)
+    q = np.clip(((centers - lo) / span * 1023.0), 0, 1023).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+    return np.argsort(code, kind="stable")
+
+
+def build_chunk_aabbs(cs: CompactScene, chunk: int) -> tuple:
+    """(cmin (K, 3), cmax (K, 3)) f32 AABBs of the sphere row blocks.
+
+    Block i covers compacted sphere rows [min(i*c, ns-c), +c) with
+    c = min(chunk, ns): the tail block's base is clamped, so it re-covers
+    rows of the block before it. Each AABB spans the real members'
+    center +- |r|, widened by 5e-5. A block with no real member keeps
+    (1, -1); the slab test orders each corner pair, so that box is the
+    cube [-1, 1]^3, not an empty one, and it is never reached: padding
+    adds at most 7 inert rows."""
+    ns = cs.ns
+    c = min(chunk, ns)
+    k = -(-ns // c)
+    r = np.sqrt(cs.sph_r2[:, 0])
+    real = cs.sph_c[:, 0] < 1e29
+    cmin = np.full((k, 3), 1.0, np.float32)
+    cmax = np.full((k, 3), -1.0, np.float32)
+    for i in range(k):
+        base = min(i * c, ns - c)
+        m = real[base:base + c]
+        if not m.any():
+            continue
+        cb = cs.sph_c[base:base + c][m]
+        rb = r[base:base + c][m][:, None]
+        cmin[i] = (cb - rb).min(axis=0) - 5e-5
+        cmax[i] = (cb + rb).max(axis=0) + 5e-5
+    return cmin, cmax
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatScene:
+    """Everything the classic-layout megakernel (K2) reads, on the host.
+
+    Rows are AoS so that one thread reads a whole row with float4 loads;
+    every thread of a warp reads the same row, so each load is a
+    broadcast. Inert pad rows (to multiples of 8) are kept, so row
+    numbers equal the JAX package's; the kernel walks real rows only.
+    """
+
+    sph: np.ndarray      # (ns, 4) f32: cx cy cz r^2
+    quad: np.ndarray     # (nq, 12) f32: n(3) dp av(3) ca bv(3) cb
+    pay: np.ndarray      # (NA, 16) f32: the sphere block's payload rows
+                         # (when there are spheres), then the quad block's
+    aabbs: Optional[np.ndarray]  # (K, 8) f32: min xyz, 0, max xyz, 0
+    cam: np.ndarray      # (32,) f32 camera vector
+    n_sph: int           # real spheres (rows [0, n_sph) of `sph`)
+    n_quad: int          # real quads (rows [0, n_quad) of `quad`)
+    has_met: bool
+    has_die: bool
+    sky: bool
+
+
+def lower_flat(scene: SceneArrays, camera: Camera, background, *,
+               chunk_cull: bool) -> FlatScene:
+    """K2's inputs. With `chunk_cull` the spheres are Morton-ordered and
+    each ROW_CHUNK block gets an AABB, as the JAX package lowers a scene
+    it culls; without it the rows keep scene order and `aabbs` is None.
+    The payload is megakernel._active_payload's (16, NA), transposed."""
+    order = None
+    if chunk_cull:
+        a = scene.numpy()
+        order = morton_order(
+            a["sph_center"].astype(np.float32)[a["sph_valid"].astype(bool)])
+    cs = compact_scene(scene, sphere_order=order)
+    if cs.n_sph_real + cs.n_quad_real == 0:
+        raise ValueError("scene has no primitives")
+    pay = payload_matrix(scene, cs)
+    lo = 0 if cs.n_sph_real else cs.ns
+    hi = cs.ns + cs.nq if cs.n_quad_real else cs.ns
+    aabbs = None
+    if chunk_cull:
+        cmin, cmax = build_chunk_aabbs(cs, ROW_CHUNK)
+        aabbs = np.zeros((cmin.shape[0], 8), np.float32)
+        aabbs[:, 0:3] = cmin
+        aabbs[:, 4:7] = cmax
+    has_met, has_die = used_kind_flags(scene)
+    return FlatScene(
+        sph=np.ascontiguousarray(
+            np.concatenate([cs.sph_c, cs.sph_r2], 1), np.float32),
+        quad=np.ascontiguousarray(np.concatenate(
+            [cs.quad_n, cs.quad_dp, cs.quad_av, cs.quad_ca, cs.quad_bv,
+             cs.quad_cb], 1), np.float32),
+        pay=np.ascontiguousarray(pay[:, lo:hi].T),
+        aabbs=aabbs,
+        cam=camera_vector(camera, background)[0],
+        n_sph=cs.n_sph_real,
+        n_quad=cs.n_quad_real,
+        has_met=has_met,
+        has_die=has_die,
+        sky=_is_sky(background),
     )

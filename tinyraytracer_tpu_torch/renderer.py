@@ -38,6 +38,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class RenderHandle:
+    """A render in flight: its device framebuffer and, on a CUDA device,
+    an event recorded on the stream right after the kernel launch."""
+
+    def __init__(self, fb: torch.Tensor, event):
+        self._fb = fb
+        self._event = event
+
+    def done(self) -> bool:
+        """Whether the render has finished, without waiting. A CPU render
+        finished before the handle was made."""
+        return self._event is None or self._event.query()
+
+    def result(self) -> Image:
+        """Waits for the render; returns the gamma-2.2 Image."""
+        if self._event is not None:
+            self._event.synchronize()
+        return Image.from_linear(self._fb, gamma=tonemap.GAMMA)
+
+
 class Renderer:
     def __init__(
         self,
@@ -97,11 +117,33 @@ class Renderer:
             fb = self.render_array(camera, scene)
         return Image.from_linear(fb, gamma=tonemap.GAMMA)
 
-    def render_async(self, camera: Camera, world: World):
-        raise NotImplementedError("render_async is not ported yet")
+    def render_async(self, camera: Camera, world: World) -> "RenderHandle":
+        """Start a render and return at once; the reference's
+        `JoinHandle<Image>` (renderer/renderer.rs:37-79). The launch is
+        queued on the current CUDA stream; `.result()` waits for it."""
+        scene = world.build() if isinstance(world, World) else world
+        fb = self.render_array(camera, scene)
+        event = None
+        if fb.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(fb.device))
+        return RenderHandle(fb, event)
 
-    def render_batch(self, camera: Camera, world: World, seeds):
-        raise NotImplementedError("render_batch is not ported yet")
+    def render_batch(self, camera: Camera, world: World, seeds) -> list:
+        """One gamma-2.2 Image per seed, each bitwise equal to `render`
+        with that seed: the frames render one after another on the device
+        from one scene lowering and come back in one host copy."""
+        seeds = [int(s) for s in seeds]
+        if not seeds:
+            return []
+        scene = world.build() if isinstance(world, World) else world
+        mk = MegakernelRenderer(scene, camera, self.background_color,
+                                self.device)
+        frames = torch.stack([
+            mk.render(spp=self.samples_per_pixel,
+                      max_bounces=self.max_bounces, seed=s)
+            for s in seeds]).cpu().numpy()
+        return [Image.from_linear(f, gamma=tonemap.GAMMA) for f in frames]
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
         """Chunk samples into rounds (global sample ids [off, off + n)) so
