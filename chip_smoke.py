@@ -31,6 +31,20 @@ Phases, each printed on its own lines:
    read off csrc/common.cuh they give each kernel's bound.
 7. `render_batch` / `render_async` on the card: frames bitwise equal to
    single renders.
+8. The closest-hit kernel (K3) against its twin, bit for bit on t and j:
+   primary rays (64x48 spp=4) and the scattered and NEE shadow rays of a
+   traced bounce on four scenes, then config 5's full wavefront of
+   720 000 primary rays, where both are also timed.
+9. The modular train step (`make_train_step`, 64x64 spp=4 mb=8) with K3
+   and with the twin's selection: loss, gradients and updated params bit
+   for bit, the step deterministic, K3 launched 2 x bounces x rounds
+   times; `fit(engine="modular")` refreshes its compaction on schedule.
+10. Config 5 at full size (cornell_spheres 600x600 mb=20, spp=200 unless
+   a step would pass STEP_LIMIT_S, then the largest divisor of 200 that
+   keeps it under): 1 warm-up and 2 timed steps, each ended by a host
+   read of the loss; fwd+bwd camera Mrays/s, peak memory, K3 launches and
+   share of the step. K3's counter is zeroed before and read after.
+11. `Renderer(accelerator="none")` (the modular tracer) against K1.
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -38,6 +52,7 @@ exits non-zero without that line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,6 +102,28 @@ OPS_DIELECTRIC = 49      # Schlick, refraction and the kind select
 OPS_CAMERA = 62          # camera_ray and the per-sample fold
 FP32_PEAK = 67e12        # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_S = 3.35e12
+
+
+# K3 (csrc/closest_hit.cu): FP32 operations per real row, counted as
+# above (sphere_t / quad_t plus the running-minimum compare), and bytes
+# per ray (origin and direction in, t and j out).
+OPS_K3_SPHERE_ROW = 29
+OPS_K3_QUAD_ROW = 49
+K3_BYTES_PER_RAY = 32
+K3_SCENES = [("cornell_spheres", {}), ("cornell_box", {}),
+             ("three_spheres", {}), ("random_spheres", dict(n=500))]
+# Config 5 (BASELINE.md:36, bench.py:289-310): the sphere fit.
+CFG5 = dict(width=600, height=600, spp=200, max_bounces=20)
+TRAINABLE = ("sph_center", "mat_albedo")
+STEP_LIMIT_S = 60.0
+# Renderer(accelerator="none") against K1 (phase 11): cornell_box's
+# light is coplanar with its ceiling, and ulp differences between the two
+# paths' hit points and camera rays decide that tie differently: the JAX
+# package's own modular render differs from its K1 there on 2.3 % of
+# pixels, image mean 8.1 % (64x48 spp=4 mb=8, CPU). The other two scenes
+# are held to the PARITY_* tolerances.
+ZFIGHT_MAX_FRAC = 0.05
+ZFIGHT_MEAN_RTOL = 0.15
 
 
 def log(*a):
@@ -571,31 +608,446 @@ def api_phase(np, presets, Renderer):
             f"render_async == render (done() before result(): {polled})")
 
 
-def main() -> int:
+class RayCapture:
+    """A selection tape for `trace` that keeps a copy of every ray batch
+    it is asked to select for (primary, shadow, scattered, ...)."""
+
+    def __init__(self):
+        self.rays = []
+
+    def __call__(self, select, o, d, need_j=True):
+        self.rays.append((o.detach().clone(), d.detach().clone()))
+        return select(o, d)
+
+
+def _device_ms(torch, fn, name, reps):
+    """Mean device time (ms) of the kernels whose name holds `name` over
+    `reps` calls of fn, from torch.profiler: a launch back to back with
+    the next costs more host time than K3 takes on the card, so CUDA
+    events around a loop would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if name in e.key
+          and e.self_device_time_total > 0]
+    if not ev:
+        raise RuntimeError(f"the profiler saw no {name} kernel")
+    return (sum(e.self_device_time_total for e in ev) / 1e3
+            / sum(e.count for e in ev))
+
+
+def _cfg5_wavefront(torch, presets, trace_ops, generate_rays):
+    world, camera, kw = presets.cornell_spheres(width=CFG5["width"],
+                                                height=CFG5["height"])
+    scene = world.build().to("cuda")
+    npix = CFG5["width"] * CFG5["height"]
+    chunk, _ = trace_ops.sample_rounds(npix, CFG5["spp"], True)
+    pid, sid = trace_ops.round_ids(torch.arange(npix, device="cuda"), chunk,
+                                   0)
+    o, d = generate_rays(camera.to("cuda"), pid, sid, 0)
+    return scene, o, d
+
+
+def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
+    """K3 against its twin on the card, bit for bit; times both at
+    config 5's wavefront. Returns the K3 record for the kernels line."""
+    worst_t, worst_j = 0.0, 0
+
+    def compare(label, cs, o, d):
+        nonlocal worst_t, worst_j
+        before = ik.closest_hit.launches
+        t_k, j_k = ik.closest_hit(cs, o, d)
+        torch.cuda.synchronize()
+        if ik.closest_hit.launches != before + 1:
+            raise RuntimeError("K3 launch counter did not rise")
+        t_r, j_r = ik.closest_hit_reference(cs, o, d)
+        dt = float((t_k - t_r).abs().max())
+        dj = int((j_k != j_r).sum())
+        hits = float((j_k >= 0).float().mean())
+        worst_t, worst_j = max(worst_t, dt), max(worst_j, dj)
+        log(f"[k3] {label}: {o.shape[0]} rays, hit {hits:.1%}; max |dt| "
+            f"{dt:g}, j differing {dj}, t bitwise {torch.equal(t_k, t_r)}")
+        if not torch.equal(t_k, t_r) or dj:
+            raise RuntimeError(f"{label}: K3 differs from its twin")
+
+    for name, pkw in K3_SCENES:
+        world, camera, kw = presets.PRESETS[name](width=64, height=48,
+                                                  **pkw)
+        scene = world.build().to("cuda")
+        cs = ik.compact_rows(scene, "cuda")
+        cap = RayCapture()
+        pix = torch.arange(64 * 48, device="cuda")
+        pid, sid = trace_ops.round_ids(pix, 4, 0)
+        o, d = generate_rays(camera.to("cuda"), pid, sid, 3)
+        plain = ik.compact_rows(scene, "cuda", plain=True)
+        with torch.no_grad():
+            trace_ops.trace(scene, o, d, pid, sid, 3, 2, kw["background"],
+                            compact=plain, nee=True, tape=cap)
+        labels = ["primary", "shadow (bounce 0)", "scattered (bounce 1)",
+                  "shadow (bounce 1)"]
+        for label, (ro, rd) in zip(labels, cap.rays):
+            compare(f"{name} {label}", cs, ro, rd)
+
+    scene, o, d = _cfg5_wavefront(torch, presets, trace_ops, generate_rays)
+    cs = ik.compact_rows(scene, "cuda")
+    compare("cfg5 wavefront (600x600, 2 samples)", cs, o, d)
+    ms = _device_ms(torch, lambda: ik.closest_hit(cs, o, d), "closest_hit",
+                    50)
+    plain_ms = time_kernel(torch, lambda: ik.closest_hit_reference(cs, o, d),
+                           3)
+    r = o.shape[0]
+    ops = r * (cs.n_sph * OPS_K3_SPHERE_ROW + cs.n_quad * OPS_K3_QUAD_ROW)
+    t_ops, t_bytes = ops / FP32_PEAK, r * K3_BYTES_PER_RAY / HBM_BYTES_S
+    rec = dict(rays=r, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=worst_t, j_differing=worst_j)
+    host_ms = time_kernel(torch, lambda: ik.closest_hit(cs, o, d), 50)
+    rec["host_loop_ms"] = host_ms
+    log(f"[k3] cfg5 wavefront ({r} rays, {cs.n_sph} spheres + {cs.n_quad} "
+        f"quads): K3 {ms:.4f} ms per call on the device (profiler; a loop "
+        f"of calls timed with events: {host_ms:.4f} ms each), twin "
+        f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}); on {card}")
+    return rec
+
+
+def _perturbed(torch, scene):
+    """The config-5 start: the spheres moved and their albedos dimmed (the
+    fit recovers them)."""
+    from dataclasses import replace
+    c = scene.sph_center.clone()
+    n = int(scene.sph_valid.sum())
+    c[:n] += torch.tensor([3.0, 1.0, -2.0])
+    alb = scene.mat_albedo.clone()
+    alb[4:6] *= 0.75
+    return replace(scene, sph_center=c, mat_albedo=alb)
+
+
+def _train_setup(torch, presets, Renderer, width, height, spp_target):
+    world, camera, kw = presets.cornell_spheres(width=width, height=height)
+    truth = world.build()
+    target = Renderer(spp_target, max_bounces=kw["max_bounces"],
+                      background_color=kw["background"],
+                      device="cuda").render_array(camera, truth)
+    return _perturbed(torch, truth), camera, target, kw
+
+
+def train_phase(torch, presets, ik, inverse, Renderer, card):
+    """K3 vs twin through the train step, determinism, launch count, and
+    fit's compaction refresh (64x64 spp=4 mb=8)."""
+    spp, mb = 4, 8
+    template, camera, target, kw = _train_setup(torch, presets, Renderer, 64,
+                                                64, 16)
+    step, (p0, o0) = inverse.make_train_step(
+        template, camera, target, spp=spp, max_bounces=mb,
+        background=kw["background"], seed=0, trainable=TRAINABLE,
+        use_kernel=True, device="cuda")
+    scene = template.to("cuda")
+    plain = ik.compact_rows(scene, "cuda", plain=True)
+
+    def run(compact=None):
+        before = ik.closest_hit.launches
+        out = step(p0, o0, 0) if compact is None else step(p0, o0, 0,
+                                                           compact)
+        torch.cuda.synchronize()
+        return out, ik.closest_hit.launches - before
+
+    (pk, ok_, lk), nk = run()
+    (pk2, ok2, lk2), _ = run()
+    (pt, ot, lt), nt = run(plain)
+    rounds = spp // min(spp, (1 << 20) // (64 * 64))
+    want = 2 * mb * rounds
+    def same(a, b):
+        """Bitwise equality of two dicts of f32 tensors (NaN == NaN)."""
+        return all(torch.equal(a[k].view(torch.int32),
+                               b[k].view(torch.int32)) for k in a)
+
+    det = bool(torch.equal(lk, lk2) and same(pk, pk2)
+               and same(ok_[0].mu, ok2[0].mu))
+    eq_params = bool(torch.equal(lk, lt) and same(pk, pt)
+                     and same(ok_[0].mu, ot[0].mu)
+                     and same(ok_[0].nu, ot[0].nu))
+
+    def grads(compact):
+        return inverse.value_and_grad(
+            lambda p: inverse.render_loss(
+                p, scene, camera, target, spp=spp, max_bounces=mb,
+                background=kw["background"], seed=0, compact=compact), p0)
+
+    (gl_k, g_k), (gl_t, g_t) = grads(ik.compact_rows(scene, "cuda")), \
+        grads(plain)
+    eq_grads = bool(torch.equal(gl_k, gl_t) and same(g_k, g_t))
+    nonfinite = sum(int((~torch.isfinite(g)).sum()) for g in g_k.values())
+    log(f"[train] 64x64 spp={spp} mb={mb} nee+silhouette, trainable "
+        f"{'+'.join(TRAINABLE)}: loss K3 {float(lk):.9g} twin "
+        f"{float(lt):.9g}; K3 == twin bitwise: loss+params+adam state "
+        f"{eq_params}, gradients (every field) {eq_grads} ({nonfinite} "
+        f"non-finite entries, zeroed by the step); step "
+        f"deterministic {det}; K3 launches per step {nk} (expected {want}), "
+        f"with the twin {nt}")
+    if not (eq_params and eq_grads and det) or nk != want or nt != 0:
+        raise RuntimeError("train step: K3 and twin disagree, the step is "
+                           "not deterministic, or K3 launched "
+                           f"{nk}/{nt} times (expected {want}/0)")
+    calls = []
+    real = inverse.refresh_compact
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    inverse.refresh_compact = counting
+    try:
+        _, losses = inverse.fit(
+            template, camera, target, steps=3, spp=spp, max_bounces=mb,
+            background=kw["background"], trainable=TRAINABLE,
+            engine="modular", refresh_compact_every=2, device="cuda")
+    finally:
+        inverse.refresh_compact = real
+    log(f"[train] fit(engine='modular', steps=3, refresh_compact_every=2): "
+        f"losses {[round(x, 6) for x in losses]}, compactions {len(calls)} "
+        "(expected 2: at the start and before step 2)")
+    if len(calls) != 2 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError("fit: wrong refresh schedule or non-finite loss")
+
+
+def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
+    """Config 5 at full size: the port's training main path."""
+    w, h, mb = CFG5["width"], CFG5["height"], CFG5["max_bounces"]
+    template, camera, target, kw = _train_setup(torch, presets, Renderer, w,
+                                                h, CFG5["spp"])
+    finite, nonfinite = [], {}
+    real_vg = inverse.value_and_grad
+
+    def checking_vg(*a, **k):
+        loss, g = real_vg(*a, **k)
+        bad = {n: int((~torch.isfinite(x)).sum()) for n, x in g.items()}
+        for n, c in bad.items():
+            nonfinite[n] = nonfinite.get(n, 0) + c
+        finite.append(bool(torch.isfinite(loss)) and not any(bad.values()))
+        return loss, g
+
+    def make(spp):
+        return inverse.make_train_step(
+            template, camera, target, spp=spp, max_bounces=mb,
+            background=kw["background"], seed=0, trainable=TRAINABLE,
+            device="cuda")
+
+    def timed(step, state, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, loss = step(*state, i)
+        value = float(loss)         # host read, as bench.py:210-215
+        return (p, o), value, time.perf_counter() - t0
+
+    # a 2-round probe prices a round; spp is the largest divisor of 200
+    # whose predicted step stays under 90 % of STEP_LIMIT_S
+    npix = w * h
+    probe_step, state = make(4)
+    timed(probe_step, state, 0)
+    _, _, probe_s = timed(probe_step, state, 1)
+    per_round = probe_s / trace_ops.sample_rounds(npix, 4, True)[1]
+
+    def predicted(c):
+        return trace_ops.sample_rounds(npix, c, True)[1] * per_round
+
+    split = _probe_breakdown(torch, inverse,
+                             lambda: timed(probe_step, state, 2)[2])
+    log(f"[cfg5] where a 2-round step (spp=4) goes, passes timed with a "
+        f"synchronize each: forward pass (render, record selections) "
+        f"{split['forward_s']:.3f} s, backward pass (rebuild the graph, "
+        f"backprop) {split['backward_s']:.3f} s, the rest (optimizer, "
+        f"setup) {split['rest_s']:.3f} s of {split['step_s']:.3f} s; "
+        f"profiled: device busy {split['device_busy']:.1%} of the step, "
+        f"{split['kernels']} kernels; top by device time: "
+        + "; ".join(f"{n} {ms:.1f} ms" for n, ms in split["top"]))
+    spp = max([c for c in range(1, CFG5["spp"] + 1) if CFG5["spp"] % c == 0
+               and predicted(c) <= 0.9 * STEP_LIMIT_S] or [1])
+    cut = spp != CFG5["spp"]
+    chunk = trace_ops.sample_rounds(npix, spp, True)[0]
+    log(f"[cfg5] probe step at spp=4: {probe_s:.2f} s ({per_round:.3f} s "
+        f"per round of {chunk * npix} rays); running spp={spp}"
+        + (f" (cut from {CFG5['spp']}: one step there is predicted "
+           f"{predicted(CFG5['spp']):.0f} s > {STEP_LIMIT_S:g} s)"
+           if cut else ""))
+    step, state = make(spp)
+    counters = {"K1": 0, "K2": 0, "K3": 0}
+    from tinyraytracer_tpu_torch.ops import megakernel as mk
+    from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+    mkp.render_packed.launches = mk.render_flat.launches = 0
+    ik.closest_hit.launches = 0
+    inverse.value_and_grad = checking_vg
+    try:
+        state, loss0, warm_s = timed(step, state, 0)
+        torch.cuda.reset_peak_memory_stats()
+        times, per_step = [], []
+        for i in (1, 2):
+            before = ik.closest_hit.launches
+            state, loss, dt = timed(step, state, i)
+            times.append(dt)
+            per_step.append(ik.closest_hit.launches - before)
+    finally:
+        inverse.value_and_grad = real_vg
+    counters.update(K1=mkp.render_packed.launches,
+                    K2=mk.render_flat.launches, K3=ik.closest_hit.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = min(times)
+    rounds = spp // chunk
+    k3_call_ms = split["k3_ms"] / max(split["k3_launches"], 1)
+    ok = all(finite) and math.isfinite(loss) and all(
+        bool(torch.isfinite(v).all()) for v in state[0].values())
+    res = dict(probe_breakdown=split, probe_step_s=probe_s,
+               width=w, height=h, spp=spp, spp_cut=cut, max_bounces=mb,
+               warmup_s=warm_s, step_s=times, mrays_s=w * h * spp / step_s
+               / 1e6, peak_bytes=peak, k3_launches_per_step=per_step,
+               k3_ms_in_step=k3_call_ms,
+               k3_share=per_step[-1] * k3_call_ms / 1e3 / times[-1],
+               loss=[loss0, loss], finite=ok,
+               nonfinite_gradient_entries=nonfinite, launches=counters,
+               rounds=rounds)
+    log(f"[cfg5] cornell_spheres {w}x{h} spp={spp} mb={mb} nee+silhouette, "
+        f"trainable {'+'.join(TRAINABLE)}, K3 selection: warm-up "
+        f"{warm_s:.2f} s, steps {', '.join(f'{t:.2f}' for t in times)} s; "
+        f"{res['mrays_s']:.4f} fwd+bwd camera Mrays/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; K3 launches per step {per_step} "
+        f"(expected {2 * mb * rounds}), {k3_call_ms:.4f} ms of device "
+        f"time per launch in a step (profiled probe), so K3 is "
+        f"{res['k3_share']:.3%} of the step; loss {loss0:.6g} -> "
+        f"{loss:.6g}; loss and gradients finite {ok} (non-finite gradient "
+        f"entries {sum(nonfinite.values())}); on {card}")
+    log(f"[cfg5] launches in this main path: {counters}")
+    if not ok or counters["K3"] < 1 or any(
+            n != 2 * mb * rounds for n in per_step):
+        raise RuntimeError("config 5: non-finite values or wrong K3 "
+                           "launch count")
+    return res
+
+
+def _probe_breakdown(torch, inverse, run_step):
+    """One probe step with its two passes timed (synchronize at each end)
+    and, in a second run, the device kernels under torch.profiler."""
+    spans = {"forward_s": 0.0, "backward_s": 0.0}
+    real = (inverse._LossRun.render, inverse._LossRun.backprop)
+
+    def timing(fn, key):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    inverse._LossRun.render = timing(real[0], "forward_s")
+    inverse._LossRun.backprop = timing(real[1], "backward_s")
+    try:
+        step_s = run_step()
+    finally:
+        inverse._LossRun.render, inverse._LossRun.backprop = real
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()]
+    busy = sum(ms for _, ms, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    k3 = [(ms, c) for n, ms, c in rows if "closest_hit" in n and ms > 0]
+    return dict(spans, step_s=step_s, k3_ms=sum(m for m, _ in k3),
+                k3_launches=sum(c for _, c in k3),
+                rest_s=step_s - spans["forward_s"] - spans["backward_s"],
+                device_busy=busy / wall, profiled_wall_s=wall,
+                kernels=sum(c for _, ms, c in rows if ms > 0),
+                top=[(n[:60], ms) for n, ms, _ in top])
+
+
+def modular_render_phase(torch, np, presets, Renderer, card):
+    """Renderer(accelerator="none") on the card against the K1 render."""
+    for name in ("three_spheres", "cornell_spheres", "cornell_box"):
+        world, camera, kw = presets.PRESETS[name](width=64, height=48)
+        mb = min(kw["max_bounces"], 8)
+        imgs = [Renderer(4, max_bounces=mb, background_color=kw["background"],
+                         accelerator=acc, device="cuda").render_array(
+                             camera, world.build()).cpu().numpy()
+                for acc in ("none", "auto")]
+        got, want = imgs
+        if name != "cornell_box":
+            check_parity(np, f"modular vs K1 {name}", got, want)
+            continue
+        d = np.abs(got - want).max(-1)
+        frac = float((d > PARITY_ATOL).mean())
+        mean_rel = abs(got.mean() - want.mean()) / want.mean()
+        log(f"[modular] modular vs K1 {name} (light/ceiling z-fight): "
+            f"pixels > {PARITY_ATOL:g}: {frac:.4%}, mean rel {mean_rel:.3g} "
+            f"(allowed {ZFIGHT_MAX_FRAC:.0%}, {ZFIGHT_MEAN_RTOL:g}); on {card}")
+        if not np.isfinite(got).all() or frac > ZFIGHT_MAX_FRAC \
+                or mean_rel > ZFIGHT_MEAN_RTOL:
+            raise RuntimeError(f"{name}: modular render disagrees with K1")
+
+
+PHASES = ("forward", "k3", "train", "cfg5", "modular")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phase groups to run: forward "
+                    "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
+                    "(11); the result lines need all of them")
+    only = ap.parse_args(argv).only.split(",")
     import numpy as np
     import torch
 
     card = env_phase(torch)
     sys.path.insert(0, ROOT)
     from tinyraytracer_tpu_torch import Image, Renderer, _build
+    from tinyraytracer_tpu_torch.diff import inverse
     from tinyraytracer_tpu_torch.models import presets
+    from tinyraytracer_tpu_torch.models.camera import generate_rays
+    from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
     from tinyraytracer_tpu_torch.ops import megakernel as mk
     from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+    from tinyraytracer_tpu_torch.ops import trace as trace_ops
 
     t_start = time.perf_counter()
     build_phase(_build)
-    worst = parity_phase(torch, np, presets, mk, mkp)
-    launches, results = main_path_phase(torch, np, presets, mk, mkp,
-                                        Renderer, card)
-    breakdown_phase(torch, np, presets, mk, Image, Renderer, card, results)
-    for k, v in kernel_vs_twin_phase(torch, np, presets, mk, mkp, card,
-                                     results).items():
-        worst[k] = max(worst[k], v)
-    api_phase(np, presets, Renderer)
+    results = {}
+    if "forward" in only:
+        worst = parity_phase(torch, np, presets, mk, mkp)
+        launches, results = main_path_phase(torch, np, presets, mk, mkp,
+                                            Renderer, card)
+        breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
+                        results)
+        for k, v in kernel_vs_twin_phase(torch, np, presets, mk, mkp, card,
+                                         results).items():
+            worst[k] = max(worst[k], v)
+        api_phase(np, presets, Renderer)
+    if "k3" in only:
+        results["k3"] = k3_phase(torch, presets, ik, trace_ops,
+                                 generate_rays, card)
+    if "train" in only:
+        train_phase(torch, presets, ik, inverse, Renderer, card)
+    if "cfg5" in only:
+        results["cfg5"] = cfg5_phase(torch, presets, ik, inverse, trace_ops,
+                                     Renderer, card)
+    if "modular" in only:
+        modular_render_phase(torch, np, presets, Renderer, card)
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the "
         "environment check")
+    if set(only) != set(PHASES):
+        return 0
 
     def entry(kid, name, source, replaces, cfg):
         res = results[cfg]
@@ -610,11 +1062,21 @@ def main() -> int:
             "ms_at_plain_shape": res["kernel_ms_at_twin_shape"],
         }
 
+    k3 = results["k3"]
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
         entry("K2", "megakernel_flat", "megakernel.cu",
               "tinyraytracer_tpu/ops/megakernel.py:489", "cfg4"),
+        {"name": "closest_hit", "route": "cuda",
+         "source": "tinyraytracer_tpu_torch/csrc/closest_hit.cu",
+         "replaces": "tinyraytracer_tpu/ops/intersect_pallas.py:166",
+         "launches": results["cfg5"]["launches"]["K3"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
+         "plain_shape": f"{k3['rays']} rays",
+         "ms_at_plain_shape": k3["ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

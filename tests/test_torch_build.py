@@ -72,7 +72,7 @@ def test_declare_types_every_exported_function():
     from types import SimpleNamespace
 
     names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
-             "tinyrt_error_string")
+             "tinyrt_closest_hit", "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
@@ -85,7 +85,15 @@ def test_declare_types_every_exported_function():
                                                          22]
     assert flat[18] is ctypes.c_float
     assert flat[14] is flat[15] is ctypes.c_uint
-    for n in names[:2]:
+    k3 = lib.tinyrt_closest_hit.argtypes
+    assert len(k3) == 16
+    assert [k for k, t in enumerate(k3) if t is p] == [0, 3, 6, 8, 11, 12,
+                                                       13, 15]
+    # the ray strides are 64-bit: a (R, 3) view's row stride times R
+    # passes 2^31 elements at R = 716 million rays
+    assert [k for k, t in enumerate(k3) if t is ctypes.c_longlong] == [
+        1, 2, 4, 5]
+    for n in names[:3]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 

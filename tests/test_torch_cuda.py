@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from tinyraytracer_tpu_torch.models import presets
+from tinyraytracer_tpu_torch.models.camera import generate_rays
+from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
 from tinyraytracer_tpu_torch.ops import megakernel as mk
 from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+from tinyraytracer_tpu_torch.ops import trace as trace_ops
 
 # Kernel vs twin on one card. Both use the card's sinf/cosf/expf/logf,
 # IEEE sqrt and division, and no FMA contraction (the kernel is built
@@ -143,3 +146,69 @@ def test_flat_kernel_refuses_misaligned_rows(cuda):
     with pytest.raises(ValueError, match="aligned"):
         mk.render_flat(**{**args, "sph": shifted})
     assert mk.render_flat.launches == before
+
+
+class _RayCapture:
+    """A selection tape keeping every ray batch trace selects for."""
+
+    def __init__(self):
+        self.rays = []
+
+    def __call__(self, select, o, d, need_j=True):
+        self.rays.append((o.clone(), d.clone()))
+        return select(o, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, pkw", [("cornell_box", {}),
+                                       ("random_spheres", dict(n=500))])
+def test_closest_hit_kernel_equals_twin(cuda, name, pkw):
+    """K3 against its twin, bit for bit on t and j: primary rays and the
+    shadow and scattered rays of a traced bounce (as chip_smoke.py
+    phase 8)."""
+    world, camera, kw = presets.PRESETS[name](width=32, height=24, **pkw)
+    scene = world.build().to(cuda)
+    cs = ik.compact_rows(scene, cuda)
+    pid, sid = trace_ops.round_ids(torch.arange(32 * 24, device=cuda), 2, 0)
+    o, d = generate_rays(camera.to(cuda), pid, sid, 3)
+    cap = _RayCapture()
+    with torch.no_grad():
+        trace_ops.trace(scene, o, d, pid, sid, 3, 2, kw["background"],
+                        compact=ik.compact_rows(scene, cuda, plain=True),
+                        nee=True, tape=cap)
+    assert len(cap.rays) == 4
+    for ro, rd in cap.rays:
+        before = ik.closest_hit.launches
+        t, j = ik.closest_hit(cs, ro, rd)
+        torch.cuda.synchronize()
+        assert ik.closest_hit.launches == before + 1
+        t_r, j_r = ik.closest_hit_reference(cs, ro, rd)
+        assert torch.equal(t, t_r) and torch.equal(j, j_r)
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_equals_twin_and_counts_launches(cuda):
+    """One modular train step (32x32 spp=2 mb=4) with K3 selection and
+    with the twin's: loss and params bit for bit; K3 launched
+    2 x bounces x rounds times, and not at all on the twin run."""
+    from tinyraytracer_tpu_torch.diff import inverse
+
+    world, camera, kw = presets.cornell_spheres(width=32, height=32)
+    scene = world.build()
+    target = torch.zeros((32, 32, 3))
+    step, (p0, o0) = inverse.make_train_step(
+        scene, camera, target, spp=2, max_bounces=4,
+        background=kw["background"], trainable=("sph_center", "mat_albedo"),
+        device=cuda)
+    assert step.__defaults__[0] is not None          # K3 by default
+    plain = ik.compact_rows(scene.to(cuda), cuda, plain=True)
+    before = ik.closest_hit.launches
+    pk, _, lk = step(p0, o0, 0)
+    torch.cuda.synchronize()
+    assert ik.closest_hit.launches == before + 2 * 4 * 1
+    pt, _, lt = step(p0, o0, 0, plain)
+    torch.cuda.synchronize()
+    assert ik.closest_hit.launches == before + 8
+    assert torch.equal(lk, lt)
+    for k in pk:
+        assert torch.equal(pk[k], pt[k]), k

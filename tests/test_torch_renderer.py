@@ -100,10 +100,12 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(accelerator="bvh"), dict(accelerator="none"),
+    dict(accelerator="bvh"), dict(accelerator="none", devices=["a", "b"]),
     dict(devices=["a", "b"]), dict(sample_parallel=2),
 ])
 def test_unported_options_raise(kw):
+    """ops/bvh.py and multi-device rendering are not ported (the modular
+    route, accelerator="none", is: tests/test_torch_trace.py)."""
     with pytest.raises(NotImplementedError):
         Renderer(4, device="cpu", **kw)
 

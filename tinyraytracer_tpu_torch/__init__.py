@@ -7,8 +7,10 @@ package. Implemented so far: the scene API (cameras, spheres, quads,
 groups, materials, worlds, presets), the forward render path
 (`Renderer.render` -> scene lowering -> the packed megakernel for scenes
 of up to 48 primitives, the classic-layout megakernel above -> gamma-2.2
-`Image` -> PNG), `Renderer.render_batch` and `Renderer.render_async`, and
-the CLI (`python -m tinyraytracer_tpu_torch`).
+`Image` -> PNG), `Renderer.render_batch` and `Renderer.render_async`, the
+CLI (`python -m tinyraytracer_tpu_torch`), and the modular differentiable
+path (`ops/trace.py`, `diff/`: the training loss, `make_train_step`,
+`fit`) with its closest-hit selection on a CUDA kernel.
 
 A CUDA device renders with the CUDA kernel (csrc/, built with nvcc at
 first use); `device="cpu"` renders with the kernel's plain PyTorch twin.

@@ -131,5 +131,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, i, i, u, u, i, i, f,
                    i, i, i, p]
     fn.restype = i
+    ll = ctypes.c_longlong
+    fn = lib.tinyrt_closest_hit
+    fn.argtypes = [p, ll, ll, p, ll, ll, p, i, p, i, i, p, p, p, i, p]
+    fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

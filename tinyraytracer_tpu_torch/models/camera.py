@@ -108,6 +108,11 @@ class Camera:
             vals[name] = torch.from_numpy(a.copy())
         return Camera(**vals, width=int(width), height=int(height))
 
+    def to(self, device) -> "Camera":
+        """The same camera with its fields on `device`."""
+        return dataclasses.replace(
+            self, **{n: getattr(self, n).to(device) for n in _VEC_FIELDS})
+
     def get_image_size(self) -> Tuple[int, int]:
         return (self.width, self.height)
 

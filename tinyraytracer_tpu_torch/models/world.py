@@ -59,8 +59,13 @@ class SceneArrays:
 
     def numpy(self) -> Dict[str, np.ndarray]:
         """Host copies of every field, keyed by field name."""
-        return {f.name: getattr(self, f.name).cpu().numpy()
+        return {f.name: getattr(self, f.name).detach().cpu().numpy()
                 for f in dataclasses.fields(self)}
+
+    def to(self, device) -> "SceneArrays":
+        """The same scene with every field on `device`."""
+        return SceneArrays(**{f.name: getattr(self, f.name).to(device)
+                              for f in dataclasses.fields(self)})
 
 
 _FIELD_DTYPES = {

@@ -28,10 +28,13 @@ _INV_2_24 = 1.0 / (1 << 24)
 _TWO_PI = 2.0 * math.pi
 
 
-def _u32(x, device=None) -> torch.Tensor:
+def _u32(x):
+    # A Python int stays one: mixed with a tensor it rides along as a
+    # kernel argument, where a device tensor made from it would cost a
+    # host-to-device copy (and a synchronisation) per call.
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _MASK
-    return torch.tensor(int(x) & _MASK, dtype=torch.int64, device=device)
+    return int(x) & _MASK
 
 
 def pcg4d(a, b, c, d):
@@ -41,7 +44,7 @@ def pcg4d(a, b, c, d):
     """
     dev = next((t.device for t in (a, b, c, d)
                 if isinstance(t, torch.Tensor)), None)
-    x, y, z, w = (_u32(t, dev) for t in (a, b, c, d))
+    x, y, z, w = (_u32(t) for t in (a, b, c, d))
 
     x = (x * _MUL + _ADD) & _MASK
     y = (y * _MUL + _ADD) & _MASK
@@ -62,7 +65,8 @@ def pcg4d(a, b, c, d):
     y = (y + z * x) & _MASK
     z = (z + x * y) & _MASK
     w = (w + y * z) & _MASK
-    return x, y, z, w
+    return tuple(torch.as_tensor(v, dtype=torch.int64, device=dev)
+                 for v in (x, y, z, w))
 
 
 def _to_uniform(bits: torch.Tensor) -> torch.Tensor:

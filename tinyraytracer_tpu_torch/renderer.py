@@ -3,7 +3,9 @@
 Reference: `Renderer::new(samples_per_pixel, num_sampler_threads,
 max_bounces, progressbar, background_color)` + `render(camera, world) ->
 Image` (renderer/renderer.rs:21-79). Generation, tracing and accumulation
-run in one megakernel launch per image (ops/megakernel.py).
+run in one megakernel launch per image (ops/megakernel.py);
+`accelerator="none"` renders with the modular tracer (ops/trace.py)
+instead, as the JAX package's does.
 
 The device is named, never guessed: `device="cuda"` (the default) renders
 with the CUDA kernel and raises where there is no CUDA device; a CPU
@@ -20,6 +22,7 @@ import torch
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays, World
 from tinyraytracer_tpu_torch.ops import tonemap
+from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.ops.megakernel import MegakernelRenderer
 from tinyraytracer_tpu_torch.utils.image import Image
 from tinyraytracer_tpu_torch.utils.progress import ProgressBar
@@ -86,10 +89,10 @@ class Renderer:
         self.spp_per_round = int(spp_per_round) if spp_per_round else 0
         if accelerator not in ("auto", "megakernel", "bvh", "none"):
             raise ValueError(f"unknown accelerator {accelerator!r}")
-        if accelerator in ("bvh", "none"):
+        if accelerator == "bvh":
             raise NotImplementedError(
-                f"accelerator={accelerator!r} needs the modular path "
-                "(ops/trace.py, ops/bvh.py), which is not ported yet")
+                "accelerator='bvh' needs ops/bvh.py, which is not ported "
+                "yet")
         self.accelerator = accelerator
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
@@ -101,12 +104,37 @@ class Renderer:
                 "is not ported yet")
         self.device = resolve_device(device)
 
+    def _sampler(self, camera: Camera, scene: SceneArrays):
+        """f(spp, seed, spp_offset) -> (H, W, 3) mean radiance over samples
+        [spp_offset, spp_offset + spp) on the device: the megakernels, or
+        with `accelerator="none"` the modular tracer (ops/trace.py) with
+        dense closest-hit selection."""
+        if self.accelerator != "none":
+            mk = MegakernelRenderer(scene, camera, self.background_color,
+                                    self.device)
+            return lambda spp, seed, spp_offset=0: mk.render(
+                spp=spp, max_bounces=self.max_bounces, seed=seed,
+                spp_offset=spp_offset)
+        scene = scene.to(self.device)
+        camera = camera.to(self.device)
+        pixel_id = torch.arange(camera.width * camera.height,
+                                device=self.device)
+
+        def modular(spp, seed, spp_offset=0):
+            with torch.no_grad():
+                img = trace_ops.render_pixels(
+                    scene, camera, pixel_id, spp=spp,
+                    max_bounces=self.max_bounces,
+                    background=self.background_color, seed=seed,
+                    spp_offset=spp_offset)
+            return img.reshape(camera.height, camera.width, 3)
+
+        return modular
+
     def render_array(self, camera: Camera, scene: SceneArrays) -> torch.Tensor:
         """Linear-radiance (H, W, 3) f32 framebuffer on the device."""
-        mk = MegakernelRenderer(scene, camera, self.background_color,
-                                self.device)
-        return mk.render(spp=self.samples_per_pixel,
-                         max_bounces=self.max_bounces, seed=self.seed)
+        return self._sampler(camera, scene)(self.samples_per_pixel,
+                                            self.seed)
 
     def render(self, camera: Camera, world: World) -> Image:
         """Full render to a gamma-2.2 Image (the reference's end product)."""
@@ -137,12 +165,9 @@ class Renderer:
         if not seeds:
             return []
         scene = world.build() if isinstance(world, World) else world
-        mk = MegakernelRenderer(scene, camera, self.background_color,
-                                self.device)
-        frames = torch.stack([
-            mk.render(spp=self.samples_per_pixel,
-                      max_bounces=self.max_bounces, seed=s)
-            for s in seeds]).cpu().numpy()
+        render = self._sampler(camera, scene)
+        frames = torch.stack([render(self.samples_per_pixel, s)
+                              for s in seeds]).cpu().numpy()
         return [Image.from_linear(f, gamma=tonemap.GAMMA) for f in frames]
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
@@ -150,15 +175,13 @@ class Renderer:
         the host can tick a progress bar between launches."""
         spp = self.samples_per_pixel
         chunk = self.spp_per_round or max(1, spp // 20)
-        mk = MegakernelRenderer(scene, camera, self.background_color,
-                                self.device)
+        render = self._sampler(camera, scene)
         bar = ProgressBar(total=spp, label="spp")
         acc = torch.zeros((camera.height, camera.width, 3),
                           dtype=torch.float32, device=self.device)
         for off in range(0, spp, chunk):
             n = min(chunk, spp - off)
-            part = mk.render(spp=n, max_bounces=self.max_bounces,
-                             seed=self.seed, spp_offset=off)
+            part = render(n, self.seed, off)
             acc = acc + part * (n / spp)
             bar.update(n)
         bar.close()
