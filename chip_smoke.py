@@ -45,6 +45,26 @@ Phases, each printed on its own lines:
    read of the loss; fwd+bwd camera Mrays/s, peak memory, K3 launches and
    share of the step. K3's counter is zeroed before and read after.
 11. `Renderer(accelerator="none")` (the modular tracer) against K1.
+12. The fused differentiable kernel (K5) against its twin: a mixed-material
+   scene (32x24 spp=2 mb=5) and cornell_spheres (64x64 spp=4 mb=4), each
+   with the full surrogate scope, the class scope of config 5 and that
+   scope without the silhouette: the image bit for bit, the loss and every
+   gradient table within TABLE_RTOL of the table's largest entry, two
+   launches bit for bit; then the same checks and K5 and its twin timed
+   at config 5's shape (600x600 mb=20, class scope; the twin at spp=2).
+13. The fused step against the modular one (cornell_spheres 64x64 spp=4
+   mb=8, dense surrogates): the loss and every gradient field within
+   `tests/test_diffkernel.py:_compare`'s tolerances; `fit(engine="fused")`
+   and `fit(engine="auto")` run on K5 (launches counted, K3 unused).
+14. Config 5 through `make_fused_train_step` at full size (600x600
+   spp=200 mb=20, unless a step passes STEP_LIMIT_S): 1 warm-up and 2 timed
+   steps ended by a host read of the loss; fwd+bwd camera Mrays/s, peak
+   memory, K5's device time and the device's busy share under
+   torch.profiler, finite loss and gradients. Every kernel counter is
+   zeroed before these steps and read after; K5 must have run.
+
+`--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
+(10), modular (11), k5 (12), fused (13), cfg5f (14).
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -124,6 +144,34 @@ STEP_LIMIT_S = 60.0
 # are held to the PARITY_* tolerances.
 ZFIGHT_MAX_FRAC = 0.05
 ZFIGHT_MEAN_RTOL = 0.15
+
+
+# K5 (csrc/diffkernel_packed.cu) against its twin on one card: the image
+# bit for bit; the loss and each gradient table, which sum the same terms
+# in another order, within ops/diffkernel_packed.TABLE_RTOL of the table's
+# largest entry (measured on the H100: at most 2e-7 at 64x64).
+# The fused step against the modular one (_compare, tests/test_diffkernel
+# .py:59): the loss within 1e-4, each field within 0.1 of its largest
+# entry on cornell_spheres (ulps of the hit point decide a few winner ties
+# differently in the two tracers' formulas), 5e-3 elsewhere.
+FUSED_LOSS_RTOL = 1e-4
+FUSED_GRAD_RTOL = 0.1
+# FP32 operations per live bounce of K5, read off csrc/diffkernel_packed.cu
+# and counted as above (closest-hit rows as K1's: the same common.cuh
+# tests): `shade` 235 without metal or dielectric (the intersection math,
+# 113; the light sample, 67; the scatter, 55), color 40, state update 29,
+# the shadow test 2 besides its closest hit; the adjoint besides its own
+# `shade` 262; per surrogate sphere 155 (soft shadow both passes and the
+# silhouette), per surrogate quad 350. Phase 1 and the replay each trace
+# the bounce and its shadow ray; the adjoint re-shades it.
+OPS_K5_SHADE = 235
+OPS_K5_COLOR = 40
+OPS_K5_ADVANCE = 29
+OPS_K5_SHADOW = 2
+OPS_K5_ADJ = 262
+OPS_K5_SPH_SURR = 155
+OPS_K5_QUAD_SURR = 350
+K5_BYTES_PER_PIXEL = 24          # target in, image out
 
 
 def log(*a):
@@ -992,7 +1040,299 @@ def modular_render_phase(torch, np, presets, Renderer, card):
             raise RuntimeError(f"{name}: modular render disagrees with K1")
 
 
-PHASES = ("forward", "k3", "train", "cfg5", "modular")
+def k5_segments(torch, dkp, fn):
+    """Runs a K5 twin call `fn()` counting its phase-1 live bounces (the
+    kernel's bounces: it skips the dead ones in every phase)."""
+    n = [0]
+    real = dkp._Twin.color_adds
+
+    def counting(self, g, st, vis):
+        n[0] += int((st[9] > 0.5).sum())
+        return real(self, g, st, vis)
+
+    dkp._Twin.color_adds = counting
+    try:
+        fn()
+    finally:
+        dkp._Twin.color_adds = real
+    return n[0]
+
+
+def k5_bound(spec, pixels, spp, segments):
+    """Least time (ms) of one K5 call and what bounds it."""
+    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
+    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
+                            - shade_ops(False, False))
+    n_s = spec.n_sph if spec.surr_sph else 0
+    n_q = spec.n_quad if spec.surr_quad else 0
+    fwd = 2 * rows + shade + OPS_K5_SHADOW + OPS_K5_ADVANCE
+    per_seg = (2 * fwd + OPS_K5_COLOR + shade + OPS_K5_ADJ
+               + n_s * OPS_K5_SPH_SURR + n_q * OPS_K5_QUAD_SURR)
+    ops = 2 * pixels * spp * OPS_CAMERA + segments * per_seg
+    t_ops = ops / FP32_PEAK
+    t_bytes = pixels * K5_BYTES_PER_PIXEL / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, per_seg)
+
+
+def k5_phase(torch, np, presets, dkp, card):
+    """K5 against its twin on the card; returns the K5 record."""
+    worst_rel, worst_abs = 0.0, 0.0
+    names = ("image", "dsph", "dquad", "dmat", "dlight", "dmisc")
+    scopes = [("full", {}), ("class", dict(surr_quad=False)),
+              ("class, no silhouette", dict(surr_quad=False, sil=False))]
+    scenes = []
+    for label, maker, size, spp, mb in (
+            ("mixed 32x24 spp=2 mb=5", presets.mixed_materials, (32, 24),
+             2, 5),
+            ("cornell_spheres 64x64 spp=4 mb=4", presets.cornell_spheres,
+             (64, 64), 4, 4)):
+        world, cam, kw = maker(*size)
+        scenes.append((label, (world.build(), cam, kw["background"]), spp,
+                       mb))
+    for label, (scene, camera, bg), spp, mb in scenes:
+        for scope, flags in scopes:
+            tab, cvec, spec = _k5_setup(torch, dkp, scene, camera, bg,
+                                        flags)
+            h, w = camera.height, camera.width
+            tgt = torch.from_numpy(np.random.RandomState(0).rand(
+                h, w, 3).astype(np.float32) * 0.5).cuda()
+            args = dict(spec=spec, width=w, height=h, spp=spp,
+                        max_bounces=mb, seed=3)
+            before = dkp.packed_diff.launches
+            got = dkp.packed_diff(tab, cvec, tgt, **args)
+            again = dkp.packed_diff(tab, cvec, tgt, **args)
+            torch.cuda.synchronize()
+            if dkp.packed_diff.launches != before + 2:
+                raise RuntimeError("K5 launch counter did not rise")
+            want = dkp.packed_diff_reference(tab, cvec, tgt, **args)
+            det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, again))
+            img_eq = torch.equal(got[0], want[0])
+            rels = {}
+            for n, a, b in zip(names[1:], got[1:], want[1:]):
+                d = float((a - b).abs().max())
+                rels[n] = d / max(float(b.abs().max()), 1e-30)
+                worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel, max(rels.values()))
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            log(f"[k5] {label}, {scope} scope: image bitwise {img_eq}; "
+                "tables max|d| / max|table| "
+                + ", ".join(f"{n} {r:.3g}" for n, r in rels.items())
+                + f" (allowed {dkp.TABLE_RTOL:g}); loss "
+                f"{float(got[5][0, 3]):.9g}"
+                f" twin {float(want[5][0, 3]):.9g}; two launches bit for bit "
+                f"{det}; finite {finite}")
+            if not (img_eq and det and finite) or max(
+                    rels.values()) > dkp.TABLE_RTOL:
+                raise RuntimeError(f"{label} {scope}: K5 disagrees with its "
+                                   "twin or is not deterministic")
+
+    # config 5's shape: kernel at full spp, twin (and kernel) at spp=2
+    w, h, mb = CFG5["width"], CFG5["height"], CFG5["max_bounces"]
+    world, cam, kw = presets.cornell_spheres(width=w, height=h)
+    tab, cvec, spec = _k5_setup(torch, dkp, world.build(), cam,
+                                kw["background"], dict(surr_quad=False))
+    tgt = torch.rand(h, w, 3, device="cuda") * 0.5
+    args = dict(spec=spec, width=w, height=h, max_bounces=mb, seed=0)
+    spp, twin_spp = CFG5["spp"], 2
+    ms = time_kernel(torch, lambda: dkp.packed_diff(
+        tab, cvec, tgt, spp=spp, **args), 3)
+    _, ms_twin_shape = time_once(torch, lambda: dkp.packed_diff(
+        tab, cvec, tgt, spp=twin_spp, **args))
+    want, plain_ms = time_once(torch, lambda: dkp.packed_diff_reference(
+        tab, cvec, tgt, spp=twin_spp, **args))
+    got = dkp.packed_diff(tab, cvec, tgt, spp=twin_spp, **args)
+    again = dkp.packed_diff(tab, cvec, tgt, spp=twin_spp, **args)
+    same = torch.equal(got[0], want[0])
+    det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(got, again))
+    rels, cfg5_abs = {}, 0.0
+    for n, a, b in zip(names[1:], got[1:], want[1:]):
+        d = float((a - b).abs().max())
+        rels[n] = d / max(float(b.abs().max()), 1e-30)
+        cfg5_abs = max(cfg5_abs, d)
+    segs = k5_segments(torch, dkp, lambda: dkp.packed_diff_reference(
+        tab, cvec, tgt, spp=1, **args))
+    segments = segs * spp
+    b_ms, b_by, ops, per_seg = k5_bound(spec, w * h, spp, segments)
+    log(f"[k5] cfg5 shape {w}x{h} mb={mb} (class scope, 2 spheres + "
+        f"{spec.n_quad} quads): K5 {ms:.2f} ms at spp={spp}; at spp="
+        f"{twin_spp} kernel {ms_twin_shape:.2f} ms, twin {plain_ms:.1f} ms "
+        f"({plain_ms / ms_twin_shape:.1f}x), image bitwise {same}, tables "
+        "max|d| / max|table| " + ", ".join(f"{n} {r:.3g}" for n, r in
+                                           rels.items())
+        + f" (allowed {dkp.TABLE_RTOL:g}; max|d| {cfg5_abs:.3g}), loss "
+        f"{float(got[5][0, 3]):.9g} twin {float(want[5][0, 3]):.9g}, two "
+        f"launches bit for bit {det}; {segs / (w * h):.4f} live bounces per "
+        f"camera ray (twin, spp=1), {per_seg} ops per live bounce; bound "
+        f"{b_ms:.3f} ms ({b_by}, {ops:.4g} ops); on {card}")
+    if not (same and det) or max(rels.values()) > dkp.TABLE_RTOL:
+        raise RuntimeError("cfg5 shape: K5 disagrees with its twin or is "
+                           "not deterministic")
+    return dict(ms=ms, plain_ms=plain_ms, ms_at_plain_shape=ms_twin_shape,
+                plain_shape=f"{w}x{h} spp={twin_spp} mb={mb}",
+                bound_ms=b_ms, bound_by=b_by, bound_ops=ops,
+                ops_per_segment=per_seg,
+                segments_per_ray=segs / (w * h),
+                max_abs_err=max(worst_abs, cfg5_abs),
+                max_abs_err_cfg5_shape=cfg5_abs,
+                max_rel_err=max(worst_rel, max(rels.values())))
+
+
+def _k5_setup(torch, dkp, scene, camera, background, flags):
+    """(table, camera vector, spec) of K5 for a scene on the card."""
+    _, tab, cvec, _, spec = dkp._inputs(
+        scene.to("cuda"), camera, torch.zeros(camera.height, camera.width,
+                                              3), background, None, True,
+        flags.get("sil", True), flags.get("surr_sph", True),
+        flags.get("surr_quad", True))
+    return tab, cvec, spec
+
+
+def fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card):
+    """The fused step against the modular one, and fit's engines."""
+    spp, mb = 4, 8
+    template, camera, target, kw = _train_setup(torch, presets, Renderer, 64,
+                                                64, 16)
+    scene = template.to("cuda")
+    bg = kw["background"]
+    before = (dkp.packed_diff.launches, ik.closest_hit.launches)
+    lf, _img, gf = dk.render_value_and_grad(
+        scene, camera, target, spp=spp, max_bounces=mb, background=bg,
+        seed=0)
+    torch.cuda.synchronize()
+    k5_n = dkp.packed_diff.launches - before[0]
+    from tinyraytracer_tpu_torch.diff.params import scene_params
+    lm, gm = inverse.value_and_grad(
+        lambda p: inverse.render_loss(
+            p, scene, camera, target, spp=spp, max_bounces=mb,
+            background=bg, seed=0, compact=ik.compact_rows(scene, "cuda")),
+        scene_params(scene))
+    loss_rel = abs(float(lf) - float(lm)) / max(float(lm), 1e-6)
+    rels = {}
+    for k, g in gm.items():
+        rels[k] = float((g - gf[k]).abs().max()) / max(float(g.abs().max()),
+                                                        1e-8)
+    log(f"[fused] cornell_spheres 64x64 spp={spp} mb={mb}, dense "
+        f"surrogates: loss fused {float(lf):.9g} modular {float(lm):.9g} "
+        f"(rel {loss_rel:.3g}, allowed {FUSED_LOSS_RTOL:g}); per field "
+        "max|d| / max|g| " + ", ".join(f"{k} {r:.3g}" for k, r in
+                                       rels.items())
+        + f" (allowed {FUSED_GRAD_RTOL:g}); K5 launches {k5_n}; on {card}")
+    if k5_n != 1 or loss_rel > FUSED_LOSS_RTOL or max(
+            rels.values()) > FUSED_GRAD_RTOL:
+        raise RuntimeError("the fused and modular gradients disagree")
+    for engine, steps in (("fused", 3), ("auto", 2)):
+        before = (dkp.packed_diff.launches, ik.closest_hit.launches)
+        _, losses = inverse.fit(
+            template, camera, target, steps=steps, spp=spp, max_bounces=mb,
+            background=bg, trainable=TRAINABLE, engine=engine,
+            device="cuda")
+        n5 = dkp.packed_diff.launches - before[0]
+        n3 = ik.closest_hit.launches - before[1]
+        log(f"[fused] fit(engine={engine!r}, steps={steps}): losses "
+            f"{[round(x, 6) for x in losses]}; K5 launches {n5}, K3 {n3}")
+        if n5 != steps or n3 != 0 or not all(math.isfinite(x)
+                                             for x in losses):
+            raise RuntimeError(f"fit(engine={engine!r}) did not run on K5")
+
+
+def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
+    """Config 5 at full size through make_fused_train_step: the slice's
+    main path."""
+    w, h, mb = CFG5["width"], CFG5["height"], CFG5["max_bounces"]
+    template, camera, target, kw = _train_setup(torch, presets, Renderer, w,
+                                                h, CFG5["spp"])
+    bad = {"loss": 0, "grads": 0}
+    real = dk.render_value_and_grad
+
+    def checking(*a, **k):
+        loss, img, g = real(*a, **k)
+        bad["loss"] += int(not bool(torch.isfinite(loss)))
+        bad["grads"] += sum(int((~torch.isfinite(x)).sum())
+                            for x in g.values())
+        return loss, img, g
+
+    def timed(step, state, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, loss = step(*state, i)
+        value = float(loss)         # host read, as bench.py:210-215
+        return (p, o), value, time.perf_counter() - t0
+
+    def make(spp):
+        return inverse.make_fused_train_step(
+            template, camera, target, spp=spp, max_bounces=mb,
+            background=kw["background"], seed=0, trainable=TRAINABLE,
+            device="cuda")
+
+    from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
+    from tinyraytracer_tpu_torch.ops import megakernel as mk
+    from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+    probe, state = make(4)
+    timed(probe, state, 0)
+    per_sample = timed(probe, state, 1)[2] / 4
+    spp = max([c for c in range(1, CFG5["spp"] + 1) if CFG5["spp"] % c == 0
+               and c * per_sample <= 0.9 * STEP_LIMIT_S] or [1])
+    cut = spp != CFG5["spp"]
+    step, state = make(spp)
+    mkp.render_packed.launches = mk.render_flat.launches = 0
+    ik.closest_hit.launches = dkp.packed_diff.launches = 0
+    dk.render_value_and_grad = checking
+    try:
+        state, loss0, warm_s = timed(step, state, 0)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in (1, 2):
+            state, loss, dt = timed(step, state, i)
+            times.append(dt)
+    finally:
+        dk.render_value_and_grad = real
+    counters = {"K1": mkp.render_packed.launches,
+                "K2": mk.render_flat.launches,
+                "K3": ik.closest_hit.launches,
+                "K5": dkp.packed_diff.launches}
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = timed(step, state, 3)
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    k5_ms = sum(ms for n, ms, _ in rows if "diff_kernel" in n)
+    red_ms = sum(ms for n, ms, _ in rows if "reduce_kernel" in n)
+    step_s = min(times)
+    ok = (bad["loss"] == 0 and bad["grads"] == 0 and math.isfinite(loss)
+          and all(bool(torch.isfinite(v).all()) for v in state[0].values()))
+    res = dict(width=w, height=h, spp=spp, spp_cut=cut, max_bounces=mb,
+               warmup_s=warm_s, step_s=times,
+               mrays_s=w * h * spp / step_s / 1e6, peak_bytes=peak,
+               k5_device_ms=k5_ms, reduce_device_ms=red_ms,
+               device_busy=busy_ms / 1e3 / wall, profiled_wall_s=wall,
+               loss=[loss0, loss], finite=ok, nonfinite=bad,
+               launches=counters,
+               top=sorted(rows, key=lambda r: -r[1])[:4])
+    log(f"[cfg5f] cornell_spheres {w}x{h} spp={spp}"
+        + (f" (cut from {CFG5['spp']})" if cut else "")
+        + f" mb={mb}, trainable {'+'.join(TRAINABLE)}, fused step (K5): "
+        f"warm-up {warm_s:.3f} s, steps {', '.join(f'{t:.3f}' for t in times)}"
+        f" s; {res['mrays_s']:.2f} fwd+bwd camera Mrays/s; peak device "
+        f"memory {peak / 2**30:.3f} GiB; profiled step: K5 {k5_ms:.1f} ms "
+        f"device time, its reduction {red_ms:.3f} ms, device busy "
+        f"{res['device_busy']:.1%} of {wall:.3f} s; loss {loss0:.6g} -> "
+        f"{loss:.6g}; loss and gradients finite {ok}; on {card}")
+    log(f"[cfg5f] launches in this main path: {counters}")
+    if not ok or counters["K5"] != 3 or counters["K3"]:
+        raise RuntimeError("config 5 fused: non-finite values or wrong "
+                           "launch counts")
+    return res
+
+
+PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
+          "cfg5f")
 
 
 def main(argv=None) -> int:
@@ -1002,7 +1342,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
-                    "(11); the result lines need all of them")
+                    "(11), k5 (12), fused (13), cfg5f (14); the result "
+                    "lines need all of them")
     only = ap.parse_args(argv).only.split(",")
     import numpy as np
     import torch
@@ -1012,6 +1353,8 @@ def main(argv=None) -> int:
     from tinyraytracer_tpu_torch import Image, Renderer, _build
     from tinyraytracer_tpu_torch.diff import inverse
     from tinyraytracer_tpu_torch.models import presets
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
     from tinyraytracer_tpu_torch.models.camera import generate_rays
     from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
     from tinyraytracer_tpu_torch.ops import megakernel as mk
@@ -1041,6 +1384,13 @@ def main(argv=None) -> int:
                                      Renderer, card)
     if "modular" in only:
         modular_render_phase(torch, np, presets, Renderer, card)
+    if "k5" in only:
+        results["k5"] = k5_phase(torch, np, presets, dkp, card)
+    if "fused" in only:
+        fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card)
+    if "cfg5f" in only:
+        results["cfg5f"] = cfg5_fused_phase(torch, presets, dk, dkp, inverse,
+                                            Renderer, card)
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -1062,7 +1412,7 @@ def main(argv=None) -> int:
             "ms_at_plain_shape": res["kernel_ms_at_twin_shape"],
         }
 
-    k3 = results["k3"]
+    k3, k5 = results["k3"], results["k5"]
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
@@ -1077,6 +1427,15 @@ def main(argv=None) -> int:
          "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
          "plain_shape": f"{k3['rays']} rays",
          "ms_at_plain_shape": k3["ms"]},
+        {"name": "diffkernel_packed", "route": "cuda",
+         "source": "tinyraytracer_tpu_torch/csrc/diffkernel_packed.cu",
+         "replaces": "tinyraytracer_tpu/ops/diffkernel_packed.py:240",
+         "launches": results["cfg5f"]["launches"]["K5"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None, "config": "cfg5f",
+         "plain_shape": k5["plain_shape"],
+         "ms_at_plain_shape": k5["ms_at_plain_shape"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

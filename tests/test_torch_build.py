@@ -72,7 +72,8 @@ def test_declare_types_every_exported_function():
     from types import SimpleNamespace
 
     names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
-             "tinyrt_closest_hit", "tinyrt_error_string")
+             "tinyrt_closest_hit", "tinyrt_diff_packed",
+             "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
@@ -93,7 +94,12 @@ def test_declare_types_every_exported_function():
     # passes 2^31 elements at R = 716 million rays
     assert [k for k, t in enumerate(k3) if t is ctypes.c_longlong] == [
         1, 2, 4, 5]
-    for n in names[:3]:
+    k5 = lib.tinyrt_diff_packed.argtypes
+    assert len(k5) == 27
+    assert [k for k, t in enumerate(k5) if t is p] == [0, 1, 8, 9, 10, 11,
+                                                       12, 26]
+    assert k5[15] is k5[16] is ctypes.c_uint and k5[19] is ctypes.c_float
+    for n in names[:4]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 
@@ -111,3 +117,11 @@ def test_flags_target_hopper_without_fast_math():
         assert "arch=compute_90a,code=sm_90a" in f
         assert f"--fmad={'true' if fmad else 'false'}" in f
         assert not any("fast" in x for x in f)
+
+
+def test_k5_accumulator_limit_is_the_kernels():
+    """The routing rule's accumulator limit is the one K5 is built with."""
+    from tinyraytracer_tpu_torch.ops.diffkernel import DIFF_PACKED_MAX_ACC
+
+    src = (_build.CSRC_DIR / "diffkernel_packed.cu").read_text()
+    assert f"constexpr int kMaxAcc = {DIFF_PACKED_MAX_ACC};" in src

@@ -212,3 +212,61 @@ def test_train_step_kernel_equals_twin_and_counts_launches(cuda):
     assert torch.equal(lk, lt)
     for k in pk:
         assert torch.equal(pk[k], pt[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed", "cornell_spheres"])
+@pytest.mark.parametrize("flags", [{}, dict(surr_quad=False),
+                                   dict(surr_quad=False, sil=False)])
+def test_diff_kernel_matches_twin(cuda, name, flags):
+    """K5 (32x24 spp=2 mb=5) against its twin, as chip_smoke.py phase 12:
+    every surrogate scope and the silhouette off; the image bit for bit,
+    the loss and gradient tables within TABLE_RTOL of each table's largest
+    entry (measured on the H100: at most 2e-7), two launches bit for
+    bit."""
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    maker = (presets.mixed_materials if name == "mixed"
+             else presets.cornell_spheres)
+    world, camera, kw = maker(width=32, height=24)
+    scene, bg = world.build(), kw["background"]
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        24, 32, 3).astype(np.float32))
+    _, tab, cam, tgt, spec = dkp._inputs(
+        scene.to(cuda), camera, target, bg, None, True,
+        flags.get("sil", True), True, flags.get("surr_quad", True))
+    kw = dict(spec=spec, width=32, height=24, spp=2, max_bounces=5, seed=3)
+    before = dkp.packed_diff.launches
+    got = dkp.packed_diff(tab, cam, tgt, **kw)
+    again = dkp.packed_diff(tab, cam, tgt, **kw)
+    torch.cuda.synchronize()
+    assert dkp.packed_diff.launches == before + 2
+    want = dkp.packed_diff_reference(tab, cam, tgt, **kw)
+    assert torch.equal(got[0], want[0])
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= dkp.TABLE_RTOL * scale
+
+
+@pytest.mark.cuda
+def test_fused_train_step_runs_on_k5(cuda):
+    """One fused step on the card: one K5 launch, finite params, and the
+    untrained fields unmoved."""
+    from tinyraytracer_tpu_torch.diff import inverse
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera, kw = presets.cornell_spheres(width=32, height=32)
+    scene = world.build()
+    step, (p0, o0) = inverse.make_fused_train_step(
+        scene, camera, torch.zeros((32, 32, 3)), spp=2, max_bounces=4,
+        background=kw["background"], trainable=("sph_center", "mat_albedo"),
+        device=cuda)
+    before = dkp.packed_diff.launches
+    p1, _, loss = step(p0, o0, 0)
+    torch.cuda.synchronize()
+    assert dkp.packed_diff.launches == before + 1
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(v).all()) for v in p1.values())
+    assert torch.equal(p1["quad_corner"], p0["quad_corner"])
+    assert not torch.equal(p1["mat_albedo"], p0["mat_albedo"])

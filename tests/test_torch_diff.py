@@ -230,8 +230,9 @@ def test_checkpoint_round_trip(cornell, tmp_path):
 def test_fit_engines_devices_and_resume(cornell, tmp_path, monkeypatch):
     _, _, ts, tc, bg, target = cornell
     kw = dict(spp=SPP, max_bounces=2, background=bg, trainable=TRAINABLE)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tinv.fit(ts, tc, target, steps=1, engine="fused", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="K4"):
+        tinv.fit(ts, tc, target, steps=1, engine="fused", device="cpu",
+                 trainable_rows={"sph": (0,)}, **kw)
     with pytest.raises(NotImplementedError, match="sharded"):
         tinv.fit(ts, tc, target, steps=1, mesh=object(), device="cpu", **kw)
     with pytest.raises(ValueError):

@@ -135,5 +135,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_closest_hit
     fn.argtypes = [p, ll, ll, p, ll, ll, p, i, p, i, i, p, p, p, i, p]
     fn.restype = i
+    fn = lib.tinyrt_diff_packed
+    fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i, i, u, u, i, i,
+                   f, i, i, i, i, i, i, p]
+    fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

@@ -18,6 +18,10 @@ and backpropagates cotangent / spp into the parameters. The forward
 values of the replay are those of the first pass, so the gradient is the
 single-pass gradient up to summation order, and K3 runs twice per bounce
 per round, as in the JAX step that saves only the selections.
+
+`make_fused_train_step` is the other engine: the loss and every gradient
+come out of one launch of the fused kernel K5 (ops/diffkernel_packed.py)
+per step, with the same estimator and sample streams.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from tinyraytracer_tpu_torch.diff.params import (
     scene_params,
 )
 from tinyraytracer_tpu_torch.models.camera import Camera, generate_rays
+from tinyraytracer_tpu_torch.ops import diffkernel
 from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.ops.intersect_kernel import compact_rows
 from tinyraytracer_tpu_torch.renderer import resolve_device
@@ -258,8 +263,7 @@ def make_train_step(
     `mesh` (sharded training) is not ported.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (parallel/sharded.py) is not ported yet")
+        raise NotImplementedError(_SHARDED)
     dev = resolve_device(device)
     optimizer = optimizer or optim.adam(learning_rate)
     scene = scene_template.to(dev)
@@ -303,6 +307,122 @@ def make_train_step(
         # a rare degenerate sample must not poison the optimizer state
         grads = {k: torch.where(torch.isfinite(g), g, 0.0)
                  for k, g in grads.items()}
+        if trainset is not None:
+            grads = {k: g if k in trainset else torch.zeros_like(g)
+                     for k, g in grads.items()}
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = optim.apply_updates(params, updates)
+        return params, opt_state, loss
+
+    params0 = scene_params(scene)
+    return step, (params0, optimizer.init(params0))
+
+
+_K4_ROWS = ("trainable_rows (explicit surrogate row subsets) need the "
+            "classic-layout fused kernel K4 (ops/diffkernel.py:"
+            "_make_diff_kernel), which is not ported yet")
+_SHARDED = "sharded training (parallel/sharded.py) is not ported yet"
+
+
+def _surrogate_scope(trainset):
+    """make_fused_train_step's class-level surrogate scope and silhouette
+    switch from the trained fields. The silhouette feeds only geometry
+    rows, so it is off when no geometry field trains; a class none of
+    whose geometry fields train has its soft-shadow and silhouette chains
+    dropped (they feed only rows the step zeroes, plus surrogate terms in
+    the shared ray chain). This changes the gradients against the dense
+    scope, as in the JAX package."""
+    if trainset is None:
+        return True, None
+    sil = bool(_GEOMETRY_FIELDS & trainset)
+    sph_geo = bool({"sph_center", "sph_radius"} & trainset)
+    quad_geo = bool({"quad_corner", "quad_u", "quad_v"} & trainset)
+    if sph_geo and quad_geo:
+        return sil, None
+    return sil, {"sph": None if sph_geo else (),
+                 "quad": None if quad_geo else ()}
+
+
+def make_fused_train_step(
+    scene_template,
+    camera: Camera,
+    target,
+    *,
+    spp: int,
+    max_bounces: int,
+    background,
+    seed: int = 0,
+    optimizer: Optional[optim.GradientTransformation] = None,
+    learning_rate: float = 1e-2,
+    advance_samples: bool = True,
+    trainable: Optional[Tuple[str, ...]] = None,
+    trainable_rows: Optional[dict] = None,
+    mesh=None,
+    tile=None,
+    grad_chunks: int = 1,
+    static=None,
+    device="cuda",
+):
+    """Adam step on the fused differentiable kernel, on `device`.
+
+    Returns (step, (params0, opt_state0)); step(params, opt_state,
+    step_idx) -> (params, opt_state, loss), the loss a 0-dim device
+    tensor. The same estimator, sample streams and gradients as
+    make_train_step(nee=True, silhouette=True), but render, loss and
+    backward are one launch of K5 per step (per chunk with
+    `grad_chunks`); the scene table is rebuilt from the live params each
+    step, so no compaction snapshot is needed.
+
+    `trainable` names the free fields and also sets the surrogate scope
+    (`_surrogate_scope`). `grad_chunks` > 1 splits spp into chunks run
+    one after the other and takes the elementwise median of their
+    gradients; the loss is then the mean of the chunk losses. Non-finite
+    gradient entries are zeroed, the background gradient dropped, and
+    untrained fields' gradients zeroed before the update. `static` is a
+    precomputed diffkernel.build_diff_static(scene_template); `tile` is
+    accepted and ignored. `trainable_rows` and `mesh` are not ported.
+    """
+    if trainable_rows is not None:
+        raise NotImplementedError(_K4_ROWS)
+    if mesh is not None:
+        raise NotImplementedError(_SHARDED)
+    dev = resolve_device(device)
+    optimizer = optimizer or optim.adam(learning_rate)
+    scene = scene_template.to(dev)
+    camera = camera.to(dev)
+    target = torch.as_tensor(target, dtype=torch.float32).to(dev)
+    if static is None:
+        static = diffkernel.build_diff_static(scene)
+    if grad_chunks < 1 or spp % grad_chunks:
+        raise ValueError(f"grad_chunks={grad_chunks} must divide spp={spp}")
+    cspp = spp // grad_chunks
+    stride = spp if advance_samples else 0
+    trainset = None if trainable is None else frozenset(trainable)
+    sil, surr_rows = _surrogate_scope(trainset)
+
+    def chunk(s, chunk_spp, offset):
+        loss, _img, grads = diffkernel.render_value_and_grad(
+            s, camera, target, spp=chunk_spp, max_bounces=max_bounces,
+            background=background, seed=seed, spp_offset=offset & _MASK,
+            silhouette=sil, static=static, tile=tile, surr_rows=surr_rows)
+        return loss, grads
+
+    def step(params, opt_state, step_idx):
+        s = apply_params(scene, params)
+        base = int(step_idx) * stride
+        if grad_chunks == 1:
+            loss, grads = chunk(s, spp, base)
+        else:
+            losses, gs = [], []
+            for c in range(grad_chunks):
+                cl, cg = chunk(s, cspp, base + c * cspp)
+                losses.append(cl)
+                gs.append(cg)
+            loss = sum(losses) / grad_chunks
+            grads = {k: _median0(torch.stack([g[k] for g in gs]))
+                     for k in gs[0]}
+        grads = {k: torch.where(torch.isfinite(g), g, 0.0)
+                 for k, g in grads.items() if k != "background"}
         if trainset is not None:
             grads = {k: g if k in trainset else torch.zeros_like(g)
                      for k, g in grads.items()}
@@ -386,38 +506,53 @@ def fit(
 ):
     """Run `steps` of Adam on the scene params; returns (scene, losses).
 
-    `engine`: "modular" (and "auto", which picks it) runs the autodiff
-    step of `make_train_step`; "fused" needs kernel K5
-    (ops/diffkernel_packed.py), which is not ported. With K3 in use and
-    geometry trainable, the compacted selection snapshot is refreshed
-    every `refresh_compact_every` steps. Resumes from `checkpoint_path`
-    if it exists. `average_last` > 0 returns the mean of the last N
-    iterates."""
+    `engine`: "fused" runs `make_fused_train_step` (kernel K5, one launch
+    per step; the table is rebuilt from the live params every step, so no
+    compaction refresh), "modular" the autodiff step of
+    `make_train_step`, and "auto" picks fused on a CUDA device when the
+    scene routes to K5 (`diffkernel.routes_packed`) and modular otherwise.
+    With the modular step on K3 and geometry trainable, the compacted
+    selection snapshot is refreshed every `refresh_compact_every` steps.
+    Resumes from `checkpoint_path` if it exists. `average_last` > 0
+    returns the mean of the last N iterates. `trainable_rows` and `mesh`
+    are not ported."""
     if engine not in ("auto", "fused", "modular"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' needs the fused differentiable kernel K5 "
-            "(ops/diffkernel_packed.py), which is not ported yet")
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (parallel/sharded.py) is not ported yet")
-    if trainable_rows is not None:
+        raise NotImplementedError(_SHARDED)
+    if trainable_rows is not None and engine == "modular":
         raise ValueError(
             "trainable_rows requires the fused engine (the modular path "
             "has no row-subset surrogate mode)")
     dev = resolve_device(device)
-    step_fn, (params, opt_state) = make_train_step(
-        scene_template, camera, target, spp=spp, max_bounces=max_bounces,
-        background=background, seed=seed, learning_rate=learning_rate,
-        optimizer=optimizer, trainable=trainable, device=dev)
     scene_template = scene_template.to(dev)
+    fused_static = None
+    if engine == "auto":
+        fused_static = diffkernel.build_diff_static(scene_template)
+        use_fused = dev.type == "cuda" and (
+            trainable_rows is not None
+            or diffkernel.routes_packed(fused_static, background))
+        engine = "fused" if use_fused else "modular"
+    if trainable_rows is not None and engine == "modular":
+        raise ValueError(
+            "trainable_rows requires the fused engine, but auto selected "
+            "modular for this scene and device")
+    kw = dict(spp=spp, max_bounces=max_bounces, background=background,
+              seed=seed, learning_rate=learning_rate, optimizer=optimizer,
+              trainable=trainable, device=dev)
+    if engine == "fused":
+        step_fn, (params, opt_state) = make_fused_train_step(
+            scene_template, camera, target, static=fused_static,
+            trainable_rows=trainable_rows, **kw)
+    else:
+        step_fn, (params, opt_state) = make_train_step(
+            scene_template, camera, target, **kw)
     start = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         params, opt_state, start = load_checkpoint(checkpoint_path, dev)
     fits_geometry = trainable is None or bool(
         _GEOMETRY_FIELDS & set(trainable))
-    use_kernel = dev.type == "cuda"
+    use_kernel = engine == "modular" and dev.type == "cuda"
     compact = refresh_compact(scene_template, params) if use_kernel else None
     losses = []
     avg_from = max(start, steps - average_last) if average_last else steps
@@ -427,7 +562,10 @@ def fit(
                 and refresh_compact_every
                 and i % refresh_compact_every == 0):
             compact = refresh_compact(scene_template, params)
-        params, opt_state, loss = step_fn(params, opt_state, i, compact)
+        if engine == "fused":
+            params, opt_state, loss = step_fn(params, opt_state, i)
+        else:
+            params, opt_state, loss = step_fn(params, opt_state, i, compact)
         # keep the device scalar: reading it here would synchronise
         losses.append(loss)
         if i >= avg_from:

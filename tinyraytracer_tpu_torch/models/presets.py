@@ -260,6 +260,33 @@ def rtiow_sky(width: int = 400, height: int = 225) -> Tuple[World, Camera, Dict]
     return world, camera, kwargs
 
 
+def mixed_materials(width: int = 32, height: int = 24) -> Tuple[World, Camera, Dict]:
+    """The fused diff kernel's parity scene (tests/test_diffkernel.py
+    `_mixed_world`): every material kind and a quad light, so each
+    gradient chain (metal fuzz, dielectric ior, emission, NEE) is live."""
+    world = World()
+    world.add_material("ground", Lambertian((0.6, 0.5, 0.4)))
+    world.add_material("met", Metal((0.8, 0.8, 0.9), 0.3))
+    world.add_material("glass", Dielectric((0.95, 0.95, 0.95), 1.5))
+    world.add_material("lamp", Light((10.0, 10.0, 10.0)))
+    world.add_geometry(Sphere((0.0, -100.5, -1.0), 100.0, "ground"))
+    world.add_geometry(Sphere((-0.7, 0.0, -1.2), 0.5, "met"))
+    world.add_geometry(Sphere((0.7, 0.0, -1.2), 0.5, "glass"))
+    world.add_geometry(Quad((-1.5, 2.0, -2.5), (3.0, 0.0, 0.0), (0.0, 0.0, 2.0), "lamp"))
+    camera = Camera.new(
+        focus_distance=1.0,
+        defocus_angle=0.0,
+        position=(0.0, 0.3, 1.0),
+        look_at=(0.0, 0.0, -1.0),
+        up=(0.0, 1.0, 0.0),
+        vertical_fov=60.0,
+        width=width,
+        height=height,
+    )
+    kwargs = dict(max_bounces=5, background=(0.05, 0.06, 0.08))
+    return world, camera, kwargs
+
+
 PRESETS = {
     "sphere_ground": sphere_ground,
     "three_spheres": three_spheres,
