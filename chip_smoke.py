@@ -62,9 +62,31 @@ Phases, each printed on its own lines:
    memory, K5's device time and the device's busy share under
    torch.profiler, finite loss and gradients. Every kernel counter is
    zeroed before these steps and read after; K5 must have run.
+15. The classic-layout fused kernel (K4) against its twin: the image bit
+   for bit, the loss and every table within TABLE_RTOL, two launches bit
+   for bit; on the mixed-material scene forced onto K4 (full and class
+   scope, where K4 must also equal K5), on random_spheres n=40 under a
+   lamp (32x24 spp=2 mb=4: dense, explicit-subset and sphere-class-off
+   scopes), and at bench.py's cfg4-class shape (200x200 mb=8, subset and
+   dense: the twin at spp=1); K4 timed at spp=8 and 1, the twin at 1, and
+   K4's bound from the twin's live-bounce count.
+16. bench.py's cfg4-class step through `make_fused_train_step`
+   (random_spheres n=512 200x200 spp=8 mb=8, trainable sph_center +
+   mat_albedo), cell cfg4class (trainable_rows = the first 8 sphere rows)
+   and cfg4class-dense (none): 1 warm-up and 3 timed steps ended by a host
+   read of the loss; fwd+bwd camera Mrays/s, peak memory, K4's device time
+   and the device's busy share under torch.profiler. Every counter is
+   zeroed before and read after: K4 must run, K1-K3 and K5 must not;
+   untrained rows exactly unmoved, trained ones moved, all finite.
+17. Routing on the card: fit(engine="auto") on a 17-sphere scene, with and
+   without trainable_rows, runs on K4; the many-sphere recipe of
+   examples/manysphere_fit.py (n=128 + lamp, 128x128 spp=16 mb=4, the big
+   diffuse sphere's row, Adam 0.08, 20 steps): loss and position error
+   every 5 steps, the untrained rows' drift exactly 0.
 
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
-(10), modular (11), k5 (12), fused (13), cfg5f (14).
+(10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
+(16-17).
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -172,6 +194,21 @@ OPS_K5_ADJ = 262
 OPS_K5_SPH_SURR = 155
 OPS_K5_QUAD_SURR = 350
 K5_BYTES_PER_PIXEL = 24          # target in, image out
+# K4 (csrc/diffkernel.cu) runs K5's estimator (csrc/diff_common.cuh), so
+# the same counts hold, with two more read off the source: the light
+# sample inside OPS_K5_SHADE (skipped in a scene without lights, as is
+# the shadow ray), and a surrogate sphere's silhouette alone (bounce_adj's
+# A1 loop: all a sphere costs when no light makes soft shadows).
+OPS_K5_LIGHT = 67
+OPS_K4_SPH_SIL = 88
+# bench.py's cfg4-class fused step (bench.py:313-348): random_spheres
+# n=512 at 200x200, spp=8, mb=8, trainable sph_center + mat_albedo, the
+# first 8 sphere rows listed in trainable_rows (cell cfg4class) or none
+# (cfg4class-dense: the whole sphere class runs dense surrogates).
+CFG4C = dict(width=200, height=200, n=512, spp=8, max_bounces=8)
+CFG4C_ROWS = 8
+# examples/manysphere_fit.py's lit scene: random_spheres under a lamp.
+LIT_BG = (0.01, 0.01, 0.015)
 
 
 def log(*a):
@@ -1040,9 +1077,10 @@ def modular_render_phase(torch, np, presets, Renderer, card):
             raise RuntimeError(f"{name}: modular render disagrees with K1")
 
 
-def k5_segments(torch, dkp, fn):
-    """Runs a K5 twin call `fn()` counting its phase-1 live bounces (the
-    kernel's bounces: it skips the dead ones in every phase)."""
+def twin_segments(dkp, fn):
+    """Runs a K5/K4 twin call `fn()` counting its phase-1 live bounces
+    (the kernels' bounces: they skip the dead ones in every phase).
+    Returns (fn's result, the count)."""
     n = [0]
     real = dkp._Twin.color_adds
 
@@ -1052,10 +1090,10 @@ def k5_segments(torch, dkp, fn):
 
     dkp._Twin.color_adds = counting
     try:
-        fn()
+        out = fn()
     finally:
         dkp._Twin.color_adds = real
-    return n[0]
+    return out, n[0]
 
 
 def k5_bound(spec, pixels, spp, segments):
@@ -1063,8 +1101,7 @@ def k5_bound(spec, pixels, spp, segments):
     rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
     shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
                             - shade_ops(False, False))
-    n_s = spec.n_sph if spec.surr_sph else 0
-    n_q = spec.n_quad if spec.surr_quad else 0
+    n_s, n_q = len(spec.surr_s), len(spec.surr_q)
     fwd = 2 * rows + shade + OPS_K5_SHADOW + OPS_K5_ADVANCE
     per_seg = (2 * fwd + OPS_K5_COLOR + shade + OPS_K5_ADJ
                + n_s * OPS_K5_SPH_SURR + n_q * OPS_K5_QUAD_SURR)
@@ -1152,7 +1189,7 @@ def k5_phase(torch, np, presets, dkp, card):
         d = float((a - b).abs().max())
         rels[n] = d / max(float(b.abs().max()), 1e-30)
         cfg5_abs = max(cfg5_abs, d)
-    segs = k5_segments(torch, dkp, lambda: dkp.packed_diff_reference(
+    _, segs = twin_segments(dkp, lambda: dkp.packed_diff_reference(
         tab, cvec, tgt, spp=1, **args))
     segments = segs * spp
     b_ms, b_by, ops, per_seg = k5_bound(spec, w * h, spp, segments)
@@ -1188,6 +1225,167 @@ def _k5_setup(torch, dkp, scene, camera, background, flags):
         flags.get("sil", True), flags.get("surr_sph", True),
         flags.get("surr_quad", True))
     return tab, cvec, spec
+
+
+def k4_bound(spec, pixels, spp, segments):
+    """Least time (ms) of one K4 call and what bounds it: K5's counts,
+    without the light sample, shadow ray and soft shadows in a scene
+    without lights (the K4 surrogate rows are the scope's)."""
+    lit = spec.nee and spec.n_lights > 0
+    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
+    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
+                            - shade_ops(False, False))
+    if not lit:
+        shade -= OPS_K5_LIGHT
+    fwd = (2 * rows + OPS_K5_SHADOW if lit else rows) + shade + OPS_K5_ADVANCE
+    per_sph = OPS_K5_SPH_SURR if lit else (OPS_K4_SPH_SIL if spec.sil
+                                           else 0)
+    per_quad = OPS_K5_QUAD_SURR if lit or spec.sil else 0
+    per_seg = (2 * fwd + OPS_K5_COLOR + shade + OPS_K5_ADJ
+               + len(spec.surr_s) * per_sph + len(spec.surr_q) * per_quad)
+    ops = 2 * pixels * spp * OPS_CAMERA + segments * per_seg
+    t_ops = ops / FP32_PEAK
+    t_bytes = pixels * K5_BYTES_PER_PIXEL / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, per_seg)
+
+
+def lit_spheres(presets, n, width, height):
+    """examples/manysphere_fit.py's scene: random_spheres under a lamp
+    quad. Returns (world, camera)."""
+    from tinyraytracer_tpu_torch.models.geometry import Quad
+    from tinyraytracer_tpu_torch.models.materials import Light
+
+    world, camera, _ = presets.random_spheres(width=width, height=height,
+                                              n=n)
+    world.add_material("lamp", Light((12.0, 12.0, 12.0)))
+    world.add_geometry(Quad((-4.0, 11.99, -4.0), (8.0, 0.0, 0.0),
+                            (0.0, 0.0, 8.0), "lamp"))
+    return world, camera
+
+
+def _tables_rel(torch, got, want):
+    """Per gradient table (and loss): max |d| / max |want|, and max |d|."""
+    names = ("dsph", "dquad", "dmat", "dlight", "dmisc")
+    rels, worst = {}, 0.0
+    for n, a, b in zip(names, got[1:], want[1:]):
+        d = float((a - b).abs().max())
+        rels[n] = d / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, d)
+    return rels, worst
+
+
+def _k4_inputs(torch, np, dkp, scene, camera, bg, surr_sph, surr_quad):
+    h, w = camera.height, camera.width
+    tgt = torch.from_numpy(np.random.RandomState(0).rand(h, w, 3).astype(
+        np.float32) * 0.5)
+    _, tab, cvec, tgt, spec = dkp._inputs(scene.to("cuda"), camera, tgt, bg,
+                                          None, True, True, surr_sph,
+                                          surr_quad)
+    return tab, cvec, tgt, spec
+
+
+def k4_phase(torch, np, presets, dk, dkp, card):
+    """K4 against its twin on the card (and against K5 where both run);
+    returns the K4 record."""
+    worst = dict(abs=0.0, rel=0.0)
+
+    def check(label, args, tab, cvec, tgt, twin_args=None, k5=False):
+        before = dk.classic_diff.launches
+        got = dk.classic_diff(tab, cvec, tgt, **args)
+        again = dk.classic_diff(tab, cvec, tgt, **args)
+        torch.cuda.synchronize()
+        if dk.classic_diff.launches != before + 2:
+            raise RuntimeError("K4 launch counter did not rise")
+        want = dkp.packed_diff_reference(tab, cvec, tgt,
+                                         **(twin_args or args))
+        det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, again))
+        img_eq = torch.equal(got[0], want[0])
+        rels, d = _tables_rel(torch, got, want)
+        worst["abs"] = max(worst["abs"], d)
+        worst["rel"] = max(worst["rel"], max(rels.values()))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        msg = (f"[k4] {label}: image bitwise {img_eq}; tables max|d| / "
+               "max|table| " + ", ".join(f"{n} {r:.3g}" for n, r in
+                                         rels.items())
+               + f" (allowed {dkp.TABLE_RTOL:g}; max|d| {d:.3g}); loss "
+               f"{float(got[5][0, 3]):.9g} twin {float(want[5][0, 3]):.9g}; "
+               f"two launches bit for bit {det}; finite {finite}")
+        ok = img_eq and det and finite and max(
+            rels.values()) <= dkp.TABLE_RTOL
+        if k5:
+            five = dkp.packed_diff(tab, cvec, tgt, **args)
+            k5_img = torch.equal(got[0], five[0])
+            k5_rels, _ = _tables_rel(torch, got, five)
+            msg += (f"; K4 vs K5: image bitwise {k5_img}, tables within "
+                    f"{max(k5_rels.values()):.3g}")
+            ok = ok and k5_img and max(k5_rels.values()) <= dkp.TABLE_RTOL
+        log(msg)
+        if not ok:
+            raise RuntimeError(f"{label}: K4 disagrees with its twin (or "
+                               "K5) or is not deterministic")
+        return got
+
+    world, cam, kw = presets.mixed_materials(width=32, height=24)
+    mixed = world.build()
+    for scope, sq in (("full", True), ("class", False)):
+        tab, cvec, tgt, spec = _k4_inputs(torch, np, dkp, mixed, cam,
+                                          kw["background"], True, sq)
+        check(f"mixed 32x24 spp=2 mb=5, {scope} scope, forced onto K4",
+              dict(spec=spec, width=32, height=24, spp=2, max_bounces=5,
+                   seed=3), tab, cvec, tgt, k5=True)
+    world, cam = lit_spheres(presets, 40, 32, 24)
+    lit = world.build()
+    n_sph = int(lit.sph_valid.sum())
+    for scope, ss in (("dense", True), ("subset", (0, 5, n_sph - 1)),
+                      ("sphere class off", False)):
+        tab, cvec, tgt, spec = _k4_inputs(torch, np, dkp, lit, cam, LIT_BG,
+                                          ss, True)
+        check(f"random_spheres n=40 + lamp 32x24 spp=2 mb=4, {scope} "
+              f"scope", dict(spec=spec, width=32, height=24, spp=2,
+                             max_bounces=4, seed=3), tab, cvec, tgt)
+
+    # bench.py's cfg4-class shape: the kernel at the cell's spp, kernel
+    # and twin at spp=1
+    w, h, mb, spp = (CFG4C["width"], CFG4C["height"], CFG4C["max_bounces"],
+                     CFG4C["spp"])
+    world, cam, kw = presets.random_spheres(width=w, height=h, n=CFG4C["n"])
+    scene = world.build()
+    rec = {}
+    for cell, ss in (("cfg4class", tuple(range(CFG4C_ROWS))),
+                     ("cfg4class-dense", True)):
+        tab, cvec, tgt, spec = _k4_inputs(torch, np, dkp, scene, cam,
+                                          kw["background"], ss, False)
+        args = dict(spec=spec, width=w, height=h, max_bounces=mb, seed=0)
+        ms = time_kernel(torch, lambda: dk.classic_diff(
+            tab, cvec, tgt, spp=spp, **args), 3)
+        ms1 = time_kernel(torch, lambda: dk.classic_diff(
+            tab, cvec, tgt, spp=1, **args), 3)
+        chunk = TWIN_CANDIDATES // (spec.ns + spec.nq)
+        (_, segs), plain_ms = time_once(torch, lambda: twin_segments(
+            dkp, lambda: dkp.packed_diff_reference(
+                tab, cvec, tgt, spp=1, pixel_chunk=chunk, **args)))
+        check(f"{cell} shape {w}x{h} spp=1 mb={mb} ({spec.n_sph} spheres, "
+              f"{len(spec.surr_s)} surrogate rows, na {spec.acc_width})",
+              dict(args, spp=1), tab, cvec, tgt,
+              twin_args=dict(args, spp=1, pixel_chunk=chunk))
+        b_ms, b_by, ops, per_seg = k4_bound(spec, w * h, spp, segs * spp)
+        rec[cell] = dict(ms=ms, ms_spp1=ms1, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, bound_ops=ops,
+                         ops_per_segment=per_seg,
+                         segments_per_ray=segs / (w * h))
+        log(f"[k4] {cell} {w}x{h} mb={mb}: K4 {ms:.3f} ms at spp={spp}, "
+            f"{ms1:.3f} ms at spp=1; twin {plain_ms:.1f} ms at spp=1 "
+            f"({plain_ms / ms1:.1f}x); {segs / (w * h):.4f} live bounces "
+            f"per camera ray (twin, spp=1), {per_seg} ops per live bounce; "
+            f"bound {b_ms:.4f} ms ({b_by}, {ops:.4g} ops), kernel "
+            f"{ms / b_ms:.1f}x over it; on {card}")
+    main = rec["cfg4class"]
+    return dict(main, ms_at_plain_shape=main["ms_spp1"],
+                plain_shape=f"{w}x{h} spp=1 mb={mb}",
+                max_abs_err=worst["abs"], max_rel_err=worst["rel"],
+                cells=rec)
 
 
 def fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card):
@@ -1277,8 +1475,7 @@ def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
                and c * per_sample <= 0.9 * STEP_LIMIT_S] or [1])
     cut = spp != CFG5["spp"]
     step, state = make(spp)
-    mkp.render_packed.launches = mk.render_flat.launches = 0
-    ik.closest_hit.launches = dkp.packed_diff.launches = 0
+    _zero_counters(ik, mk, mkp, dk, dkp)
     dk.render_value_and_grad = checking
     try:
         state, loss0, warm_s = timed(step, state, 0)
@@ -1289,10 +1486,7 @@ def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
             times.append(dt)
     finally:
         dk.render_value_and_grad = real
-    counters = {"K1": mkp.render_packed.launches,
-                "K2": mk.render_flat.launches,
-                "K3": ik.closest_hit.launches,
-                "K5": dkp.packed_diff.launches}
+    counters = _counters(ik, mk, mkp, dk, dkp)
     peak = torch.cuda.max_memory_allocated()
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1325,14 +1519,204 @@ def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
         f"{res['device_busy']:.1%} of {wall:.3f} s; loss {loss0:.6g} -> "
         f"{loss:.6g}; loss and gradients finite {ok}; on {card}")
     log(f"[cfg5f] launches in this main path: {counters}")
-    if not ok or counters["K5"] != 3 or counters["K3"]:
+    if not ok or counters["K5"] != 3 or counters["K3"] or counters["K4"]:
         raise RuntimeError("config 5 fused: non-finite values or wrong "
                            "launch counts")
     return res
 
 
+def _counters(ik, mk, mkp, dk, dkp):
+    return {"K1": mkp.render_packed.launches, "K2": mk.render_flat.launches,
+            "K3": ik.closest_hit.launches, "K4": dk.classic_diff.launches,
+            "K5": dkp.packed_diff.launches}
+
+
+def _zero_counters(ik, mk, mkp, dk, dkp):
+    mkp.render_packed.launches = mk.render_flat.launches = 0
+    ik.closest_hit.launches = dk.classic_diff.launches = 0
+    dkp.packed_diff.launches = 0
+
+
+def cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card):
+    """bench.py's cfg4-class fused training step at full size through
+    make_fused_train_step, with and without trainable_rows: this slice's
+    main path. Returns the two cells' records."""
+    w, h, spp, mb = (CFG4C["width"], CFG4C["height"], CFG4C["spp"],
+                     CFG4C["max_bounces"])
+    world, camera, kw = presets.random_spheres(width=w, height=h,
+                                               n=CFG4C["n"])
+    template = world.build()
+    st = dk.build_diff_static(template)
+    target = torch.zeros((h, w, 3))
+    real = dk.render_value_and_grad
+    out = {}
+    for cell, rows in (("cfg4class", st.sph_rows[:CFG4C_ROWS]),
+                       ("cfg4class-dense", None)):
+        bad = {"loss": 0, "grads": 0}
+
+        def checking(*a, **k):
+            loss, img, g = real(*a, **k)
+            bad["loss"] += int(not bool(torch.isfinite(loss)))
+            bad["grads"] += sum(int((~torch.isfinite(x)).sum())
+                                for x in g.values())
+            return loss, img, g
+
+        def timed(step, state, i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, loss = step(*state, i)
+            value = float(loss)         # host read, as bench.py:336-339
+            return (p, o), value, time.perf_counter() - t0
+
+        step, state = inverse.make_fused_train_step(
+            template, camera, target, spp=spp, max_bounces=mb,
+            background=kw["background"], seed=0, trainable=TRAINABLE,
+            trainable_rows=None if rows is None else {"sph": rows},
+            device="cuda")
+        p0 = state[0]["sph_center"].clone()
+        _zero_counters(ik, mk, mkp, dk, dkp)
+        dk.render_value_and_grad = checking
+        try:
+            state, loss0, warm_s = timed(step, state, 0)
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in (1, 2, 3):
+                state, loss, dt = timed(step, state, i)
+                times.append(dt)
+        finally:
+            dk.render_value_and_grad = real
+        counters = _counters(ik, mk, mkp, dk, dkp)
+        peak = torch.cuda.max_memory_allocated()
+        moved = (state[0]["sph_center"] != p0).any(-1).cpu()
+        if rows is None:
+            pinned_ok, listed_ok = True, bool(moved.any())
+        else:
+            listed = torch.zeros_like(moved)
+            listed[list(rows)] = True
+            pinned_ok = not bool(moved[~listed].any())
+            listed_ok = bool(moved[listed].any())
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _, _ = timed(step, state, 4)
+            wall = time.perf_counter() - t0
+        ev = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()]
+        busy_ms = sum(ms for _, ms, _ in ev)
+        k4_ms = sum(ms for n, ms, _ in ev if "classic_kernel" in n)
+        red_ms = sum(ms for n, ms, _ in ev if "classic_reduce" in n)
+        step_s = min(times)
+        ok = (bad["loss"] == 0 and bad["grads"] == 0 and math.isfinite(loss)
+              and all(bool(torch.isfinite(v).all())
+                      for v in state[0].values()))
+        res = dict(width=w, height=h, spp=spp, max_bounces=mb,
+                   n_spheres=len(st.sph_rows),
+                   trainable_rows=None if rows is None else list(rows),
+                   warmup_s=warm_s, step_s=times,
+                   mrays_s=w * h * spp / step_s / 1e6, peak_bytes=peak,
+                   k4_device_ms=k4_ms, reduce_device_ms=red_ms,
+                   device_busy=busy_ms / 1e3 / wall, profiled_wall_s=wall,
+                   loss=[loss0, loss], finite=ok, launches=counters,
+                   pinned_rows_unmoved=pinned_ok,
+                   rows_moved=int(moved.sum()),
+                   top=sorted(ev, key=lambda r: -r[1])[:4])
+        log(f"[cfg4f] {cell}: random_spheres n={CFG4C['n']} "
+            f"({len(st.sph_rows)} spheres) {w}x{h} spp={spp} mb={mb}, "
+            f"trainable {'+'.join(TRAINABLE)}, trainable_rows "
+            f"{'sph[:%d]' % CFG4C_ROWS if rows is not None else 'none'}: "
+            f"warm-up {warm_s:.4f} s, steps "
+            f"{', '.join(f'{t:.4f}' for t in times)} s; {res['mrays_s']:.3f}"
+            f" fwd+bwd camera Mrays/s; peak device memory "
+            f"{peak / 2**30:.3f} GiB; profiled step: K4 {k4_ms:.3f} ms "
+            f"device time, its reduction {red_ms:.3f} ms, device busy "
+            f"{res['device_busy']:.1%} of {wall:.4f} s; loss {loss0:.6g} -> "
+            f"{loss:.6g}; finite {ok}; untrained rows unmoved {pinned_ok}, "
+            f"sphere rows moved {int(moved.sum())}; on {card}")
+        log(f"[cfg4f] launches in this main path: {counters}")
+        if not (ok and pinned_ok and listed_ok) or counters["K4"] != 4 or any(
+                counters[k] for k in ("K1", "K2", "K3", "K5")):
+            raise RuntimeError(f"{cell}: non-finite values, moved pinned "
+                               "rows or wrong launch counts")
+        out[cell] = res
+    return out
+
+
+def routing_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, optim,
+                  card):
+    """fit(engine="auto") routes many-sphere scenes to K4 on the card, and
+    the many-sphere recipe (examples/manysphere_fit.py) trains one row."""
+    world, camera, kw = presets.random_spheres(width=32, height=32, n=17)
+    scene = world.build()
+    st = dk.build_diff_static(scene)
+    common = dict(spp=2, max_bounces=4, background=kw["background"],
+                  trainable=TRAINABLE, engine="auto", device="cuda")
+    for label, extra in (("", {}), (", trainable_rows sph[:2]",
+                                    {"trainable_rows": {
+                                        "sph": st.sph_rows[:2]}})):
+        _zero_counters(ik, mk, mkp, dk, dkp)
+        _, losses = inverse.fit(scene, camera, torch.zeros(32, 32, 3),
+                                steps=2, **common, **extra)
+        n = _counters(ik, mk, mkp, dk, dkp)
+        log(f"[route] fit(engine='auto') on random_spheres n=17 "
+            f"({len(st.sph_rows)} spheres){label}: losses "
+            f"{[round(x, 6) for x in losses]}; launches {n}")
+        if n["K4"] != 2 or n["K5"] or n["K3"] or not all(
+                math.isfinite(x) for x in losses):
+            raise RuntimeError("fit(engine='auto') did not run on K4")
+
+    # examples/manysphere_fit.py: move the big diffuse sphere along z and
+    # fit it back, every other row pinned
+    size, spp, mb, steps = 128, 16, 4, 20
+    world, camera = lit_spheres(presets, 128, size, size)
+    true = world.build().to("cuda")
+    rows = torch.nonzero(true.sph_valid).flatten()
+    row = int(rows[torch.argmin(torch.linalg.vector_norm(
+        true.sph_center[rows] - torch.tensor([-4.0, 1.0, 0.0],
+                                             device="cuda"), dim=-1))])
+    target = dk.render_value_and_grad(
+        true, camera, torch.zeros(size, size, 3), spp=48, max_bounces=mb,
+        background=LIT_BG, seed=1)[1]
+    start = true.sph_center.clone()
+    start[row, 2] += 1.5
+    from tinyraytracer_tpu_torch.diff.params import apply_params
+    scene0 = apply_params(true, {"sph_center": start})
+    step, state = inverse.make_fused_train_step(
+        scene0, camera, target, spp=spp, max_bounces=mb, background=LIT_BG,
+        seed=0, optimizer=optim.adam(0.08), trainable=("sph_center",),
+        trainable_rows={"sph": (row,)}, device="cuda")
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    t0 = time.perf_counter()
+    curve = []
+    for i in range(steps):
+        p, o, loss = step(*state, i)
+        state = (p, o)
+        if i % 5 == 0 or i == steps - 1:
+            err = float(torch.linalg.vector_norm(
+                p["sph_center"][row] - true.sph_center[row]))
+            curve.append((i, float(loss), err))
+            log(f"[route] manysphere step {i:2d}: loss {float(loss):.6f}, "
+                f"position error {err:.4f}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    others = torch.ones(start.shape[0], dtype=torch.bool, device="cuda")
+    others[row] = False
+    drift = float((state[0]["sph_center"][others] - start[others]).abs()
+                  .max())
+    n = _counters(ik, mk, mkp, dk, dkp)
+    log(f"[route] manysphere fit: {len(rows)} spheres + lamp {size}x{size} "
+        f"spp={spp} mb={mb}, row {row} trained (start offset 1.5), Adam "
+        f"0.08: {steps} steps in {dt:.2f} s; position error "
+        f"{curve[0][2]:.4f} -> {curve[-1][2]:.4f}; drift of untrained rows "
+        f"{drift}; launches {n}; on {card}")
+    if drift != 0.0 or n["K4"] != steps or n["K5"] or not math.isfinite(
+            curve[-1][1]):
+        raise RuntimeError("manysphere fit: untrained rows moved, wrong "
+                           "launch count or a non-finite loss")
+    return dict(curve=curve, seconds=dt, drift=drift, launches=n)
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f")
+          "cfg5f", "k4", "cfg4f")
 
 
 def main(argv=None) -> int:
@@ -1342,8 +1726,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
-                    "(11), k5 (12), fused (13), cfg5f (14); the result "
-                    "lines need all of them")
+                    "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
+                    "cfg4f (16-17); the result lines need all of them")
     only = ap.parse_args(argv).only.split(",")
     import numpy as np
     import torch
@@ -1351,7 +1735,7 @@ def main(argv=None) -> int:
     card = env_phase(torch)
     sys.path.insert(0, ROOT)
     from tinyraytracer_tpu_torch import Image, Renderer, _build
-    from tinyraytracer_tpu_torch.diff import inverse
+    from tinyraytracer_tpu_torch.diff import inverse, optim
     from tinyraytracer_tpu_torch.models import presets
     from tinyraytracer_tpu_torch.ops import diffkernel as dk
     from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
@@ -1391,6 +1775,13 @@ def main(argv=None) -> int:
     if "cfg5f" in only:
         results["cfg5f"] = cfg5_fused_phase(torch, presets, dk, dkp, inverse,
                                             Renderer, card)
+    if "k4" in only:
+        results["k4"] = k4_phase(torch, np, presets, dk, dkp, card)
+    if "cfg4f" in only:
+        results["cfg4f"] = cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp,
+                                       inverse, card)
+        results["route"] = routing_phase(torch, presets, ik, mk, mkp, dk,
+                                         dkp, inverse, optim, card)
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -1412,7 +1803,7 @@ def main(argv=None) -> int:
             "ms_at_plain_shape": res["kernel_ms_at_twin_shape"],
         }
 
-    k3, k5 = results["k3"], results["k5"]
+    k3, k4, k5 = results["k3"], results["k4"], results["k5"]
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
@@ -1436,6 +1827,15 @@ def main(argv=None) -> int:
          "bound_by": k5["bound_by"], "library_ms": None, "config": "cfg5f",
          "plain_shape": k5["plain_shape"],
          "ms_at_plain_shape": k5["ms_at_plain_shape"]},
+        {"name": "diffkernel", "route": "cuda",
+         "source": "tinyraytracer_tpu_torch/csrc/diffkernel.cu",
+         "replaces": "tinyraytracer_tpu/ops/diffkernel.py:357",
+         "launches": results["cfg4f"]["cfg4class"]["launches"]["K4"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "config": "cfg4class", "plain_shape": k4["plain_shape"],
+         "ms_at_plain_shape": k4["ms_at_plain_shape"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

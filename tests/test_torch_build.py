@@ -73,6 +73,7 @@ def test_declare_types_every_exported_function():
 
     names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
              "tinyrt_closest_hit", "tinyrt_diff_packed",
+             "tinyrt_diff_classic", "tinyrt_diff_classic_blocks",
              "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
@@ -99,7 +100,15 @@ def test_declare_types_every_exported_function():
     assert [k for k, t in enumerate(k5) if t is p] == [0, 1, 8, 9, 10, 11,
                                                        12, 26]
     assert k5[15] is k5[16] is ctypes.c_uint and k5[19] is ctypes.c_float
-    for n in names[:4]:
+    k4 = lib.tinyrt_diff_classic.argtypes
+    assert len(k4) == 30
+    assert [k for k, t in enumerate(k4) if t is p] == [0, 1, 7, 9, 11, 12,
+                                                       13, 14, 15, 16, 29]
+    assert k4[20] is k4[21] is ctypes.c_uint and k4[24] is ctypes.c_float
+    blocks = lib.tinyrt_diff_classic_blocks.argtypes
+    assert blocks[2] is ctypes.c_longlong
+    assert blocks[3] is ctypes.POINTER(ctypes.c_int)
+    for n in names[:6]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 
@@ -125,3 +134,21 @@ def test_k5_accumulator_limit_is_the_kernels():
 
     src = (_build.CSRC_DIR / "diffkernel_packed.cu").read_text()
     assert f"constexpr int kMaxAcc = {DIFF_PACKED_MAX_ACC};" in src
+
+
+@pytest.mark.parametrize("name", ["diffkernel.cu", "diff_common.cuh"])
+def test_k4_source_and_shared_header_are_in_the_build_hash(
+        name, tmp_path, monkeypatch):
+    """K4's source and the estimator header it shares with K5 are built
+    and hashed: changing either names another library."""
+    import shutil
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, src)
+    assert (src / name).is_file()
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    before = _build.library_path()
+    (src / name).write_text((src / name).read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+    if name.endswith(".cu"):
+        assert (src / name) in sorted(src.glob("*.cu"))

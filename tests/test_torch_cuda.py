@@ -270,3 +270,78 @@ def test_fused_train_step_runs_on_k5(cuda):
     assert all(bool(torch.isfinite(v).all()) for v in p1.values())
     assert torch.equal(p1["quad_corner"], p0["quad_corner"])
     assert not torch.equal(p1["mat_albedo"], p0["mat_albedo"])
+
+
+def _lit_spheres(n, width, height):
+    """random_spheres with a lamp quad above it (examples/manysphere_fit
+    .py's scene): many spheres under a light, so the soft shadows run."""
+    from tinyraytracer_tpu_torch.models.geometry import Quad
+    from tinyraytracer_tpu_torch.models.materials import Light
+
+    world, camera, kw = presets.random_spheres(width=width, height=height,
+                                               n=n)
+    world.add_material("lamp", Light((12.0, 12.0, 12.0)))
+    world.add_geometry(Quad((-4.0, 11.99, -4.0), (8.0, 0.0, 0.0),
+                            (0.0, 0.0, 8.0), "lamp"))
+    return world.build(), camera, (0.01, 0.01, 0.015)
+
+
+def _k4_check(dkp, got, want, again):
+    """K4 against its twin: the image bit for bit, each table within
+    TABLE_RTOL of its largest entry, two launches bit for bit."""
+    assert torch.equal(got[0], want[0])
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= dkp.TABLE_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scope", ["dense", "subset", "off"])
+def test_classic_diff_kernel_matches_twin(cuda, scope):
+    """K4 (random_spheres n=40 under a lamp, 32x24 spp=2 mb=4) against
+    its twin with every kind of surrogate scope, as chip_smoke.py phase
+    15; the launch counter rises once per launch."""
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    scene, camera, bg = _lit_spheres(40, 32, 24)
+    n_sph = int(scene.sph_valid.sum())
+    surr = {"dense": True, "subset": (0, 5, n_sph - 1), "off": False}[scope]
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        24, 32, 3).astype(np.float32))
+    _, tab, cam, tgt, spec = dkp._inputs(scene.to(cuda), camera, target, bg,
+                                         None, True, True, surr, True)
+    kw = dict(spec=spec, width=32, height=24, spp=2, max_bounces=4, seed=3)
+    before = dk.classic_diff.launches
+    got = dk.classic_diff(tab, cam, tgt, **kw)
+    again = dk.classic_diff(tab, cam, tgt, **kw)
+    torch.cuda.synchronize()
+    assert dk.classic_diff.launches == before + 2
+    _k4_check(dkp, got, dkp.packed_diff_reference(tab, cam, tgt, **kw),
+              again)
+
+
+@pytest.mark.cuda
+def test_classic_diff_kernel_equals_packed_on_mixed(cuda):
+    """On the mixed-material scene forced onto K4, K4 equals K5: the
+    image bit for bit, the tables within TABLE_RTOL (another summation
+    order)."""
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera, kw = presets.mixed_materials(width=32, height=24)
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        24, 32, 3).astype(np.float32))
+    for surr_quad in (True, False):
+        _, tab, cam, tgt, spec = dkp._inputs(
+            world.build().to(cuda), camera, target, kw["background"], None,
+            True, True, True, surr_quad)
+        args = dict(spec=spec, width=32, height=24, spp=2, max_bounces=5,
+                    seed=3)
+        k4 = dk.classic_diff(tab, cam, tgt, **args)
+        k5 = dkp.packed_diff(tab, cam, tgt, **args)
+        assert torch.equal(k4[0], k5[0])
+        for a, b in zip(k4[1:], k5[1:]):
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= dkp.TABLE_RTOL * scale

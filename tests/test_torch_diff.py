@@ -230,9 +230,13 @@ def test_checkpoint_round_trip(cornell, tmp_path):
 def test_fit_engines_devices_and_resume(cornell, tmp_path, monkeypatch):
     _, _, ts, tc, bg, target = cornell
     kw = dict(spp=SPP, max_bounces=2, background=bg, trainable=TRAINABLE)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tinv.fit(ts, tc, target, steps=1, engine="fused", device="cpu",
-                 trainable_rows={"sph": (0,)}, **kw)
+    row = int(np.flatnonzero(ts.sph_valid.numpy())[0])
+    pinned, losses = tinv.fit(ts, tc, target, steps=1, engine="fused",
+                              device="cpu", trainable_rows={"sph": (row,)},
+                              **kw)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    others = torch.arange(ts.sph_center.shape[0]) != row
+    assert torch.equal(pinned.sph_center[others], ts.sph_center[others])
     with pytest.raises(NotImplementedError, match="sharded"):
         tinv.fit(ts, tc, target, steps=1, mesh=object(), device="cpu", **kw)
     with pytest.raises(ValueError):

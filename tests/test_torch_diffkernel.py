@@ -86,7 +86,9 @@ def jax_scene(name):
     return w.build(), c, kw["background"]
 
 
-SCENES = ("cornell_spheres", "mixed", "three_spheres")
+# random_spheres (500 spheres, 500 materials) is a K4 scene: K4 reads the
+# same flat table
+SCENES = ("cornell_spheres", "mixed", "three_spheres", "random_spheres")
 
 
 @pytest.mark.parametrize("name", SCENES)

@@ -139,5 +139,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i, i, u, u, i, i,
                    f, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.tinyrt_diff_classic_blocks
+    fn.argtypes = [i, i, ll, ctypes.POINTER(i)]
+    fn.restype = i
+    fn = lib.tinyrt_diff_classic
+    fn.argtypes = [p, p, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, i, i, i,
+                   u, u, i, i, f, i, i, i, i, p]
+    fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

@@ -20,8 +20,10 @@ single-pass gradient up to summation order, and K3 runs twice per bounce
 per round, as in the JAX step that saves only the selections.
 
 `make_fused_train_step` is the other engine: the loss and every gradient
-come out of one launch of the fused kernel K5 (ops/diffkernel_packed.py)
-per step, with the same estimator and sample streams.
+come out of one launch of a fused kernel per step, with the same
+estimator and sample streams: K5 (ops/diffkernel_packed.py) for small
+scenes, K4 (ops/diffkernel.classic_diff) for the rest and for
+`trainable_rows`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import os
 import pickle
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tinyraytracer_tpu_torch.diff import optim
@@ -318,9 +321,6 @@ def make_train_step(
     return step, (params0, optimizer.init(params0))
 
 
-_K4_ROWS = ("trainable_rows (explicit surrogate row subsets) need the "
-            "classic-layout fused kernel K4 (ops/diffkernel.py:"
-            "_make_diff_kernel), which is not ported yet")
 _SHARDED = "sharded training (parallel/sharded.py) is not ported yet"
 
 
@@ -363,27 +363,32 @@ def make_fused_train_step(
     static=None,
     device="cuda",
 ):
-    """Adam step on the fused differentiable kernel, on `device`.
+    """Adam step on the fused differentiable kernels, on `device`.
 
     Returns (step, (params0, opt_state0)); step(params, opt_state,
     step_idx) -> (params, opt_state, loss), the loss a 0-dim device
     tensor. The same estimator, sample streams and gradients as
     make_train_step(nee=True, silhouette=True), but render, loss and
-    backward are one launch of K5 per step (per chunk with
-    `grad_chunks`); the scene table is rebuilt from the live params each
-    step, so no compaction snapshot is needed.
+    backward are one launch of K5 or K4 per step (per chunk with
+    `grad_chunks`; diffkernel.render_value_and_grad routes); the scene
+    table is rebuilt from the live params each step, so no compaction
+    snapshot is needed.
 
     `trainable` names the free fields and also sets the surrogate scope
-    (`_surrogate_scope`). `grad_chunks` > 1 splits spp into chunks run
-    one after the other and takes the elementwise median of their
-    gradients; the loss is then the mean of the chunk losses. Non-finite
-    gradient entries are zeroed, the background gradient dropped, and
-    untrained fields' gradients zeroed before the update. `static` is a
-    precomputed diffkernel.build_diff_static(scene_template); `tile` is
-    accepted and ignored. `trainable_rows` and `mesh` are not ported.
+    (`_surrogate_scope`). `trainable_rows` ({"sph": scene rows, "quad":
+    scene rows}) restricts geometry training to those rows: their
+    surrogates run as an explicit subset on K4 (a class without listed
+    rows is dropped), and every other row's geometry gradient is masked
+    to zero, so the optimizer cannot move it. The soft-shadow ratio clamp
+    then sees only the listed rows' visibility product, as in the JAX
+    package (its inverse.py:385-391). `grad_chunks` > 1 splits spp into
+    chunks run one after the other and takes the elementwise median of
+    their gradients; the loss is then the mean of the chunk losses.
+    Non-finite gradient entries are zeroed, the background gradient
+    dropped, and untrained fields' gradients zeroed before the update.
+    `static` is a precomputed diffkernel.build_diff_static(scene_template);
+    `tile` is accepted and ignored. `mesh` is not ported.
     """
-    if trainable_rows is not None:
-        raise NotImplementedError(_K4_ROWS)
     if mesh is not None:
         raise NotImplementedError(_SHARDED)
     dev = resolve_device(device)
@@ -399,6 +404,11 @@ def make_fused_train_step(
     stride = spp if advance_samples else 0
     trainset = None if trainable is None else frozenset(trainable)
     sil, surr_rows = _surrogate_scope(trainset)
+    row_mask = None
+    if trainable_rows is not None:
+        surr_rows = {k: tuple(int(r) for r in trainable_rows.get(k, ()))
+                     for k in ("sph", "quad")}
+        row_mask = _row_masks(scene, surr_rows, dev)
 
     def chunk(s, chunk_spp, offset):
         loss, _img, grads = diffkernel.render_value_and_grad(
@@ -426,12 +436,30 @@ def make_fused_train_step(
         if trainset is not None:
             grads = {k: g if k in trainset else torch.zeros_like(g)
                      for k, g in grads.items()}
+        if row_mask is not None:
+            grads = {k: g * row_mask[k] if k in row_mask else g
+                     for k, g in grads.items()}
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optim.apply_updates(params, updates)
         return params, opt_state, loss
 
     params0 = scene_params(scene)
     return step, (params0, optimizer.init(params0))
+
+
+def _row_masks(scene, rows: dict, dev) -> dict:
+    """Per-row update masks over the scene's full row axes: 1 on the
+    listed sphere / quad rows, 0 elsewhere, shaped to broadcast against
+    each geometry field."""
+    sm = torch.zeros(scene.sph_center.shape[0], dtype=torch.float32,
+                     device=dev)
+    sm[list(rows["sph"])] = 1.0
+    qm = torch.zeros(scene.quad_corner.shape[0], dtype=torch.float32,
+                     device=dev)
+    qm[list(rows["quad"])] = 1.0
+    return {"sph_center": sm[:, None], "sph_radius": sm,
+            "quad_corner": qm[:, None], "quad_u": qm[:, None],
+            "quad_v": qm[:, None]}
 
 
 def refresh_compact(scene_template, params: Params):
@@ -506,16 +534,19 @@ def fit(
 ):
     """Run `steps` of Adam on the scene params; returns (scene, losses).
 
-    `engine`: "fused" runs `make_fused_train_step` (kernel K5, one launch
-    per step; the table is rebuilt from the live params every step, so no
-    compaction refresh), "modular" the autodiff step of
-    `make_train_step`, and "auto" picks fused on a CUDA device when the
-    scene routes to K5 (`diffkernel.routes_packed`) and modular otherwise.
-    With the modular step on K3 and geometry trainable, the compacted
-    selection snapshot is refreshed every `refresh_compact_every` steps.
-    Resumes from `checkpoint_path` if it exists. `average_last` > 0
-    returns the mean of the last N iterates. `trainable_rows` and `mesh`
-    are not ported."""
+    `engine`: "fused" runs `make_fused_train_step` (kernel K5 or K4, one
+    launch per step; the table is rebuilt from the live params every step,
+    so no compaction refresh), "modular" the autodiff step of
+    `make_train_step`, and "auto" picks fused on a CUDA device for every
+    scene with a constant background (K5 or K4, as
+    `diffkernel.render_value_and_grad` routes) and modular otherwise (a
+    gradient sky, or the CPU). `trainable_rows` ({"sph": rows, "quad":
+    rows}, fused engine only) restricts geometry training to those rows
+    (make_fused_train_step). With the modular step on K3 and geometry
+    trainable, the compacted selection snapshot is refreshed every
+    `refresh_compact_every` steps. Resumes from `checkpoint_path` if it
+    exists. `average_last` > 0 returns the mean of the last N iterates.
+    `mesh` is not ported."""
     if engine not in ("auto", "fused", "modular"):
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
@@ -528,11 +559,11 @@ def fit(
     scene_template = scene_template.to(dev)
     fused_static = None
     if engine == "auto":
-        fused_static = diffkernel.build_diff_static(scene_template)
-        use_fused = dev.type == "cuda" and (
-            trainable_rows is not None
-            or diffkernel.routes_packed(fused_static, background))
+        use_fused = (dev.type == "cuda"
+                     and np.asarray(background, np.float32).ndim == 1)
         engine = "fused" if use_fused else "modular"
+        if use_fused:
+            fused_static = diffkernel.build_diff_static(scene_template)
     if trainable_rows is not None and engine == "modular":
         raise ValueError(
             "trainable_rows requires the fused engine, but auto selected "

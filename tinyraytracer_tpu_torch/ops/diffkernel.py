@@ -1,5 +1,6 @@
 """Fused differentiable render: the training objective and its gradients
-in one kernel launch (port of the routing half of ops/diffkernel.py).
+in one kernel launch (port of ops/diffkernel.py: the routing and the
+classic-layout kernel K4).
 
     L = mean((render_nee(scene) - target)^2)
 
@@ -10,14 +11,18 @@ that of ops/trace.trace(nee=True, silhouette=True): the same pcg4d
 streams, emission-skip rule, quad-light NEE with the soft-shadow
 surrogate, silhouette surrogates and material scatter chains.
 
-The JAX package has two such kernels. Scenes of at most
-DIFF_PACKED_MAX_PRIMS real primitives and DIFF_PACKED_MAX_SPHERES real
-spheres, with a constant background and a class-level surrogate scope, go
-to the packed kernel (ops/diffkernel_packed.py, K5, ported); every other
-case goes to the classic-layout kernel K4 (`_make_diff_kernel`), which is
-not ported yet: those cases raise NotImplementedError here, as do scenes
-whose gradient tables overflow the CUDA K5's per-thread accumulator
-(`routes_packed` is the one rule).
+The JAX package has two such kernels, and so has the port. Scenes of at
+most DIFF_PACKED_MAX_PRIMS real primitives and DIFF_PACKED_MAX_SPHERES
+real spheres, with a constant background and a class-level surrogate
+scope, go to the packed kernel K5 (ops/diffkernel_packed.py,
+csrc/diffkernel_packed.cu); every other case goes to the classic-layout
+kernel K4 (`classic_diff`, csrc/diffkernel.cu): explicit surrogate row
+subsets, larger scenes, and (unlike the JAX package, whose K5 has no such
+limit) scenes whose gradient tables overflow the CUDA K5's per-thread
+accumulator. `routes_packed` is the one rule. Both CUDA kernels run one
+estimator (csrc/diff_common.cuh) on one flat table
+(diffkernel_packed.packed_flat_table), and `packed_diff_reference` is the
+plain twin of both.
 
 Gradient targets: sph_center, sph_radius, quad_corner, quad_u, quad_v,
 mat_albedo, mat_fuzz, mat_ior, mat_emit, background.
@@ -25,11 +30,14 @@ mat_albedo, mat_fuzz, mat_ior, mat_emit, background.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models import materials as mat
 
 _T_MIN = 1.0e-3
@@ -45,8 +53,11 @@ DIFF_PACKED_MAX_SPHERES = 16
 # material palette, many light quads) is routed as the classic kernel's.
 DIFF_PACKED_MAX_ACC = 1024
 
-_K4 = ("the classic-layout fused diff kernel K4 "
-       "(ops/diffkernel.py:_make_diff_kernel), which is not ported yet")
+# Floats of K4's per-thread gradient columns ([na][threads]) that the
+# launch may allocate: the grid shrinks below one wave to stay within it.
+DIFF_CLASSIC_MAX_COLS = 1 << 30
+_BLOCK = 128
+_MASK = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +135,30 @@ def routes_packed(st: DiffStatic, background) -> bool:
             <= DIFF_PACKED_MAX_ACC)
 
 
+def _surrogate_rows(st: DiffStatic, surr_rows):
+    """The per-class surrogate scopes of `surr_rows` as packed_spec takes
+    them (True = the class, False = off, a tuple = table rows), and
+    whether every class is whole or off (a class-level scope)."""
+    if surr_rows is None:
+        return True, True, True
+    sv = surr_rows.get("sph", ())
+    qv = surr_rows.get("quad", ())
+    smap = {r: i for i, r in enumerate(st.sph_rows)}
+    qmap = {r: j for j, r in enumerate(st.quad_rows)}
+    try:
+        surr_s = True if sv is None else tuple(sorted(
+            smap[int(r)] for r in sv))
+        surr_q = True if qv is None else tuple(sorted(
+            qmap[int(r)] for r in qv))
+    except KeyError as e:
+        raise ValueError(
+            f"surr_rows names row {e} which is not a valid "
+            "sphere/quad row of this scene") from None
+    class_level = (surr_s is True or not surr_s) and (
+        surr_q is True or not surr_q)
+    return surr_s or False, surr_q or False, class_level
+
+
 def render_value_and_grad(scene, camera, target, *, spp: int,
                           max_bounces: int, background, seed: int = 0,
                           spp_offset=0, nee: bool = True,
@@ -137,10 +172,11 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
     grads is a dict over diff.params.FLOAT_FIELDS plus "background",
     shaped like the scene's fields. `surr_rows` ({"sph": rows, "quad":
     rows}) scopes the boundary surrogates per class: None = the whole
-    class, () or missing = the class compiled out, a row tuple = an
-    explicit subset (classic kernel K4 only). `packed` None routes as the
-    JAX package does; `tile` is accepted and ignored (the CUDA kernel
-    runs one thread per pixel).
+    class, () or missing = the class dropped, a row tuple = an explicit
+    subset (K4 only; the soft-shadow visibility product then runs over the
+    listed rows only). `packed` None routes by `routes_packed`; an explicit
+    subset always takes K4. `tile` is accepted and ignored (the CUDA
+    kernels run one thread per pixel).
     """
     if np.asarray(background, np.float32).ndim != 1:
         raise ValueError(
@@ -152,43 +188,100 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
         raise NotImplementedError(
             "sharded fused training (parallel/sharded.py) is not ported yet")
     st = static if static is not None else build_diff_static(scene)
-    surr_sph_on = surr_quad_on = True
-    if surr_rows is not None:
-        sv = surr_rows.get("sph", ())
-        qv = surr_rows.get("quad", ())
-        smap = {r: i for i, r in enumerate(st.sph_rows)}
-        qmap = {r: j for j, r in enumerate(st.quad_rows)}
-        try:
-            surr_s = None if sv is None else tuple(sorted(
-                smap[int(r)] for r in sv))
-            surr_q = None if qv is None else tuple(sorted(
-                qmap[int(r)] for r in qv))
-        except KeyError as e:
-            raise ValueError(
-                f"surr_rows names row {e} which is not a valid "
-                "sphere/quad row of this scene") from None
-        surr_sph_on = sv is None
-        surr_quad_on = qv is None
-        if surr_s or surr_q:
-            raise NotImplementedError(
-                f"explicit surrogate row subsets need {_K4}")
-    if packed is None:
+    surr_s, surr_q, class_level = _surrogate_rows(st, surr_rows)
+    if not class_level:
+        packed = False
+    elif packed is None:
         packed = routes_packed(st, background)
-    if not packed:
-        raise NotImplementedError(
-            f"scenes of more than {DIFF_PACKED_MAX_PRIMS} primitives or "
-            f"{DIFF_PACKED_MAX_SPHERES} spheres, or whose gradients need "
-            f"more than {DIFF_PACKED_MAX_ACC} accumulators per pixel, "
-            f"need {_K4}")
-    from tinyraytracer_tpu_torch.ops.diffkernel_packed import (
-        render_value_and_grad_packed,
-    )
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
-    return render_value_and_grad_packed(
-        scene, camera, target, spp=spp, max_bounces=max_bounces,
-        background=background, seed=seed, spp_offset=spp_offset, nee=nee,
-        silhouette=silhouette, static=st, tile=tile,
-        surr_sph=surr_sph_on, surr_quad=surr_quad_on)
+    if packed:
+        return dkp.render_value_and_grad_packed(
+            scene, camera, target, spp=spp, max_bounces=max_bounces,
+            background=background, seed=seed, spp_offset=spp_offset,
+            nee=nee, silhouette=silhouette, static=st, tile=tile,
+            surr_sph=bool(surr_s), surr_quad=bool(surr_q))
+    return dkp._value_and_grad(
+        classic_diff, scene, camera, target, spp=spp,
+        max_bounces=max_bounces, background=background, seed=seed,
+        spp_offset=spp_offset, nee=nee, silhouette=silhouette, static=st,
+        mesh=None, surr_sph=surr_s, surr_quad=surr_q)
+
+
+def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
+                 *, spec, width: int, height: int, spp: int,
+                 max_bounces: int, seed: int = 0, spp_offset: int = 0):
+    """K4 on the device of `tab`: (image (H, W, 3), dsph (ns, 8), dquad
+    (nq, 16), dmat (nm, 8), dlight (nl, 16), dmisc (8, 128)), all f32, as
+    diffkernel_packed.packed_diff returns them, for any surrogate scope
+    (`spec`, a diffkernel_packed.PackedSpec) and table width.
+
+    On a CPU tensor it runs the plain twin
+    diffkernel_packed.packed_diff_reference; on a CUDA tensor it launches
+    csrc/diffkernel.cu, built at first use, and raises if the launch
+    fails. `classic_diff.launches` counts launches."""
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    dkp._check(tab, cam, target, spec, width, height, spp, max_bounces)
+    kw = dict(spec=spec, width=width, height=height, spp=spp,
+              max_bounces=max_bounces, seed=seed, spp_offset=spp_offset)
+    if tab.device.type == "cpu":
+        return dkp.packed_diff_reference(tab, cam, target, **kw)
+    if tab.device.type != "cuda":
+        raise ValueError(f"no diff kernel for device {tab.device}")
+    lib = _build.load()
+    dev = tab.device
+    npix = width * height
+    na = spec.acc_width
+    with torch.cuda.device(dev):
+        blocks = ctypes.c_int(0)
+        err = lib.tinyrt_diff_classic_blocks(npix, na, DIFF_CLASSIC_MAX_COLS,
+                                             ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"diffkernel occupancy query failed: CUDA "
+                               f"error {err} "
+                               f"({lib.tinyrt_error_string(err).decode()})")
+        nt = blocks.value * _BLOCK
+        f32 = dict(dtype=torch.float32, device=dev)
+        img = torch.empty((height, width, 3), **f32)
+        saves = torch.empty((max_bounces, dkp.SAVE_WORDS, nt), **f32)
+        cols = torch.empty((na, nt), **f32)
+        wpart = torch.empty((blocks.value * (_BLOCK // 32), na), **f32)
+        acc = torch.empty((na,), **f32)
+        srows, qrows = _scope_tensors(spec.surr_s, spec.surr_q, str(dev))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tinyrt_diff_classic(
+            cam.data_ptr(), tab.data_ptr(), spec.n_sph, spec.n_quad,
+            spec.n_lights, spec.nm, spec.light_quad, srows.data_ptr(),
+            srows.numel(), qrows.data_ptr(), qrows.numel(),
+            target.data_ptr(), img.data_ptr(), saves.data_ptr(),
+            cols.data_ptr(), wpart.data_ptr(), acc.data_ptr(), blocks.value,
+            width, height, seed & _MASK, spp_offset & _MASK, spp,
+            max_bounces, float(np.float32(1.0 / spp)), int(spec.nee),
+            int(spec.sil), int(spec.has_met), int(spec.has_die), stream)
+    if err != 0:
+        msg = lib.tinyrt_error_string(err).decode()
+        raise RuntimeError(f"diffkernel launch failed: CUDA error {err} "
+                           f"({msg})")
+    classic_diff.launches += 1
+    return (img, *dkp.tables_from_acc(acc, spec))
+
+
+classic_diff.launches = 0
+
+
+@functools.lru_cache(maxsize=32)
+def _rows_on(rows: tuple, device: str) -> torch.Tensor:
+    """Scene rows as a long index tensor on the device, built once."""
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _scope_tensors(surr_s: tuple, surr_q: tuple, device: str):
+    """The surrogate row lists as int32 tensors on the device (a scope
+    is fixed for a fit, so they are built once)."""
+    return (torch.tensor(surr_s, dtype=torch.int32, device=device),
+            torch.tensor(surr_q, dtype=torch.int32, device=device))
 
 
 def _grads_to_scene(scene, st: DiffStatic, dsph, dquad, dmat, dlight,
@@ -197,17 +290,18 @@ def _grads_to_scene(scene, st: DiffStatic, dsph, dquad, dmat, dlight,
     Light rows add in order, so lights sharing a material sum the same
     way on every device."""
     ns_real, nq_real = len(st.sph_rows), len(st.quad_rows)
+    dev = str(scene.sph_center.device)
     g_sc = torch.zeros_like(scene.sph_center)
     g_sr = torch.zeros_like(scene.sph_radius)
     if ns_real:
-        rows = list(st.sph_rows)
+        rows = _rows_on(st.sph_rows, dev)
         g_sc[rows] = dsph[:ns_real, 0:3]
         g_sr[rows] = dsph[:ns_real, 3]
     g_qc = torch.zeros_like(scene.quad_corner)
     g_qu = torch.zeros_like(scene.quad_u)
     g_qv = torch.zeros_like(scene.quad_v)
     if nq_real:
-        rows = list(st.quad_rows)
+        rows = _rows_on(st.quad_rows, dev)
         g_qc[rows] = dquad[:nq_real, 0:3]
         g_qu[rows] = dquad[:nq_real, 3:6]
         g_qv[rows] = dquad[:nq_real, 6:9]

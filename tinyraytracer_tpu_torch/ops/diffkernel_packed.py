@@ -25,13 +25,19 @@ launches csrc/diffkernel_packed.cu, built at first use, and raises if the
 launch fails. `packed_diff.launches` counts launches.
 `render_value_and_grad_packed` takes a scene to (loss, image, grads)
 through the wrapper; `render_value_and_grad_packed_reference` does the
-same through the twin.
+same through the twin. The flat table (`packed_flat_table`), the spec
+and the twin serve the classic-layout kernel K4 as well
+(ops/diffkernel.classic_diff), which runs the same estimator with any
+surrogate scope: the spec's per-class row lists (every row, none, or a
+subset) say which rows' surrogates run.
 
 The twin is vectorised over pixels and runs samples and bounces in
-lockstep, in the kernel's operation order. Its image equals the kernel's
-bit for bit: a lane whose path ended is frozen where the kernel's thread
-leaves the bounce loop. Its gradient tables are sums over pixels in
-another order than the kernel's, so they agree to reassociation.
+lockstep, in the kernels' operation order; the surrogate chains run as
+(rows, pixels) matrices over the scope's rows, in pixel chunks. Its image
+equals the kernels' bit for bit: a lane whose path ended is frozen where
+a kernel's thread leaves the bounce loop. Its gradient tables are sums
+over pixels and rows in another order than the kernels', so they agree
+to reassociation.
 
 The TPU kernel's (S, L) tiling, its relayout and its phase-1 intersection
 cache are not carried over: the RNG keys off the pixel id, the CUDA kernel
@@ -60,7 +66,10 @@ from tinyraytracer_tpu_torch.ops.diffkernel import (
     packed_acc_width,
     static_kind_flags,
 )
-from tinyraytracer_tpu_torch.ops.megakernel import dense_closest_hit
+from tinyraytracer_tpu_torch.ops.megakernel import (
+    CANDIDATE_BUDGET,
+    dense_closest_hit,
+)
 
 _MASK = 0xFFFFFFFF
 
@@ -85,44 +94,77 @@ _BLOCK = 128
 TABLE_RTOL = 1e-5
 
 
+@dataclasses.dataclass(frozen=True)
+class _TableIndex:
+    """The static part of packed_flat_table on one device: row and
+    material indices, kind codes and the table's layout."""
+
+    sph: torch.Tensor       # real sphere rows
+    sph_mat: torch.Tensor   # their material rows
+    quad: torch.Tensor
+    quad_mat: torch.Tensor
+    light_quad: torch.Tensor
+    light_mat: torch.Tensor
+    kinds: torch.Tensor     # (n_mat,) f32 kind codes
+    prims: tuple
+    light_off: int
+    nw: int
+
+
+@functools.lru_cache(maxsize=16)
+def _table_index(st: DiffStatic, device: str) -> _TableIndex:
+    ns_r, nq_r = len(st.sph_rows), len(st.quad_rows)
+    idx = lambda v: torch.tensor(v, dtype=torch.long,  # noqa: E731
+                                 device=device)
+    prims = tuple(("s", _SPH_F * i, i) for i in range(ns_r)) + tuple(
+        ("q", _SPH_F * ns_r + _QUAD_F * j, st.ns + j) for j in range(nq_r))
+    light_off = _SPH_F * ns_r + _QUAD_F * nq_r
+    off = light_off + _LIGHT_F * st.n_lights
+    return _TableIndex(
+        sph=idx(st.sph_rows), sph_mat=idx(st.mat_ids[:ns_r]),
+        quad=idx(st.quad_rows), quad_mat=idx(st.mat_ids[st.ns:st.ns + nq_r]),
+        light_quad=idx(st.light_quad_rows), light_mat=idx(st.light_mat_rows),
+        kinds=torch.tensor(st.mat_kinds, dtype=torch.float32, device=device),
+        prims=prims, light_off=light_off, nw=max(8, ((off + 7) // 8) * 8))
+
+
 def packed_flat_table(scene, st: DiffStatic):
-    """The scene as one flat f32 row, on the scene's device.
+    """The scene as one flat f32 row, on the scene's device, built from
+    the live params with tensor ops (the static indices are cached per
+    scene structure and device).
 
     Spheres (_SPH_F floats each), then quads (_QUAD_F), then lights
     (_LIGHT_F), zero-padded to a multiple of 8. The quad plane and
     planar-coordinate rows (n, n.corner, av, ca, bv, cb) are derived here
     with the JAX package's formulas. Returns (tab (1, NW) f32, prims,
-    light_off) with prims a tuple of ("s"|"q", offset, padded row)."""
+    light_off) with prims a tuple of ("s"|"q", offset, padded row).
+
+    It is the table of both fused kernels: K5 reads it from shared
+    memory, K4 from global memory. (JAX's K4 reads `diff_tables`, column
+    tables it derives the quad planes from in the kernel; one AoS layout
+    serves both CUDA kernels, a row being what a thread reads in its walk,
+    and the planes are derived once per step here rather than per ray.)"""
     f32 = torch.float32
-    dev = scene.sph_center.device
+    ix = _table_index(st, str(scene.sph_center.device))
 
-    def mat_cols(mids):
-        m = torch.as_tensor(mids, dtype=torch.long, device=dev)
-        kind = torch.tensor([float(st.mat_kinds[i]) for i in mids],
-                            dtype=f32, device=dev)[:, None]
-        return [kind, scene.mat_albedo[m].to(f32),
-                scene.mat_fuzz[m].to(f32)[:, None],
-                scene.mat_ior[m].to(f32)[:, None],
-                scene.mat_emit[m].to(f32),
-                torch.tensor(mids, dtype=f32, device=dev)[:, None]]
+    def mat_cols(m):
+        return [ix.kinds.index_select(0, m)[:, None],
+                scene.mat_albedo.index_select(0, m).to(f32),
+                scene.mat_fuzz.index_select(0, m).to(f32)[:, None],
+                scene.mat_ior.index_select(0, m).to(f32)[:, None],
+                scene.mat_emit.index_select(0, m).to(f32),
+                m.to(f32)[:, None]]
 
-    blocks, prims = [], []
-    off = 0
-    ns_r, nq_r = len(st.sph_rows), len(st.quad_rows)
-    if ns_r:
-        rows = list(st.sph_rows)
-        c = scene.sph_center[rows].to(f32)
-        rad = scene.sph_radius[rows].to(f32)[:, None]
-        blocks.append(torch.cat(
-            [c, rad * rad, rad] + mat_cols(st.mat_ids[:ns_r]), 1).reshape(-1))
-        for i in range(ns_r):
-            prims.append(("s", off, i))
-            off += _SPH_F
-    if nq_r:
-        rows = list(st.quad_rows)
-        qc = scene.quad_corner[rows].to(f32)
-        qu = scene.quad_u[rows].to(f32)
-        qv = scene.quad_v[rows].to(f32)
+    blocks = []
+    if ix.sph.numel():
+        c = scene.sph_center.index_select(0, ix.sph).to(f32)
+        rad = scene.sph_radius.index_select(0, ix.sph).to(f32)[:, None]
+        blocks.append(torch.cat([c, rad * rad, rad] + mat_cols(ix.sph_mat),
+                                1).reshape(-1))
+    if ix.quad.numel():
+        qc = scene.quad_corner.index_select(0, ix.quad).to(f32)
+        qu = scene.quad_u.index_select(0, ix.quad).to(f32)
+        qv = scene.quad_v.index_select(0, ix.quad).to(f32)
         n = _cross(qu, qv)
         nn = torch.clamp_min(_dot(n, n), 1e-30)[:, None]
         dp = _dot(n, qc)[:, None]
@@ -130,25 +172,20 @@ def packed_flat_table(scene, st: DiffStatic):
         ca = _dot(av, qc)[:, None]
         bv = _cross(n, qu) / nn
         cb = _dot(bv, qc)[:, None]
+        blocks.append(torch.cat([n, dp, av, ca, bv, cb, qc, qu, qv]
+                                + mat_cols(ix.quad_mat), 1).reshape(-1))
+    if ix.light_quad.numel():
+        lq, lm = ix.light_quad, ix.light_mat
         blocks.append(torch.cat(
-            [n, dp, av, ca, bv, cb, qc, qu, qv]
-            + mat_cols(st.mat_ids[st.ns:st.ns + nq_r]), 1).reshape(-1))
-        for j in range(nq_r):
-            prims.append(("q", off, st.ns + j))
-            off += _QUAD_F
-    light_off = off
-    if st.n_lights:
-        lq, lm = list(st.light_quad_rows), list(st.light_mat_rows)
-        blocks.append(torch.cat(
-            [scene.quad_corner[lq].to(f32), scene.quad_u[lq].to(f32),
-             scene.quad_v[lq].to(f32), scene.mat_emit[lm].to(f32)],
-            1).reshape(-1))
-        off += _LIGHT_F * st.n_lights
-    nw = max(8, ((off + 7) // 8) * 8)
-    tab = torch.zeros((1, nw), dtype=f32, device=dev)
+            [scene.quad_corner.index_select(0, lq).to(f32),
+             scene.quad_u.index_select(0, lq).to(f32),
+             scene.quad_v.index_select(0, lq).to(f32),
+             scene.mat_emit.index_select(0, lm).to(f32)], 1).reshape(-1))
+    tab = torch.zeros((1, ix.nw), dtype=f32, device=scene.sph_center.device)
     if blocks:
-        tab[0, :off] = torch.cat(blocks)
-    return tab, tuple(prims), light_off
+        flat = torch.cat(blocks)
+        tab[0, :flat.numel()] = flat
+    return tab, ix.prims, ix.light_off
 
 
 def _cross(a, b):
@@ -164,8 +201,9 @@ def _dot(a, b):
 
 @dataclasses.dataclass(frozen=True)
 class PackedSpec:
-    """What the kernel compiles in on the TPU and reads as arguments here:
-    the table's layout and the estimator's switches."""
+    """What the TPU kernels compile in and the CUDA kernels (K5 and K4)
+    read as arguments: the table's layout, the estimator's switches and
+    the surrogate scope."""
 
     n_sph: int          # real spheres, first in the table
     n_quad: int         # real quads, after the spheres
@@ -182,18 +220,44 @@ class PackedSpec:
     sil: bool
     has_met: bool
     has_die: bool
-    surr_sph: bool
-    surr_quad: bool
+    # table rows (sphere i, quad j among the real ones, ascending) whose
+    # soft-shadow and silhouette surrogates run: every row of the class
+    # (dense), none (the class off) or a subset (K4 only)
+    surr_s: tuple
+    surr_q: tuple
 
     @property
     def acc_width(self) -> int:
         return packed_acc_width(self.n_sph, self.n_quad, self.nm,
                                 self.n_lights)
 
+    @property
+    def class_scope(self) -> bool:
+        """Whether each class's scope is all of its rows or none, which
+        is what K5 takes."""
+        return (self.surr_s in ((), tuple(range(self.n_sph)))
+                and self.surr_q in ((), tuple(range(self.n_quad))))
 
+
+def _scope_rows(scope, n: int) -> tuple:
+    """A class's surrogate rows: True = all n, False = none, or the
+    given table rows."""
+    if scope is True:
+        return tuple(range(n))
+    if scope is False:
+        return ()
+    rows = tuple(sorted(int(r) for r in scope))
+    if any(r < 0 or r >= n for r in rows) or len(set(rows)) != len(rows):
+        raise ValueError(f"surrogate rows {rows} are not distinct rows of "
+                         f"a class of {n}")
+    return rows
+
+
+@functools.lru_cache(maxsize=64)
 def packed_spec(st: DiffStatic, light_off: int, *, nee: bool = True,
-                sil: bool = True, surr_sph: bool = True,
-                surr_quad: bool = True) -> PackedSpec:
+                sil: bool = True, surr_sph=True, surr_quad=True) -> PackedSpec:
+    """`surr_sph` / `surr_quad`: True (the whole class), False (off) or a
+    tuple of the class's table rows."""
     has_met, has_die = static_kind_flags(st)
     light_quad = (st.quad_rows.index(st.light_quad_rows[0])
                   if st.n_lights == 1 else -1)
@@ -201,8 +265,9 @@ def packed_spec(st: DiffStatic, light_off: int, *, nee: bool = True,
         n_sph=len(st.sph_rows), n_quad=len(st.quad_rows),
         n_lights=st.n_lights, ns=st.ns, nq=st.nq, nm=st.nm, nl=st.nl,
         light_off=light_off, light_quad=light_quad, nee=nee, sil=sil,
-        has_met=has_met, has_die=has_die, surr_sph=surr_sph,
-        surr_quad=surr_quad)
+        has_met=has_met, has_die=has_die,
+        surr_s=_scope_rows(surr_sph, len(st.sph_rows)),
+        surr_q=_scope_rows(surr_quad, len(st.quad_rows)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,6 +286,23 @@ def _acc_index(spec: PackedSpec) -> np.ndarray:
             for c in range(12)]
     idx += [o_x + c for c in range(4)]
     return np.asarray(idx, np.int64)
+
+
+@functools.lru_cache(maxsize=64)
+def _acc_index_on(spec: PackedSpec, device: str) -> torch.Tensor:
+    """_acc_index on the device, copied there once per spec: a copy from
+    pageable memory after each launch may make the host wait for the
+    kernel before it queues the rest of the step."""
+    return torch.from_numpy(_acc_index(spec)).to(device)
+
+
+def tables_from_acc(acc: torch.Tensor, spec: PackedSpec):
+    """The padded gradient tables (dsph, dquad, dmat, dlight, dmisc) from
+    a kernel's summed accumulator vector."""
+    total = 8 * (spec.ns + 2 * spec.nq + spec.nm + 2 * spec.nl + 128)
+    flat = torch.zeros((total,), dtype=torch.float32, device=acc.device)
+    flat[_acc_index_on(spec, str(acc.device))] = acc
+    return _split_tables(flat, spec)
 
 
 def _split_tables(flat: torch.Tensor, spec: PackedSpec):
@@ -274,6 +356,9 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
         raise ValueError(f"the scene needs {spec.acc_width} gradient "
                          f"accumulators per thread; the kernel holds "
                          f"{DIFF_PACKED_MAX_ACC}")
+    if not spec.class_scope:
+        raise ValueError("K5 takes class-level surrogate scopes only; a "
+                         "row subset runs on K4 (diffkernel.classic_diff)")
     lib = _build.load()
     dev = tab.device
     npix = width * height
@@ -293,17 +378,14 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             part.data_ptr(), acc.data_ptr(), width, height,
             seed & _MASK, spp_offset & _MASK, spp, max_bounces,
             float(np.float32(1.0 / spp)), int(spec.nee), int(spec.sil),
-            int(spec.has_met), int(spec.has_die), int(spec.surr_sph),
-            int(spec.surr_quad), stream)
+            int(spec.has_met), int(spec.has_die), int(bool(spec.surr_s)),
+            int(bool(spec.surr_q)), stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel_packed launch failed: CUDA error "
                            f"{err} ({msg})")
     packed_diff.launches += 1
-    total = 8 * (spec.ns + 2 * spec.nq + spec.nm + 2 * spec.nl + 128)
-    flat = torch.zeros((total,), dtype=torch.float32, device=dev)
-    flat[torch.from_numpy(_acc_index(spec)).to(dev)] = acc
-    return (img, *_split_tables(flat, spec))
+    return (img, *tables_from_acc(acc, spec))
 
 
 packed_diff.launches = 0
@@ -330,9 +412,10 @@ def _f(b):
 
 class _Twin:
     """One twin call: the table's scalars and the estimator's steps,
-    each a function of (N,) pixel tensors in the kernel's op order."""
+    each a function of (N,) pixel tensors in the kernel's op order. The
+    surrogate chains run on (k, N) matrices over the scope's rows."""
 
-    def __init__(self, tab, cam, spec: PackedSpec, width, seed, npix):
+    def __init__(self, tab, cam, spec: PackedSpec, seed):
         self.spec, self.seed = spec, seed
         self.dev = tab.device
         self.tb = tab.unbind(0)
@@ -357,9 +440,22 @@ class _Twin:
                              quad[:, _GEO_OFF_Q:_GEO_OFF_Q + 9]], 1)
         pay = torch.cat([rows[:, None], torch.cat([sfields, qfields], 0)], 1)
         self._hit = dense_closest_hit(sph[:, :4], quad[:, :12], pay)
-        self.sph_off = [_SPH_F * i for i in range(ns)]
-        self.quad_off = [_SPH_F * ns + _QUAD_F * j for j in range(nq)]
-        pid = torch.arange(npix, dtype=torch.int64, device=self.dev)
+        # the scope's rows, and their geometry as (k, 1) columns; the quad
+        # soft shadow skips the one light's own quad, as the kernels do
+        idx = lambda v: torch.tensor(v, dtype=torch.long,  # noqa: E731
+                                     device=self.dev)
+        self.s_rows = idx(spec.surr_s)
+        self.q_rows = idx(spec.surr_q)
+        self.qs_rows = idx([j for j in spec.surr_q if j != spec.light_quad])
+        self.s_geo = tuple(sph[self.s_rows, k:k + 1] for k in (0, 1, 2, 4))
+        self.q_geo = tuple(quad[self.q_rows, _GEO_OFF_Q + k:_GEO_OFF_Q + k + 1]
+                           for k in range(9))
+        self.qs_geo = tuple(
+            quad[self.qs_rows, _GEO_OFF_Q + k:_GEO_OFF_Q + k + 1]
+            for k in range(9))
+
+    def set_pixels(self, pid, width):
+        """The lanes of the next steps: pixel ids (N,) int64."""
         self.pid = pid
         self.px = (pid % width).to(torch.float32)
         self.py = (pid // width).to(torch.float32)
@@ -603,85 +699,57 @@ class _Twin:
                                 nv["wly"], nv["wlz"])
         return _f(~(occ_t < nv["dist"] * (1.0 - 1e-3)))
 
-    # -- surrogates ----------------------------------------------------------
-    def sphere_scalars(self, i):
-        off = self.sph_off[i]
-        return self.tb[off], self.tb[off + 1], self.tb[off + 2], \
-            self.tb[off + 4]
-
-    def n_s(self):
-        return self.spec.n_sph if self.spec.surr_sph else 0
-
+    # -- surrogates: (k, N) over the scope's rows --------------------------
     def softshadow_fwd(self, g):
         nv = g["nee_vals"]
         px_, py_, pz_ = g["p_x"], g["p_y"], g["p_z"]
         wlx, wly, wlz, dist = nv["wlx"], nv["wly"], nv["wlz"], nv["dist"]
-        per = []
-        v = torch.ones_like(px_)
-        for i in range(self.n_s()):
-            cxs, cys, czs, srs = self.sphere_scalars(i)
-            r_abs = torch.abs(srs)
-            cxx, cxy, cxz = cxs - px_, cys - py_, czs - pz_
-            s_along = cxx * wlx + cxy * wly + cxz * wlz
-            s_cl = torch.minimum(torch.clamp_min(s_along, 0.0), dist)
-            ex = px_ + s_cl * wlx - cxs
-            ey = py_ + s_cl * wly - cys
-            ez = pz_ + s_cl * wlz - czs
-            dsep = torch.sqrt(torch.clamp_min(ex * ex + ey * ey + ez * ez,
-                                              1e-12))
-            wsoft = 0.25 * r_abs + 1e-6
-            vs = _sigmoid((dsep - r_abs) / wsoft)
-            v = v * vs
-            per.append(dict(cxx=cxx, cxy=cxy, cxz=cxz, s_along=s_along,
-                            s_cl=s_cl, ex=ex, ey=ey, ez=ez, dsep=dsep,
-                            wsoft=wsoft, vs=vs, r_abs=r_abs))
-        return dict(per=per, v=v, dist=dist)
+        cxs, cys, czs, srs = self.s_geo
+        r_abs = torch.abs(srs)
+        cxx, cxy, cxz = cxs - px_, cys - py_, czs - pz_
+        s_along = cxx * wlx + cxy * wly + cxz * wlz
+        s_cl = torch.minimum(torch.clamp_min(s_along, 0.0), dist)
+        ex = px_ + s_cl * wlx - cxs
+        ey = py_ + s_cl * wly - cys
+        ez = pz_ + s_cl * wlz - czs
+        dsep = torch.sqrt(torch.clamp_min(ex * ex + ey * ey + ez * ez, 1e-12))
+        wsoft = 0.25 * r_abs + 1e-6
+        vs = _sigmoid((dsep - r_abs) / wsoft)
+        return dict(cxx=cxx, cxy=cxy, cxz=cxz, s_along=s_along, s_cl=s_cl,
+                    ex=ex, ey=ey, ez=ez, dsep=dsep, wsoft=wsoft, vs=vs,
+                    r_abs=r_abs, v=torch.prod(vs, 0), dist=dist)
 
     def softshadow_adj(self, ss, cv, g):
+        """cv (N,) -> the rows' 4 gradients (k, N) and the shared chain's
+        (cpx, cpy, cpz, cwlx, cwly, cwlz, cdist), summed over rows."""
         nv = g["nee_vals"]
         wlx, wly, wlz = nv["wlx"], nv["wly"], nv["wlz"]
-        z = torch.zeros_like(cv)
-        cpx = cpy = cpz = cwlx = cwly = cwlz = cdist = z
-        grads = []
-        for i in range(self.n_s()):
-            p = ss["per"][i]
-            srs = self.sphere_scalars(i)[3]
-            cvs = cv * ss["v"] / torch.clamp_min(p["vs"], 1e-6)
-            czs_ = cvs * (p["vs"] * (1.0 - p["vs"]))
-            w2 = p["wsoft"] * p["wsoft"]
-            csr_abs = czs_ * (-(p["wsoft"]) - (p["dsep"] - p["r_abs"])
-                              * 0.25) / w2
-            cdsep = czs_ / p["wsoft"]
-            inv_dsep = 1.0 / p["dsep"]
-            cex = cdsep * p["ex"] * inv_dsep
-            cey = cdsep * p["ey"] * inv_dsep
-            cez = cdsep * p["ez"] * inv_dsep
-            cscx, cscy, cscz = -cex, -cey, -cez
-            cpx, cpy, cpz = cpx + cex, cpy + cey, cpz + cez
-            cs_cl = cex * wlx + cey * wly + cez * wlz
-            in_rng = (p["s_along"] > 0.0) & (p["s_along"] < ss["dist"])
-            cs_along = torch.where(in_rng, cs_cl, 0.0)
-            cdist = cdist + torch.where(p["s_along"] >= ss["dist"], cs_cl,
-                                        0.0)
-            cscx = cscx + cs_along * wlx
-            cscy = cscy + cs_along * wly
-            cscz = cscz + cs_along * wlz
-            cpx = cpx - cs_along * wlx
-            cpy = cpy - cs_along * wly
-            cpz = cpz - cs_along * wlz
-            cwlx = cwlx + cex * p["s_cl"] + cs_along * p["cxx"]
-            cwly = cwly + cey * p["s_cl"] + cs_along * p["cxy"]
-            cwlz = cwlz + cez * p["s_cl"] + cs_along * p["cxz"]
-            grads.append((cscx, cscy, cscz, csr_abs * torch.sign(srs)))
-        return grads, (cpx, cpy, cpz, cwlx, cwly, cwlz, cdist)
+        vs, wsoft, dist = ss["vs"], ss["wsoft"], ss["dist"]
+        cvs = cv * ss["v"] / torch.clamp_min(vs, 1e-6)
+        czs_ = cvs * (vs * (1.0 - vs))
+        w2 = wsoft * wsoft
+        csr_abs = czs_ * (-(wsoft) - (ss["dsep"] - ss["r_abs"]) * 0.25) / w2
+        cdsep = czs_ / wsoft
+        inv_dsep = 1.0 / ss["dsep"]
+        cex = cdsep * ss["ex"] * inv_dsep
+        cey = cdsep * ss["ey"] * inv_dsep
+        cez = cdsep * ss["ez"] * inv_dsep
+        cs_cl = cex * wlx + cey * wly + cez * wlz
+        s_along = ss["s_along"]
+        in_rng = (s_along > 0.0) & (s_along < dist)
+        cs_along = torch.where(in_rng, cs_cl, 0.0)
+        cdist = torch.where(s_along >= dist, cs_cl, 0.0).sum(0)
+        grads = (-cex + cs_along * wlx, -cey + cs_along * wly,
+                 -cez + cs_along * wlz, csr_abs * torch.sign(self.s_geo[3]))
+        chain = ((cex - cs_along * wlx).sum(0), (cey - cs_along * wly).sum(0),
+                 (cez - cs_along * wlz).sum(0),
+                 (cex * ss["s_cl"] + cs_along * ss["cxx"]).sum(0),
+                 (cey * ss["s_cl"] + cs_along * ss["cxy"]).sum(0),
+                 (cez * ss["s_cl"] + cs_along * ss["cxz"]).sum(0), cdist)
+        return grads, chain
 
-    def q_list(self):
-        return (list(range(self.spec.n_quad)) if self.spec.surr_quad
-                else [])
-
-    def quad_cov(self, j, ax, ay, az, bx_, by_, bz_):
-        off = self.quad_off[j] + _GEO_OFF_Q
-        (qcx, qcy, qcz, qux, quy, quz, qvx, qvy, qvz) = self.tb[off:off + 9]
+    def quad_cov(self, geo, ax, ay, az, bx_, by_, bz_):
+        (qcx, qcy, qcz, qux, quy, quz, qvx, qvy, qvz) = geo
         nx = quy * qvz - quz * qvy
         ny = quz * qvx - qux * qvz
         nz = qux * qvy - quy * qvx
@@ -713,6 +781,8 @@ class _Twin:
 
     def quad_cov_adj(self, qf, ccov, ax, ay, az, bx_, by_, bz_,
                      need_seg=True):
+        """ccov (k, N) -> the rows' 9 gradients (k, N) and, with need_seg,
+        the segment's origin and direction cotangents summed over rows."""
         qcx, qcy, qcz = qf["qc"]
         qux, quy, quz = qf["qu"]
         qvx, qvy, qvz = qf["qv"]
@@ -759,55 +829,33 @@ class _Twin:
                  cqv_z)
         if not need_seg:
             return grads, None, None
-        ca = (cprx - cN * nx, cpry - cN * ny, cprz - cN * nz)
-        cb = (cprx * tpar + cD * nx, cpry * tpar + cD * ny,
-              cprz * tpar + cD * nz)
+        ca = ((cprx - cN * nx).sum(0), (cpry - cN * ny).sum(0),
+              (cprz - cN * nz).sum(0))
+        cb = ((cprx * tpar + cD * nx).sum(0), (cpry * tpar + cD * ny).sum(0),
+              (cprz * tpar + cD * nz).sum(0))
         return grads, ca, cb
 
-    def _shadow_gate(self, qf, nv):
-        return _f(qf["den_ok"] & (qf["tpar"] > 1e-3)
+    def quad_softshadow(self, g):
+        """The soft-shadow rows' coverage of the light segment and their
+        visibility product."""
+        nv = g["nee_vals"]
+        qf = self.quad_cov(self.qs_geo, g["p_x"], g["p_y"], g["p_z"],
+                           nv["wlx"], nv["wly"], nv["wlz"])
+        gate = _f(qf["den_ok"] & (qf["tpar"] > 1e-3)
                   & (qf["tpar"] < nv["dist"] * (1.0 - 1e-3)))
+        vq_raw = 1.0 - gate * qf["cov"]
+        vq = torch.clamp_min(vq_raw, 1e-3)
+        return dict(qf=qf, gate=gate, vq_raw=vq_raw, vq=vq,
+                    v=torch.prod(vq, 0))
 
-    def _in_shadow_set(self, j):
-        return j != self.spec.light_quad
-
-    def quad_softshadow_v(self, g):
+    def quad_softshadow_adj(self, qs, cv, g):
         nv = g["nee_vals"]
-        vqs, v = [], None
-        for j in self.q_list():
-            if not self._in_shadow_set(j):
-                vqs.append(None)
-                continue
-            qf = self.quad_cov(j, g["p_x"], g["p_y"], g["p_z"], nv["wlx"],
-                               nv["wly"], nv["wlz"])
-            vq = torch.clamp_min(1.0 - self._shadow_gate(qf, nv) * qf["cov"],
-                                 1e-3)
-            vqs.append(vq)
-            v = vq if v is None else v * vq
-        return vqs, (torch.ones_like(g["hlf"]) if v is None else v)
-
-    def quad_softshadow_adj(self, vqs, v_q, cv, g):
-        nv = g["nee_vals"]
-        z = torch.zeros_like(cv)
-        grads = []
-        cpx = cpy = cpz = cwlx = cwly = cwlz = z
-        for qi, j in enumerate(self.q_list()):
-            if vqs[qi] is None:
-                grads.append((z,) * 9)
-                continue
-            qf = self.quad_cov(j, g["p_x"], g["p_y"], g["p_z"], nv["wlx"],
-                               nv["wly"], nv["wlz"])
-            gate = self._shadow_gate(qf, nv)
-            vq_raw = 1.0 - gate * qf["cov"]
-            cvq = cv * v_q / torch.clamp_min(vqs[qi], 1e-6)
-            cvq = torch.where(vq_raw > 1e-3, cvq, 0.0)
-            gq, ca, cb = self.quad_cov_adj(qf, -gate * cvq, g["p_x"],
-                                           g["p_y"], g["p_z"], nv["wlx"],
-                                           nv["wly"], nv["wlz"])
-            grads.append(gq)
-            cpx, cpy, cpz = cpx + ca[0], cpy + ca[1], cpz + ca[2]
-            cwlx, cwly, cwlz = cwlx + cb[0], cwly + cb[1], cwlz + cb[2]
-        return grads, (cpx, cpy, cpz, cwlx, cwly, cwlz)
+        cvq = cv * qs["v"] / torch.clamp_min(qs["vq"], 1e-6)
+        cvq = torch.where(qs["vq_raw"] > 1e-3, cvq, 0.0)
+        gq, ca, cb = self.quad_cov_adj(qs["qf"], -qs["gate"] * cvq, g["p_x"],
+                                       g["p_y"], g["p_z"], nv["wlx"],
+                                       nv["wly"], nv["wlz"])
+        return gq, (*ca, *cb)
 
     def quad_silhouette_adj(self, st, best_t, rowf, cF):
         (ox, oy, oz, dx, dy, dz, _tr, _tg, _tb, alive_f, _pd) = st
@@ -815,20 +863,16 @@ class _Twin:
         t_lim = torch.where(hit, best_t, 3.0e30)
         rowi = rowf.to(torch.int32)
         live = alive_f > 0.5
-        out = []
-        for j in self.q_list():
-            qf = self.quad_cov(j, ox, oy, oz, dx, dy, dz)
-            wq_win = (rowi == self.spec.ns + j) & hit
-            gate = _f(qf["den_ok"] & (qf["tpar"] > _T_MIN)
-                      & (qf["tpar"] < t_lim))
-            p = torch.where(wq_win, qf["cov"], 1.0 - gate * qf["cov"])
-            p = torch.where(live, p, 1.0)
-            cp = cF / torch.clamp_min(p, 1e-3)
-            sgn_ev = torch.where(wq_win, 1.0, -gate)
-            ccov = torch.where(live, cp * sgn_ev, 0.0)
-            out.append(self.quad_cov_adj(qf, ccov, ox, oy, oz, dx, dy, dz,
-                                         need_seg=False)[0])
-        return out
+        qf = self.quad_cov(self.q_geo, ox, oy, oz, dx, dy, dz)
+        wq_win = (rowi == (self.spec.ns + self.q_rows)[:, None]) & hit
+        gate = _f(qf["den_ok"] & (qf["tpar"] > _T_MIN) & (qf["tpar"] < t_lim))
+        p = torch.where(wq_win, qf["cov"], 1.0 - gate * qf["cov"])
+        p = torch.where(live, p, 1.0)
+        cp = cF / torch.clamp_min(p, 1e-3)
+        sgn_ev = torch.where(wq_win, 1.0, -gate)
+        ccov = torch.where(live, cp * sgn_ev, 0.0)
+        return self.quad_cov_adj(qf, ccov, ox, oy, oz, dx, dy, dz,
+                                 need_seg=False)[0]
 
     def silhouette_adj(self, st, best_t, rowf, cF):
         (ox, oy, oz, dx, dy, dz, _tr, _tg, _tb, alive_f, _pd) = st
@@ -836,43 +880,39 @@ class _Twin:
         t_lim = torch.where(hit, best_t, 3.0e30)
         rowi = rowf.to(torch.int32)
         live = alive_f > 0.5
-        out = []
-        for i in range(self.n_s()):
-            cxs, cys, czs, srs = self.sphere_scalars(i)
-            r_abs = torch.abs(srs)
-            ws = (rowi == i) & hit
-            cox, coy, coz = cxs - ox, cys - oy, czs - oz
-            s_along = cox * dx + coy * dy + coz * dz
-            s_hit = torch.clamp_min(s_along, _T_MIN)
-            s_blk = torch.minimum(torch.clamp_min(s_along, _T_MIN), t_lim)
-            s_eff = torch.where(ws, s_hit, s_blk)
-            ex = ox + s_eff * dx - cxs
-            ey = oy + s_eff * dy - cys
-            ez = oz + s_eff * dz - czs
-            dmin = torch.sqrt(torch.clamp_min(ex * ex + ey * ey + ez * ez,
-                                              1e-12))
-            wsil = 0.05 * r_abs + 1e-5
-            cov = _sigmoid((r_abs - dmin) / wsil)
-            p = torch.where(ws, cov, 1.0 - cov)
-            p = torch.where(live, p, 1.0)
-            cp = cF / torch.clamp_min(p, 1e-3)
-            sign = torch.where(ws, 1.0, -1.0)
-            ccov = torch.where(live, cp * sign, 0.0)
-            cz_ = ccov * cov * (1.0 - cov)
-            w2 = wsil * wsil
-            cr_abs = cz_ * (wsil - (r_abs - dmin) * 0.05) / w2
-            cdmin = -cz_ / wsil
-            inv_dmin = 1.0 / dmin
-            cex = cdmin * ex * inv_dmin
-            cey = cdmin * ey * inv_dmin
-            cez = cdmin * ez * inv_dmin
-            cs_eff = cex * dx + cey * dy + cez * dz
-            m_hit = _f(s_along > _T_MIN)
-            m_blk = _f((s_along > _T_MIN) & (s_along < t_lim))
-            cs_along = torch.where(ws, m_hit, m_blk) * cs_eff
-            out.append((-cex + cs_along * dx, -cey + cs_along * dy,
-                        -cez + cs_along * dz, cr_abs * torch.sign(srs)))
-        return out
+        cxs, cys, czs, srs = self.s_geo
+        r_abs = torch.abs(srs)
+        ws = (rowi == self.s_rows[:, None]) & hit
+        cox, coy, coz = cxs - ox, cys - oy, czs - oz
+        s_along = cox * dx + coy * dy + coz * dz
+        s_hit = torch.clamp_min(s_along, _T_MIN)
+        s_blk = torch.minimum(torch.clamp_min(s_along, _T_MIN), t_lim)
+        s_eff = torch.where(ws, s_hit, s_blk)
+        ex = ox + s_eff * dx - cxs
+        ey = oy + s_eff * dy - cys
+        ez = oz + s_eff * dz - czs
+        dmin = torch.sqrt(torch.clamp_min(ex * ex + ey * ey + ez * ez, 1e-12))
+        wsil = 0.05 * r_abs + 1e-5
+        cov = _sigmoid((r_abs - dmin) / wsil)
+        p = torch.where(ws, cov, 1.0 - cov)
+        p = torch.where(live, p, 1.0)
+        cp = cF / torch.clamp_min(p, 1e-3)
+        sign = torch.where(ws, 1.0, -1.0)
+        ccov = torch.where(live, cp * sign, 0.0)
+        cz_ = ccov * cov * (1.0 - cov)
+        w2 = wsil * wsil
+        cr_abs = cz_ * (wsil - (r_abs - dmin) * 0.05) / w2
+        cdmin = -cz_ / wsil
+        inv_dmin = 1.0 / dmin
+        cex = cdmin * ex * inv_dmin
+        cey = cdmin * ey * inv_dmin
+        cez = cdmin * ez * inv_dmin
+        cs_eff = cex * dx + cey * dy + cez * dz
+        m_hit = _f(s_along > _T_MIN)
+        m_blk = _f((s_along > _T_MIN) & (s_along < t_lim))
+        cs_along = torch.where(ws, m_hit, m_blk) * cs_eff
+        return (-cex + cs_along * dx, -cey + cs_along * dy,
+                -cez + cs_along * dz, cr_abs * torch.sign(srs))
 
     # -- one bounce backwards -------------------------------------------------
     def bounce_adj(self, samp, b, st, best_t, wf, vis, cin, chat):
@@ -961,10 +1001,9 @@ class _Twin:
             cny = cny - 2.0 * sdn * crefly - 2.0 * ndotcr * dy
             cnz = cnz - 2.0 * sdn * creflz - 2.0 * ndotcr * dz
 
-        # A4 NEE
-        n_s, n_q = self.n_s(), len(self.q_list())
-        sph_soft = [(zal,) * 4 for _ in range(n_s)]
-        quad_soft = [(zal,) * 9 for _ in range(n_q)]
+        # A4 NEE; the surrogate terms are (k, N) over the scope's rows
+        n_s, n_q = len(sp.surr_s), len(sp.surr_q)
+        sph_surr = quad_soft = quad_sil = None
         gl = None
         if "nee_vals" in g:
             nv = g["nee_vals"]
@@ -987,21 +1026,19 @@ class _Twin:
             cwlx = cwly = cwlz = cdist = zal
             if n_s or n_q:
                 one = torch.ones_like(hlf)
-                ss = self.softshadow_fwd(g) if n_s else dict(v=one)
-                vqs, v_q = self.quad_softshadow_v(g) if n_q else ([], one)
-                cv_t = cvr / torch.clamp_min(ss["v"] * v_q, 1e-3)
-                if n_s:
-                    sg, (cpx_s, cpy_s, cpz_s, cwlx, cwly, cwlz,
-                         cdist) = self.softshadow_adj(ss, cv_t * v_q, g)
-                    sph_soft = [tuple(a + b_ for a, b_ in zip(x, y))
-                                for x, y in zip(sg, sph_soft)]
+                ss = self.softshadow_fwd(g) if n_s else None
+                qs = self.quad_softshadow(g) if len(self.qs_rows) else None
+                v_s = one if ss is None else ss["v"]
+                v_q = one if qs is None else qs["v"]
+                cv_t = cvr / torch.clamp_min(v_s * v_q, 1e-3)
+                if ss is not None:
+                    sph_surr, (cpx_s, cpy_s, cpz_s, cwlx, cwly, cwlz,
+                               cdist) = self.softshadow_adj(ss, cv_t * v_q, g)
                     cpx, cpy, cpz = cpx + cpx_s, cpy + cpy_s, cpz + cpz_s
-                if n_q:
-                    qg, (cpx_q, cpy_q, cpz_q, cwlx_q, cwly_q,
-                         cwlz_q) = self.quad_softshadow_adj(
-                             vqs, v_q, cv_t * ss["v"], g)
-                    quad_soft = [tuple(a + b_ for a, b_ in zip(x, y))
-                                 for x, y in zip(qg, quad_soft)]
+                if qs is not None:
+                    quad_soft, (cpx_q, cpy_q, cpz_q, cwlx_q, cwly_q,
+                                cwlz_q) = self.quad_softshadow_adj(
+                                    qs, cv_t * v_s, g)
                     cpx, cpy, cpz = cpx + cpx_q, cpy + cpy_q, cpz + cpz_q
                     cwlx = cwlx + cwlx_q
                     cwly = cwly + cwly_q
@@ -1067,13 +1104,11 @@ class _Twin:
         if sp.sil and (n_s or n_q):
             cF = cT1r * T1r + cT1g * T1g + cT1b * T1b
             if n_s:
-                sph_soft = [tuple(a + b_ for a, b_ in zip(x, y)) for x, y in
-                            zip(self.silhouette_adj(st, best_t, rowf, cF),
-                                sph_soft)]
+                sil = self.silhouette_adj(st, best_t, rowf, cF)
+                sph_surr = sil if sph_surr is None else tuple(
+                    a + b_ for a, b_ in zip(sil, sph_surr))
             if n_q:
-                quad_soft = [tuple(a + b_ for a, b_ in zip(x, y))
-                             for x, y in zip(self.quad_silhouette_adj(
-                                 st, best_t, rowf, cF), quad_soft)]
+                quad_sil = self.quad_silhouette_adj(st, best_t, rowf, cF)
 
         # A0 normal -> point -> t -> geometry
         sgn = g["sgn"]
@@ -1124,7 +1159,8 @@ class _Twin:
             rowf=rowf, wmat=g["wmat"], sph=(c_cx, c_cy, c_cz, crad),
             quad=cqc + cqu + cqv, mat=(calb_r, calb_g, calb_b, cfuzz, cior,
                                       *cemit),
-            light=gl, bg=cbg, sph_soft=sph_soft, quad_soft=quad_soft)
+            light=gl, bg=cbg, sph_surr=sph_surr, quad_soft=quad_soft,
+            quad_sil=quad_sil)
         cout = (cox, coy, coz, cdx, cdy, cdz, cT1r, cT1g, cT1b)
         return cout, terms
 
@@ -1144,102 +1180,129 @@ def packed_diff_reference(tab: torch.Tensor, cam: torch.Tensor,
                           target: torch.Tensor, *, spec: PackedSpec,
                           width: int, height: int, spp: int,
                           max_bounces: int, seed: int = 0,
-                          spp_offset: int = 0, replay_dead: bool = True):
-    """Plain PyTorch twin of K5, on the device of `tab`; the same
-    arguments and outputs as `packed_diff`. The reverse sweep replays all
-    `max_bounces` bounces of every sample, as the TPU kernel does;
-    `replay_dead=False` drops, as the CUDA kernel does, the bounces after
-    a path ended (their terms are exact zeros, which the tests hold)."""
+                          spp_offset: int = 0, replay_dead: bool = True,
+                          pixel_chunk: int = 0):
+    """Plain PyTorch twin of K5 and of K4, on the device of `tab`; the
+    same arguments and outputs as `packed_diff` (any surrogate scope, as
+    K4 takes). The reverse sweep replays all `max_bounces` bounces of
+    every sample, as the TPU kernels do; `replay_dead=False` drops, as the
+    CUDA kernels do, the bounces after a path ended (their terms are exact
+    zeros, which the tests hold). Pixels go in chunks of `pixel_chunk` (0:
+    as many as keep a (rows, pixels) matrix within CANDIDATE_BUDGET
+    elements); a chunk changes no pixel's bits, only the order in which
+    the loss and the tables sum over pixels."""
     _check(tab, cam, target, spec, width, height, spp, max_bounces)
     npix = width * height
-    tw = _Twin(tab, cam, spec, width, seed, npix)
-    one = torch.ones(npix, dtype=torch.float32, device=tab.device)
-    zero = torch.zeros_like(one)
-
-    def start(samp):
-        return (*tw.camera_ray(samp), one, one, one, one, zero)
-
-    # phase 1: the forward NEE image
-    acc = [zero, zero, zero]
-    for s in range(spp):
-        samp = (spp_offset + s) & _MASK
-        st = start(samp)
-        col = [zero, zero, zero]
-        for b in range(max_bounces):
-            best, hit, wf = tw.closest_hit(*st[:6])
-            g = tw.shade(samp, b, st, best, hit, wf)
-            dc = tw.color_adds(g, st, tw.shadow_vis(g))
-            live = st[9] > 0.5
-            col = [torch.where(live, c + d, c) for c, d in zip(col, dc)]
-            st = tuple(torch.where(live, a2, a)
-                       for a2, a in zip(tw.advance(g, st), st))
-            if not bool((st[9] > 0.5).any()):
-                break
-        acc = [a + c for a, c in zip(acc, col)]
-    inv_spp = float(np.float32(1.0 / spp))
-    img = [a * inv_spp for a in acc]
-
-    # phase 2: the loss cotangent and the MSE
-    tgt = target.reshape(npix, 3).unbind(1)
+    dev = tab.device
+    tw = _Twin(tab, cam, spec, seed)
+    step = pixel_chunk or max(1, CANDIDATE_BUDGET // max(
+        spec.ns + spec.nq, spec.nm))
+    tgt = target.reshape(npix, 3)
     npixf = cam[23]
-    diffs = [i - t for i, t in zip(img, tgt)]
+    inv_spp = float(np.float32(1.0 / spp))
     cscale = 2.0 / (npixf * 3.0 * float(spp))
-    chat = tuple(cscale * d for d in diffs)
-    lsum = torch.sum(diffs[0] * diffs[0] + diffs[1] * diffs[1]
-                     + diffs[2] * diffs[2]) / (npixf * 3.0)
+    image = torch.empty((npix, 3), dtype=torch.float32, device=dev)
+    dsph = torch.zeros((spec.ns, 8), dtype=torch.float32, device=dev)
+    dquad = torch.zeros((spec.nq, 16), dtype=torch.float32, device=dev)
+    dmat = torch.zeros((spec.nm, 8), dtype=torch.float32, device=dev)
+    dlight = torch.zeros((spec.nl, 16), dtype=torch.float32, device=dev)
+    bg_sum = torch.zeros(3, dtype=torch.float32, device=dev)
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
 
-    # phase 3: replay + adjoint
-    dsph = torch.zeros((spec.ns, 8), dtype=torch.float32, device=tab.device)
-    dquad = torch.zeros((spec.nq, 16), dtype=torch.float32, device=tab.device)
-    dmat = torch.zeros((spec.nm, 8), dtype=torch.float32, device=tab.device)
-    dlight = torch.zeros((spec.nl, 16), dtype=torch.float32,
-                         device=tab.device)
-    bg_acc = [zero, zero, zero]
-    for s in range(spp):
-        samp = (spp_offset + s) & _MASK
-        st = start(samp)
-        saves = []
-        for b in range(max_bounces):
-            best, hit, wf = tw.closest_hit(*st[:6])
-            g = tw.shade(samp, b, st, best, hit, wf)
-            saves.append((st, best, wf, tw.shadow_vis(g)))
-            st = tw.advance(g, st)
-        co = (zero,) * 9
-        for b in reversed(range(max_bounces)):
-            st_b, best, wf, vis = saves[b]
-            co, tm = tw.bounce_adj(samp, b, st_b, best, wf, vis, co, chat)
-            if not replay_dead:
-                live = st_b[9] > 0.5
-                keep = lambda x: torch.where(live, x, 0.0)  # noqa: E731
-                co = tuple(keep(x) for x in co)
-                tm = _map_terms(tm, keep)
-            d_add = _lane_dot(_onehot(tm["rowf"], spec.ns), list(tm["sph"]))
-            for i, comps in enumerate(tm["sph_soft"]):
-                d_add[i] += torch.stack([torch.sum(a) for a in comps])
-            dsph[:, :4] += d_add
-            q_add = _lane_dot(_onehot(tm["rowf"] - spec.ns, spec.nq),
-                              list(tm["quad"]))
-            for j, comps in zip(tw.q_list(), tm["quad_soft"]):
-                q_add[j] += torch.stack([torch.sum(a) for a in comps])
-            dquad[:, :9] += q_add
-            dmat += _lane_dot(_onehot(tm["wmat"], spec.nm), list(tm["mat"]))
-            if tm["light"] is not None:
-                kpick, cols = tm["light"]
-                dlight[:, :12] += _lane_dot(_onehot(kpick, spec.nl), cols)
-            bg_acc = [a + x for a, x in zip(bg_acc, tm["bg"])]
-    dmisc = torch.zeros((8, 128), dtype=torch.float32, device=tab.device)
-    dmisc[0, 0:3] = torch.stack([torch.sum(a) for a in bg_acc])
-    dmisc[0, 3] = lsum
-    image = torch.stack(img, -1).view(height, width, 3)
-    return image, dsph, dquad, dmat, dlight, dmisc
+    def rows_sum(cols):
+        return torch.stack([a.sum(1) for a in cols], 1)
+
+    for p0 in range(0, npix, step):
+        pid = torch.arange(p0, min(p0 + step, npix), dtype=torch.int64,
+                           device=dev)
+        tw.set_pixels(pid, width)
+        one = torch.ones(pid.shape[0], dtype=torch.float32, device=dev)
+        zero = torch.zeros_like(one)
+
+        def start(samp):
+            return (*tw.camera_ray(samp), one, one, one, one, zero)
+
+        # phase 1: the forward NEE image
+        acc = [zero, zero, zero]
+        for s in range(spp):
+            samp = (spp_offset + s) & _MASK
+            st = start(samp)
+            col = [zero, zero, zero]
+            for b in range(max_bounces):
+                best, hit, wf = tw.closest_hit(*st[:6])
+                g = tw.shade(samp, b, st, best, hit, wf)
+                dc = tw.color_adds(g, st, tw.shadow_vis(g))
+                live = st[9] > 0.5
+                col = [torch.where(live, c + d, c) for c, d in zip(col, dc)]
+                st = tuple(torch.where(live, a2, a)
+                           for a2, a in zip(tw.advance(g, st), st))
+                if not bool((st[9] > 0.5).any()):
+                    break
+            acc = [a + c for a, c in zip(acc, col)]
+        img = [a * inv_spp for a in acc]
+        image[p0:p0 + pid.shape[0]] = torch.stack(img, -1)
+
+        # phase 2: the loss cotangent and the MSE
+        tgt_c = tgt[p0:p0 + pid.shape[0]].unbind(1)
+        diffs = [i - t for i, t in zip(img, tgt_c)]
+        chat = tuple(cscale * d for d in diffs)
+        lsum = lsum + torch.sum(diffs[0] * diffs[0] + diffs[1] * diffs[1]
+                                + diffs[2] * diffs[2])
+
+        # phase 3: replay + adjoint
+        bg_acc = [zero, zero, zero]
+        for s in range(spp):
+            samp = (spp_offset + s) & _MASK
+            st = start(samp)
+            saves = []
+            for b in range(max_bounces):
+                best, hit, wf = tw.closest_hit(*st[:6])
+                g = tw.shade(samp, b, st, best, hit, wf)
+                saves.append((st, best, wf, tw.shadow_vis(g)))
+                st = tw.advance(g, st)
+            co = (zero,) * 9
+            for b in reversed(range(max_bounces)):
+                st_b, best, wf, vis = saves[b]
+                co, tm = tw.bounce_adj(samp, b, st_b, best, wf, vis, co,
+                                       chat)
+                if not replay_dead:
+                    live = st_b[9] > 0.5
+                    keep = lambda x: torch.where(live, x, 0.0)  # noqa: E731
+                    co = tuple(keep(x) for x in co)
+                    tm = _map_terms(tm, keep)
+                dsph[:, :4] += _lane_dot(_onehot(tm["rowf"], spec.ns),
+                                         list(tm["sph"]))
+                if tm["sph_surr"] is not None:
+                    dsph[:, :4].index_add_(0, tw.s_rows,
+                                           rows_sum(tm["sph_surr"]))
+                dquad[:, :9] += _lane_dot(_onehot(tm["rowf"] - spec.ns,
+                                                  spec.nq), list(tm["quad"]))
+                if tm["quad_soft"] is not None:
+                    dquad[:, :9].index_add_(0, tw.qs_rows,
+                                            rows_sum(tm["quad_soft"]))
+                if tm["quad_sil"] is not None:
+                    dquad[:, :9].index_add_(0, tw.q_rows,
+                                            rows_sum(tm["quad_sil"]))
+                dmat += _lane_dot(_onehot(tm["wmat"], spec.nm),
+                                  list(tm["mat"]))
+                if tm["light"] is not None:
+                    kpick, cols = tm["light"]
+                    dlight[:, :12] += _lane_dot(_onehot(kpick, spec.nl), cols)
+                bg_acc = [a + x for a, x in zip(bg_acc, tm["bg"])]
+        bg_sum = bg_sum + torch.stack([torch.sum(a) for a in bg_acc])
+    dmisc = torch.zeros((8, 128), dtype=torch.float32, device=dev)
+    dmisc[0, 0:3] = bg_sum
+    dmisc[0, 3] = lsum / (npixf * 3.0)
+    return image.view(height, width, 3), dsph, dquad, dmat, dlight, dmisc
 
 
 def _map_terms(tm, fn):
     out = dict(tm)
     for k in ("sph", "quad", "mat", "bg"):
         out[k] = tuple(fn(x) for x in tm[k])
-    for k in ("sph_soft", "quad_soft"):
-        out[k] = [tuple(fn(x) for x in t) for t in tm[k]]
+    for k in ("sph_surr", "quad_soft", "quad_sil"):
+        if tm[k] is not None:
+            out[k] = tuple(fn(x) for x in tm[k])
     if tm["light"] is not None:
         out["light"] = (tm["light"][0], [fn(x) for x in tm["light"][1]])
     return out
@@ -1289,7 +1352,8 @@ def render_value_and_grad_packed(scene, camera, target, *, spp: int,
     """(loss, image (H, W, 3), grads) of the fused objective through K5 on
     the scene's device (the twin on the CPU). `surr_sph`/`surr_quad`
     False drop that class's soft-shadow and silhouette surrogates (its
-    soft visibility counts as 1). `tile` is accepted and ignored."""
+    soft visibility counts as 1); K5 takes whole classes only. `tile` is
+    accepted and ignored."""
     del tile
     return _value_and_grad(
         packed_diff, scene, camera, target, spp=spp,
