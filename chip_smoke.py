@@ -10,11 +10,16 @@ Phases, each printed on its own lines:
 2. Build: compiles csrc/*.cu with nvcc (sm_90a, one nvcc per source, all
    started together), as shipped (--fmad=false) and, for the numerics
    comparison, with FMA contraction; prints ptxas registers and spills.
-3. Parity at 64x48 spp=4: the packed kernel (K1) against its plain
-   PyTorch twin on five scenes; the classic-layout kernel (K2) against
-   its twin on random_spheres with 500 spheres (dense) and with 8000
-   (culled), and on three_spheres and cornell_box forced onto K2, where
-   K2 must also equal K1 bit for bit.
+   Disassembles the library (cuobjdump) and checks that each forward
+   kernel's sampler loop branches back on a warp vote.
+3. Parity, every image bit for bit and every launch repeated bit for
+   bit, at 64x48 spp=4: the packed kernel (K1) against its plain PyTorch
+   twin on five scenes; the classic-layout kernel (K2) against its twin
+   on random_spheres with 500 spheres (dense) and with 8000 (culled), and
+   on three_spheres and cornell_box forced onto K2, where K2 must also
+   equal K1 bit for bit. Then the sampler's edges (max_bounces=1, spp=7
+   at spp_offset=3, a 61x37 image) and an image on each side of the
+   sample split's threshold (one wave of the card), for both kernels.
 4. Main path: `Renderer(...).render(camera, world)` for BASELINE configs
    1-4 and 4b at full size, one warm-up then one timed render each; the
    PNG goes to output/. Checks finite, non-negative radiance and the
@@ -23,12 +28,15 @@ Phases, each printed on its own lines:
 5. Where the time goes: the steps of one render (lowering, copies,
    kernel, readback, gamma) timed one by one beside whole renders.
 6. Kernel vs twin at the configs' shapes: kernel time (CUDA events) next
-   to the twin's. K1's twin runs at full size; K2's at full resolution
-   with fewer samples (printed beside its time), the kernel held to it at
-   that shape. At 4b the culled kernel must equal the unculled one bit
-   for bit. Segments per camera ray (and, at 4b, sphere rows tested under
-   the cull) are counted with the twin; with per-segment operation counts
-   read off csrc/common.cuh they give each kernel's bound.
+   to the twin's, and the sample split the kernel took. K1's twin runs at
+   full size; K2's at full resolution with fewer samples (printed beside
+   its time), the kernel held to it bit for bit at that shape. At 4b the
+   culled kernel must equal the unculled one bit for bit. Segments per
+   camera ray (and, at 4b, sphere rows tested under the cull) are counted
+   with the twin; with per-segment operation counts read off
+   csrc/common.cuh they give each kernel's bound. From the same counts,
+   the share of warp lanes on a path under the kernels' per-lane
+   regeneration loop and under a lockstep sample loop.
 7. `render_batch` / `render_async` on the card: frames bitwise equal to
    single renders.
 8. The closest-hit kernel (K3) against its twin, bit for bit on t and j:
@@ -115,6 +123,18 @@ FLAT_PARITY = [
     ("three_spheres_k2", "three_spheres", {}, True),
     ("cornell_box_k2", "cornell_box", {}, True),
 ]
+
+# The forward kernels' block (csrc/common.cuh, kBlockX x kBlockY): a warp
+# is 32 consecutive threads of it, a 16x2 pixel tile.
+FORWARD_BLOCK = (16, 8)
+# Edge shapes of the sampler (phase 3): the budget kill alone, an odd
+# sample count at an offset, and partial blocks; K1 on EDGE_K1, K2 on the
+# FLAT_PARITY labels in EDGE_K2.
+EDGE_SHAPES = [(64, 48, dict(max_bounces=1)),
+               (64, 48, dict(spp=7, spp_offset=3)),
+               (61, 37, {})]
+EDGE_K1 = ["three_spheres", "cornell_box"]
+EDGE_K2 = ["random_spheres_500", "random_spheres_8000", "three_spheres_k2"]
 
 # BASELINE.md configs 1-4 and bench.py's 4b: (label, preset, preset
 # kwargs, width, height, spp, bounces, twin spp)
@@ -242,6 +262,47 @@ def build_phase(build):
                 log(f"[build]   {line.strip()}")
 
 
+def sass_phase(build):
+    """Disassembles the shipped library (cuobjdump -sass, written to
+    output/forward_sass.txt) and checks the sampler's loop in each forward
+    kernel: its back edge must be a branch taken on a warp vote
+    (VOTE.ANY), the loop csrc/common.cuh writes; a compiler that rebuilt
+    a bounce loop inside a sample loop would branch back on a thread's own
+    counters. Prints each kernel's instructions and 128-bit row loads
+    (read-only global, shared): a sphere-row walk copied into each branch
+    of the sampler would show as twice the loads."""
+    import re
+    lib = build.library_path(fmad=False)
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
+    with open(os.path.join(ROOT, "output", "forward_sass.txt"), "w") as f:
+        f.write(sass)
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "flat_kernel" not in name and "packed_kernel" not in name:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        ldg = sum("LDG.E.128.CONSTANT" in x for _, x in ins)
+        lds = sum("LDS.128" in x for _, x in ins)
+        vote_back = 0
+        for (_, a), (addr, b) in zip(ins, ins[1:]):
+            m = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", b)
+            if "VOTE.ANY" in a and m and int(m.group(1), 16) < int(addr, 16):
+                vote_back += 1
+        out[name] = dict(instructions=len(ins), ldg128=ldg, lds128=lds,
+                         vote_back_edges=vote_back)
+        log(f"[sass] {name}: {len(ins)} instructions, 128-bit loads: "
+            f"{ldg} read-only global, {lds} shared; back edges on a warp "
+            f"vote: {vote_back}")
+        if vote_back != 1:
+            raise RuntimeError(f"{name}: the sampler's loop does not branch "
+                               "back on a warp vote")
+    return out
+
+
 def _packed_args(renderer, width, height, spp, max_bounces, seed=0):
     low = renderer.lowered
     return dict(n_sph=low.n_sph, n_quad=low.n_quad, width=width,
@@ -255,8 +316,9 @@ def _scene(presets, mk, name, kw, w, h, **rkw):
                                  "cuda", **rkw), pkw
 
 
-def check_parity(np, label, got, want):
-    """Max |d| of kernel vs twin; raises beyond the stated tolerance."""
+def check_parity(np, label, got, want, bitwise=False):
+    """Max |d| of kernel vs twin; raises beyond the stated tolerance, or
+    with `bitwise` unless every value is equal."""
     if got.shape != want.shape or not np.isfinite(got).all():
         raise RuntimeError(f"{label}: bad kernel output {got.shape}")
     diff = np.abs(got - want).max(-1)
@@ -265,6 +327,8 @@ def check_parity(np, label, got, want):
     log(f"[parity] {label}: max|d| {diff.max():.3g}, pixels > "
         f"{PARITY_ATOL:g}: {frac:.4%}, exact: {(diff == 0).mean():.4%}, "
         f"mean rel {mean_rel:.3g}")
+    if bitwise and not np.array_equal(got, want):
+        raise RuntimeError(f"{label}: kernel differs from the twin")
     if frac > PARITY_MAX_FRAC or mean_rel > PARITY_MEAN_RTOL:
         raise RuntimeError(f"{label}: kernel disagrees with the twin "
                            f"(tolerance atol {PARITY_ATOL} on all but "
@@ -273,40 +337,117 @@ def check_parity(np, label, got, want):
     return float(diff.max())
 
 
-def parity_phase(torch, np, presets, mk, mkp):
+def _repeat_check(torch, label, launch, first):
+    """A second launch must give the first launch's bits."""
+    if not torch.equal(launch(), first):
+        raise RuntimeError(f"{label}: two launches differ")
+
+
+def split_threshold(query):
+    """Image sizes on each side of the sample split's threshold, for a
+    kernel's split query(width, height): 32 block columns and the most
+    block rows that stay under one wave (split > 1), then one row more
+    (split 1)."""
+    bx, by = FORWARD_BLOCK
+    w, h = 32 * bx, by
+    while query(w, h) > 1:
+        h += by
+    if h == by:
+        raise RuntimeError("one block row already fills a wave")
+    return (w, h - by), (w, h)
+
+
+def parity_phase(torch, np, presets, mk, mkp, lib):
+    """K1 and K2 against their twins bit for bit at 64x48 spp=4, at the
+    edge shapes and on each side of the sample split's threshold; every
+    launch repeated bit for bit."""
     worst = {"K1": 0.0, "K2": 0.0}
-    for name in PARITY_SCENES:
-        r, kw = _scene(presets, mk, name, {}, 64, 48)
-        args = _packed_args(r, 64, 48, 4, min(kw["max_bounces"], 8), seed=3)
+
+    def k1(name, w, h, **o):
+        r, kw = _scene(presets, mk, name, {}, w, h)
+        args = _packed_args(r, w, h, 4, min(kw["max_bounces"], 8), seed=3)
+        args.update(o)
         before = mkp.render_packed.launches
-        got = mkp.render_packed(r.table, r.cam, **args)
+        launch = lambda: mkp.render_packed(r.table, r.cam, **args)  # noqa
+        got = launch()
         torch.cuda.synchronize()
         if mkp.render_packed.launches != before + 1:
             raise RuntimeError("K1 launch counter did not rise")
+        _repeat_check(torch, f"K1 {name}", launch, got)
         want = mkp.render_packed_reference(r.table, r.cam, **args)
+        label = f"K1 {name} {w}x{h} " + " ".join(
+            f"{k}={args[k]}" for k in ("spp", "spp_offset", "max_bounces")
+            if k in args)
         worst["K1"] = max(worst["K1"], check_parity(
-            np, f"K1 {name}", got.cpu().numpy(), want.cpu().numpy()))
-    for label, name, pkw, force in FLAT_PARITY:
-        r, kw = _scene(presets, mk, name, pkw, 64, 48)
+            np, label, got.cpu().numpy(), want.cpu().numpy(), bitwise=True))
+
+    def k2(label, name, pkw, force, w, h, **o):
+        r, kw = _scene(presets, mk, name, pkw, w, h)
         args = r.flat_args(spp=4, max_bounces=min(kw["max_bounces"], 8),
                            seed=3)
+        args.update(o)
         before = mk.render_flat.launches
         got = mk.render_flat(**args)
         torch.cuda.synchronize()
         if mk.render_flat.launches != before + 1:
             raise RuntimeError("K2 launch counter did not rise")
-        args.pop("aabbs")
-        want = mk.render_flat_reference(**args)
+        _repeat_check(torch, f"K2 {label}", lambda: mk.render_flat(**args),
+                      got)
+        twin_args = dict(args)
+        twin_args.pop("aabbs")
+        want = mk.render_flat_reference(**twin_args)
         worst["K2"] = max(worst["K2"], check_parity(
-            np, f"K2 {label} (cull {r.chunk_cull})", got.cpu().numpy(),
-            want.cpu().numpy()))
+            np, f"K2 {label} {w}x{h} (cull {r.chunk_cull}) " + " ".join(
+                f"{k}={args[k]}" for k in ("spp", "spp_offset",
+                                           "max_bounces")),
+            got.cpu().numpy(), want.cpu().numpy(), bitwise=True))
         if force:
-            k1 = r.render(spp=4, max_bounces=args["max_bounces"], seed=3,
-                          packed=True)
-            same = bool(torch.equal(got, k1))
+            k1_img = r.render(spp=args["spp"],
+                              max_bounces=args["max_bounces"], seed=3,
+                              spp_offset=args["spp_offset"], packed=True)
+            same = bool(torch.equal(got, k1_img))
             log(f"[parity] K2 == K1 bitwise on {name}: {same}")
             if not same:
                 raise RuntimeError(f"{name}: K2 differs from K1")
+
+    for name in PARITY_SCENES:
+        k1(name, 64, 48)
+    for label, name, pkw, force in FLAT_PARITY:
+        k2(label, name, pkw, force, 64, 48)
+    for w, h, o in EDGE_SHAPES:
+        for name in EDGE_K1:
+            k1(name, w, h, **o)
+        for label, name, pkw, force in FLAT_PARITY:
+            if label in EDGE_K2:
+                k2(label, name, pkw, force, w, h, **o)
+
+    # the sample split's threshold: K1 on cornell_box, K2 on 500 spheres
+    r, _ = _scene(presets, mk, "cornell_box", {}, 64, 48)
+    low = r.lowered
+    k1_flags = (int(low.has_met), int(low.has_die), int(low.sky))
+    r, _ = _scene(presets, mk, "random_spheres", dict(n=500), 64, 48)
+    k2_flags = (int(r.flat.has_met), int(r.flat.has_die), int(r.flat.sky))
+    spp = 4
+    queries = {
+        "K1": lambda w, h: lib.tinyrt_megakernel_packed_split(
+            low.table.size, w, h, spp, *k1_flags),
+        "K2": lambda w, h: lib.tinyrt_megakernel_flat_split(
+            w, h, spp, *k2_flags)}
+    for kid, query in queries.items():
+        shapes = split_threshold(query)
+        splits = [query(*wh) for wh in shapes]
+        log(f"[parity] {kid} sample split threshold: {shapes[0][0]}x"
+            f"{shapes[0][1]} splits {splits[0]}, {shapes[1][0]}x"
+            f"{shapes[1][1]} splits {splits[1]} (spp={spp})")
+        if not (splits[0] > 1 and splits[1] == 1):
+            raise RuntimeError(f"{kid}: the split threshold is not where "
+                               "the query says")
+        for w, h in shapes:
+            if kid == "K1":
+                k1("cornell_box", w, h, spp=spp)
+            else:
+                k2("random_spheres_500", "random_spheres", dict(n=500),
+                   False, w, h, spp=spp)
     return worst
 
 
@@ -451,34 +592,55 @@ def time_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def count_work(torch, mk, fn, width, blocks=None):
-    """Runs a twin `fn()` with shading wrapped to count, per bounce, the
-    pixels still on a path (bounce segments) and the kernel's warps with
-    at least one such pixel (warp steps: a warp of 16x2 pixels runs each
-    sample until its longest path ends). The twin's pixel chunks must
-    hold whole pairs of image rows.
+def count_work(torch, mk, fn, width, height, blocks=None, device="cuda"):
+    """Runs a twin `fn()` with its shading and RNG wrapped to count the
+    kernel's work, with warps of 32 consecutive threads of a block of
+    FORWARD_BLOCK threads over the image.
+
+    Per bounce it counts the pixels still on a path (bounce segments) and
+    the warps with at least one (lockstep warp steps: what a warp would
+    run if it ran each sample until its longest path ends). Per
+    pixel it sums the segments over all the run's samples: the sampler of
+    csrc/common.cuh runs one bounce per pass and starts a lane's next
+    sample at once, so a warp runs as many passes as its busiest lane's
+    total (regen warp passes: an estimate at the twin's spp, which leaves
+    out the scheduling of the warps).
 
     With `blocks`, a (sph, n_sph, aabbs, chunk) tuple, it also counts the
     sphere rows the culled kernel walks: a thread tests a block when its
     ray enters the block's AABB before the best hit of the blocks before
     it (the cull is exact, so that best is the running best of the
-    kernel's walk), and a warp walks the union of its threads' blocks.
-    Returns a dict of the four sums: seg, warp_steps, rows, warp_rows."""
+    kernel's walk), and a lockstep warp walks the union of its threads'
+    blocks. Returns a dict of sums: seg, warp_steps, regen_passes, rows,
+    warp_rows."""
     tot = dict(seg=0, warp_steps=0, rows=0, warp_rows=0)
     last = {}
-    shade, dense = mk.shade_bounce, mk.dense_closest_hit
-    nwx = -(-width // 16)
+    shade, dense, uniform4 = mk.shade_bounce, mk.dense_closest_hit, \
+        mk.rng.uniform4
+    bx, by = FORWARD_BLOCK
+    per_block = -(-bx * by // 32)
+    pix = torch.arange(width * height, device=device)
+    px, py = pix % width, pix // width
+    warp_of = (((py // by) * -(-width // bx) + px // bx) * per_block
+               + ((py % by) * bx + px % bx) // 32)
+    nw = int(warp_of.max()) + 1
+    lane_total = torch.zeros(width * height, dtype=torch.int64,
+                             device=device)
+
+    def counting_uniform4(seed, pixel_id, sample_id, stream):
+        last["pid"] = pixel_id
+        return uniform4(seed, pixel_id, sample_id, stream)
 
     def counting_shade(*a, **k):
         alive = a[12]
-        pid = torch.arange(alive.shape[0], device=alive.device)
-        wid = (pid // width // 2) * nwx + (pid % width) // 16
-        nw = int(wid[-1]) + 1
+        pid = last["pid"]
+        wid = warp_of[pid]
         per_warp = lambda x: torch.zeros(  # noqa: E731
             x.shape[:-1] + (nw,), device=x.device).index_add_(
                 -1, wid, x.float()) > 0
         tot["seg"] += int(alive.sum())
         tot["warp_steps"] += int(per_warp(alive).sum())
+        lane_total.index_add_(0, pid, alive.long())
         if "enter" in last:
             enter = last.pop("enter") & alive         # (blocks, pixels)
             lens = last.pop("lens")[:, None]
@@ -524,11 +686,17 @@ def count_work(torch, mk, fn, width, blocks=None):
         return torch.stack(enters), torch.tensor(lens, device=ox.device)
 
     mk.shade_bounce, mk.dense_closest_hit = counting_shade, counting_dense
+    mk.rng.uniform4 = counting_uniform4
     try:
-        fn()
+        out = fn()
     finally:
         mk.shade_bounce, mk.dense_closest_hit = shade, dense
-    return tot
+        mk.rng.uniform4 = uniform4
+    busiest = torch.zeros(nw, dtype=torch.int64,
+                          device=device).scatter_reduce_(
+        0, warp_of, lane_total, "amax")
+    tot["regen_passes"] = int(busiest.sum())
+    return out, tot
 
 
 def shade_ops(has_met, has_die):
@@ -551,7 +719,7 @@ def bound(camera_rays, segments, per_segment, out_bytes, in_bytes):
             "operations" if t_ops >= t_bytes else "bytes", ops)
 
 
-def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
+def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
     worst = {"K1": 0.0, "K2": 0.0}
     for label, name, pkw, w, h, spp, mb, twin_spp in CONFIGS:
         res = results[label]
@@ -566,6 +734,9 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
             rows = low.n_sph * OPS_SPHERE_ROW + low.n_quad * OPS_QUAD_ROW
             in_bytes = 4 * (low.table.size + low.cam.size)
             flags = (low.has_met, low.has_die)
+            split = lib.tinyrt_megakernel_packed_split(
+                low.table.size, w, h, spp, int(low.has_met),
+                int(low.has_die), int(low.sky))
         else:
             args = r.flat_args(spp=spp, max_bounces=mb)
             kernel = lambda fmad=False, **o: mk.render_flat(  # noqa: E731
@@ -579,6 +750,8 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
             rows = f.n_sph * OPS_SPHERE_ROW + f.n_quad * OPS_QUAD_ROW
             in_bytes = sum(4 * a.size for a in (f.sph, f.quad, f.pay, f.cam))
             flags = (f.has_met, f.has_die)
+            split = lib.tinyrt_megakernel_flat_split(
+                w, h, spp, int(f.has_met), int(f.has_die), int(f.sky))
         reps = 2 if label == "cfg4" else 3
         ms = time_kernel(torch, kernel, reps)
         torch.cuda.reset_peak_memory_stats()
@@ -588,7 +761,7 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
         got, ms_twin_shape = time_once(torch, lambda: kernel(spp=twin_spp))
         got = got.cpu().numpy()
         worst[res["kernel"]] = max(worst[res["kernel"]], check_parity(
-            np, f"{label} {name} spp={twin_spp}", got, want))
+            np, f"{label} {name} spp={twin_spp}", got, want, bitwise=True))
         fracs = {}
         for fmad in (False, True):
             d = np.abs(kernel(fmad=fmad, spp=twin_spp).cpu().numpy()
@@ -596,7 +769,8 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
             fracs[fmad] = (float((d > 0).mean()),
                            float((d > PARITY_ATOL).mean()))
         twin_shape = f"{w}x{h} spp={twin_spp} mb={mb}"
-        res.update(kernel_ms=ms, twin_ms=plain_ms, twin_shape=twin_shape,
+        res.update(kernel_ms=ms, sample_split=split, twin_ms=plain_ms,
+                   twin_shape=twin_shape,
                    kernel_ms_at_twin_shape=ms_twin_shape,
                    twin_peak_bytes=twin_mem,
                    fma_off_differ=fracs[False][0],
@@ -604,7 +778,7 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
                    fma_on_differ=fracs[True][0],
                    fma_on_beyond_atol=fracs[True][1])
         log(f"[kernel] {label} {name} {w}x{h} spp={spp} mb={mb}: kernel "
-            f"{ms:.2f} ms; twin {plain_ms:.1f} ms at {twin_shape} (kernel "
+            f"{ms:.2f} ms (samples split over {split} threads a pixel); twin {plain_ms:.1f} ms at {twin_shape} (kernel "
             f"at that shape {ms_twin_shape:.2f} ms, "
             f"{plain_ms / ms_twin_shape:.1f}x); twin peak device memory "
             f"{twin_mem / 2**30:.2f} GiB; on {card}")
@@ -614,36 +788,39 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results):
             f"(> {PARITY_ATOL:g}: {fracs[True][1]:.4%})")
 
         # work counts with the twin at the twin's shape, scaled to spp
-        count_spp = min(twin_spp, 2)
-        count_kw = {}
         blocks = None
-        if res["kernel"] == "K2":
-            count_kw["pixel_chunk"] = max(1, pixel_chunk // (2 * w)) * 2 * w
-            if r.chunk_cull:
-                t = r.flat_tensors
-                blocks = (t["sph"], r.flat.n_sph, t["aabbs"],
-                          min(mk.scene_table.ROW_CHUNK, t["sph"].shape[0]))
-        n = count_work(torch, mk, lambda: twin(spp=count_spp, **count_kw),
-                       w, blocks)
-        seg_per_ray = n["seg"] / (w * h * count_spp)
+        if res["kernel"] == "K2" and r.chunk_cull:
+            t = r.flat_tensors
+            blocks = (t["sph"], r.flat.n_sph, t["aabbs"],
+                      min(mk.scene_table.ROW_CHUNK, t["sph"].shape[0]))
+        counted, n = count_work(torch, mk, lambda: twin(spp=twin_spp), w, h,
+                                blocks)
+        if not np.array_equal(counted.cpu().numpy(), want):
+            raise RuntimeError(f"{label}: the counted twin run differs")
+        seg_per_ray = n["seg"] / (w * h * twin_spp)
         simt = n["seg"] / (32 * n["warp_steps"])
+        regen = n["seg"] / (32 * n["regen_passes"])
         segments = seg_per_ray * w * h * spp
         per_seg = rows + shade_ops(*flags)
         b_ms, b_by, ops = bound(w * h * spp, segments, per_seg, 12 * w * h,
                                 in_bytes)
         res.update(segments_per_ray=seg_per_ray, simt_efficiency=simt,
-                   bound_ms=b_ms, bound_by=b_by, bound_ops=ops)
+                   regen_lane_use=regen, bound_ms=b_ms, bound_by=b_by,
+                   bound_ops=ops)
         log(f"[count] {label}: {seg_per_ray:.4f} segments per camera ray "
-            f"(twin, {w}x{h} spp={count_spp}); warp lanes on a path in the "
-            f"bounce loop {simt:.1%}; {per_seg} ops per segment; bound "
-            f"{b_ms:.3f} ms ({b_by}, {ops:.4g} ops at "
-            f"{FP32_PEAK / 1e12:g} TFLOP/s)")
+            f"(twin, {w}x{h} spp={twin_spp}); warp lanes on a path, "
+            f"estimated from the twin's counts at spp={twin_spp} with "
+            f"{FORWARD_BLOCK[0]}x{FORWARD_BLOCK[1]} blocks: {regen:.1%} "
+            f"under the "
+            f"per-lane regeneration loop, {simt:.1%} under a lockstep "
+            f"sample loop; {per_seg} ops per segment; bound {b_ms:.3f} ms "
+            f"({b_by}, {ops:.4g} ops at {FP32_PEAK / 1e12:g} TFLOP/s)")
         if blocks is not None:
             rows_per_seg = n["rows"] / n["seg"]
             warp_rows = n["warp_rows"] / n["warp_steps"]
             res.update(warp_rows_per_step=warp_rows)
-            log(f"[count] {label}: a warp walks {warp_rows:.1f} sphere rows "
-                f"per bounce step under the per-thread cull")
+            log(f"[count] {label}: a lockstep warp walks {warp_rows:.1f} "
+                f"sphere rows per bounce step under the per-thread cull")
             c_seg = (OPS_CULL_SEGMENT + args["aabbs"].shape[0] * OPS_AABB
                      + rows_per_seg * OPS_SPHERE_ROW + shade_ops(*flags))
             cb_ms, cb_by, c_ops = bound(w * h * spp, segments, c_seg,
@@ -1747,16 +1924,18 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     build_phase(_build)
+    sass = sass_phase(_build)
     results = {}
     if "forward" in only:
-        worst = parity_phase(torch, np, presets, mk, mkp)
+        worst = parity_phase(torch, np, presets, mk, mkp, _build.load())
         launches, results = main_path_phase(torch, np, presets, mk, mkp,
                                             Renderer, card)
         breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
                         results)
         for k, v in kernel_vs_twin_phase(torch, np, presets, mk, mkp, card,
-                                         results).items():
+                                         results, _build.load()).items():
             worst[k] = max(worst[k], v)
+        results["sass"] = sass
         api_phase(np, presets, Renderer)
     if "k3" in only:
         results["k3"] = k3_phase(torch, presets, ik, trace_ops,

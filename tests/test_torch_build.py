@@ -74,19 +74,26 @@ def test_declare_types_every_exported_function():
     names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
              "tinyrt_closest_hit", "tinyrt_diff_packed",
              "tinyrt_diff_classic", "tinyrt_diff_classic_blocks",
-             "tinyrt_error_string")
+             "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
+             "tinyrt_fold_samples", "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
     packed = lib.tinyrt_megakernel_packed.argtypes
-    assert len(packed) == 17
-    assert [k for k, t in enumerate(packed) if t is p] == [0, 1, 5, 16]
+    assert len(packed) == 19
+    assert [k for k, t in enumerate(packed) if t is p] == [0, 1, 5, 6, 18]
+    assert packed[9] is packed[10] is ctypes.c_uint
+    assert packed[13] is ctypes.c_float
     flat = lib.tinyrt_megakernel_flat.argtypes
-    assert len(flat) == 23
+    assert len(flat) == 25
     assert [k for k, t in enumerate(flat) if t is p] == [0, 1, 4, 6, 8, 11,
-                                                         22]
-    assert flat[18] is ctypes.c_float
-    assert flat[14] is flat[15] is ctypes.c_uint
+                                                         12, 24]
+    assert flat[19] is ctypes.c_float
+    assert flat[15] is flat[16] is ctypes.c_uint
+    assert lib.tinyrt_megakernel_packed_split.argtypes == [ctypes.c_int] * 7
+    assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 6
+    fold = lib.tinyrt_fold_samples.argtypes
+    assert fold == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
     k3 = lib.tinyrt_closest_hit.argtypes
     assert len(k3) == 16
     assert [k for k, t in enumerate(k3) if t is p] == [0, 3, 6, 8, 11, 12,
@@ -108,7 +115,7 @@ def test_declare_types_every_exported_function():
     blocks = lib.tinyrt_diff_classic_blocks.argtypes
     assert blocks[2] is ctypes.c_longlong
     assert blocks[3] is ctypes.POINTER(ctypes.c_int)
-    for n in names[:6]:
+    for n in names[:9]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 

@@ -105,6 +105,101 @@ def test_flat_kernel_matches_twin(cuda, name, pkw, forced):
         assert torch.equal(got, k1)
 
 
+# Edges of the sampler, as chip_smoke.py phase 3: the budget kill on the
+# first bounce, an odd sample count at an offset, and partial blocks.
+EDGE_SHAPES = [pytest.param(64, 48, dict(max_bounces=1), id="mb1"),
+               pytest.param(64, 48, dict(spp=7, spp_offset=3),
+                            id="spp7-offset3"),
+               pytest.param(61, 37, {}, id="61x37")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, height, change", EDGE_SHAPES)
+@pytest.mark.parametrize("name", ["three_spheres", "cornell_box"])
+def test_packed_kernel_edge_shapes_bitwise(cuda, name, width, height,
+                                           change):
+    """K1 against its twin bit for bit at the sampler's edges, and two
+    launches bit for bit."""
+    world, camera, kw = presets.PRESETS[name](width=width, height=height)
+    r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
+    low = r.lowered
+    args = dict(n_sph=low.n_sph, n_quad=low.n_quad, width=width,
+                height=height, spp=4, max_bounces=8, seed=3,
+                has_met=low.has_met, has_die=low.has_die, sky=low.sky)
+    args.update(change)
+    got = mkp.render_packed(r.table, r.cam, **args)
+    assert torch.equal(got, mkp.render_packed(r.table, r.cam, **args))
+    assert torch.equal(got, mkp.render_packed_reference(r.table, r.cam,
+                                                        **args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, height, change", EDGE_SHAPES)
+@pytest.mark.parametrize("n", [500, 8000])
+def test_flat_kernel_edge_shapes_bitwise(cuda, n, width, height, change):
+    """K2 (dense at 500 spheres, culled at 8000) against its twin bit for
+    bit at the sampler's edges, and two launches bit for bit."""
+    world, camera, kw = presets.random_spheres(width=width, height=height,
+                                               n=n)
+    r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
+    args = r.flat_args(spp=4, max_bounces=8, seed=3)
+    args.update(change)
+    got = mk.render_flat(**args)
+    assert torch.equal(got, mk.render_flat(**args))
+    del args["aabbs"]
+    assert torch.equal(got, mk.render_flat_reference(**args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, pkw", [("cornell_box", {}),
+                                       ("random_spheres", dict(n=500))])
+def test_kernels_equal_twins_on_each_side_of_the_sample_split(cuda, name,
+                                                              pkw):
+    """K1 (cornell_box) and K2 (500 spheres) at 512 pixels wide, on the
+    last image height under one wave of the card, where each pixel's
+    samples are split over threads and folded in sample order, and one
+    block row taller, where they are not: bit for bit equal to the twin."""
+    from tinyraytracer_tpu_torch import _build
+
+    lib = _build.load()
+    width, spp = 512, 4
+
+    def renderer(height):
+        world, camera, kw = presets.PRESETS[name](width=width, height=height,
+                                                  **pkw)
+        return mk.MegakernelRenderer(world.build(), camera, kw["background"],
+                                     cuda)
+
+    r = renderer(8)
+    low, f = r.lowered, r.flat
+    if name == "cornell_box":
+        split = lambda h: lib.tinyrt_megakernel_packed_split(  # noqa: E731
+            low.table.size, width, h, spp, int(low.has_met),
+            int(low.has_die), int(low.sky))
+    else:
+        split = lambda h: lib.tinyrt_megakernel_flat_split(  # noqa: E731
+            width, h, spp, int(f.has_met), int(f.has_die), int(f.sky))
+    height = 8
+    while split(height) > 1:
+        height += 8
+    assert height > 8 and split(height - 8) > 1
+    for h in (height - 8, height):
+        r = renderer(h)
+        packed = name == "cornell_box"
+        got = r.render(spp=spp, max_bounces=8, seed=3, packed=packed)
+        if packed:
+            low = r.lowered
+            want = mkp.render_packed_reference(
+                r.table, r.cam, n_sph=low.n_sph, n_quad=low.n_quad,
+                width=width, height=h, spp=spp, max_bounces=8, seed=3,
+                has_met=low.has_met, has_die=low.has_die, sky=low.sky)
+        else:
+            args = r.flat_args(spp=spp, max_bounces=8, seed=3)
+            del args["aabbs"]
+            want = mk.render_flat_reference(**args)
+        assert torch.equal(got, want), h
+
+
 @pytest.mark.cuda
 def test_culled_flat_kernel_equals_unculled(cuda):
     world, camera, kw = presets.random_spheres(width=96, height=54, n=8000)

@@ -38,6 +38,13 @@ SCENES = [
     ("five_quads", 2, 4),
     ("rtiow_sky", 4, 4),
 ]
+# Edges of the sampler, (name, spp, max_bounces, width, height): the
+# budget kill on the first bounce, and an odd image size that no block
+# shape tiles.
+EDGE_CASES = [
+    ("three_spheres", 3, 1, 16, 12),
+    ("rtiow_sky", 2, 4, 13, 11),
+]
 
 
 def _assert_image_close(got: np.ndarray, want: np.ndarray):
@@ -53,9 +60,12 @@ def _pair(name, width=16, height=12):
             tpresets.PRESETS[name](width=width, height=height))
 
 
-@pytest.mark.parametrize("name, spp, mb", SCENES)
-def test_twin_matches_jax_packed_kernel(name, spp, mb):
-    (jw, jc, kw), (tw, tc, tkw) = _pair(name)
+@pytest.mark.parametrize(
+    "name, spp, mb, width, height",
+    [pytest.param(n, s, m, 16, 12, id=f"{n}-{s}-{m}") for n, s, m in SCENES]
+    + [pytest.param(*c, id="{}-{}-{}-{}x{}".format(*c)) for c in EDGE_CASES])
+def test_twin_matches_jax_packed_kernel(name, spp, mb, width, height):
+    (jw, jc, kw), (tw, tc, tkw) = _pair(name, width, height)
     want = np.asarray(jmk.render_image_megakernel(
         jw.build(), jc, spp=spp, max_bounces=mb, background=kw["background"],
         seed=3, interpret=True, packed=True))

@@ -96,38 +96,47 @@ def test_flat_lowering_bitwise(morton):
         assert flat.aabbs is None
 
 
-def _jax_k2(streamed: bool) -> np.ndarray:
+def _jax_k2(streamed: bool, spp=SPP, mb=MB, width=W,
+            height=H) -> np.ndarray:
     """JAX K2 in interpret mode: the dense regen kernel, or the
     row-streamed one (16-row blocks) with the chunk cull over
     Morton-ordered rows, called as tests/test_megakernel.py calls it."""
-    (jw, jc, kw), _ = _random_spheres()
+    (jw, jc, kw), _ = _random_spheres(width, height)
     r = jmk.MegakernelRenderer(jw.build(), jc, kw["background"],
                                interpret=True, chunk_cull=streamed)
     ctl = jnp.asarray([[SEED, 0, 0, 0]], jnp.int32)
     if not streamed:
         return np.asarray(jmk._render_flat(
-            r.cs, r.pay, r.cam_vec, ctl, spp=SPP, max_bounces=MB, width=W,
-            height=H, interpret=True, regen=True, has_met=r.has_met,
-            has_die=r.has_die, sky=r.sky))
+            r.cs, r.pay, r.cam_vec, ctl, spp=spp, max_bounces=mb,
+            width=width, height=height, interpret=True, regen=True,
+            has_met=r.has_met, has_die=r.has_die, sky=r.sky))
     pay_active, has_sph, has_quad = jmk._active_payload(r.cs, r.pay)
-    pid, px, py, inv, _ = jmk._block_pixel_arrays(W, H, 128)
+    pid, px, py, inv, _ = jmk._block_pixel_arrays(width, height, 128)
     color = jmk._run_kernel(
         r.cs, pay_active, r.cam_vec, ctl, jnp.asarray(pid), jnp.asarray(px),
-        jnp.asarray(py), SPP, MB, has_sph, has_quad, True, False, None, 128,
+        jnp.asarray(py), spp, mb, has_sph, has_quad, True, False, None, 128,
         True, r.has_met, r.has_die, sky=r.sky, row_chunk=16,
         chunk_aabbs=jmk._build_chunk_aabbs(r.cs, 16))
     return np.asarray(jnp.take(color, jnp.asarray(inv), axis=1).T.reshape(
-        H, W, 3))
+        height, width, 3))
 
 
-@pytest.mark.parametrize("streamed", [False, True])
-def test_twin_matches_jax_classic_kernel(streamed):
-    want = _jax_k2(streamed)
-    _, (tw, tc, tkw) = _random_spheres()
+# The dense and the streamed kernel at the module's shape, then the edges
+# of the sampler: the budget kill on the first bounce, and an odd image
+# size that no block shape tiles.
+@pytest.mark.parametrize("streamed, spp, mb, width, height", [
+    pytest.param(False, SPP, MB, W, H, id="False"),
+    pytest.param(True, SPP, MB, W, H, id="True"),
+    pytest.param(False, 3, 1, 16, 12, id="False-3-1"),
+    pytest.param(True, 2, 4, 13, 11, id="True-2-4-13x11"),
+])
+def test_twin_matches_jax_classic_kernel(streamed, spp, mb, width, height):
+    want = _jax_k2(streamed, spp, mb, width, height)
+    _, (tw, tc, tkw) = _random_spheres(width, height)
     r = tmk.MegakernelRenderer(tw.build(), tc, tkw["background"], "cpu",
                                chunk_cull=streamed)
     assert r.flat.n_sph + r.flat.n_quad > tmkp.PACKED_MAX_PRIMS
-    got = r.render(spp=SPP, max_bounces=MB, seed=SEED)
+    got = r.render(spp=spp, max_bounces=mb, seed=SEED)
     assert got.device.type == "cpu"
     _assert_image_close(got.numpy(), want)
 

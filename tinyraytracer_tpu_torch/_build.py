@@ -125,11 +125,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     # ints as 32 bits and would cut pointers
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.tinyrt_megakernel_packed
-    fn.argtypes = [p, p, i, i, i, p, i, i, u, u, i, i, f, i, i, i, p]
+    fn.argtypes = [p, p, i, i, i, p, p, i, i, u, u, i, i, f, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_megakernel_packed_split
+    fn.argtypes = [i, i, i, i, i, i, i]
     fn.restype = i
     fn = lib.tinyrt_megakernel_flat
-    fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, i, i, u, u, i, i, f,
-                   i, i, i, p]
+    fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, p, i, i, u, u, i, i, f,
+                   i, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_megakernel_flat_split
+    fn.argtypes = [i, i, i, i, i, i]
+    fn.restype = i
+    fn = lib.tinyrt_fold_samples
+    fn.argtypes = [p, p, i, i, f, p]
     fn.restype = i
     ll = ctypes.c_longlong
     fn = lib.tinyrt_closest_hit

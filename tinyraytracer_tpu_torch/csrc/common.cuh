@@ -1,20 +1,28 @@
 // Device code shared by the forward megakernels: megakernel_packed.cu (K1,
 // the packed scene table) and megakernel.cu (K2, the classic row layout).
 // Both compile the same pcg4d RNG, hit tests, shading, camera ray and
-// per-pixel sample loop from here, so a pixel runs the same operations in
-// the same order whichever kernel renders it. The plain PyTorch twins of
-// this code are ops/megakernel.py (`shade_bounce`, `dense_closest_hit`,
+// per-pixel sampler from here, so a pixel runs the same operations in the
+// same order whichever kernel renders it. The plain PyTorch twins of this
+// code are ops/megakernel.py (`shade_bounce`, `dense_closest_hit`,
 // `lockstep_render`) and ops/rng.py.
 //
-// The sample loop is the per-pixel op sequence of a lane of the TPU
-// kernels' regeneration loop (tinyraytracer_tpu/ops/megakernel.py:365,
-// `_regen_sample_loop`): sample s takes its camera ray from stream 0 and
-// bounce b from stream 1 + b of pcg4d(pid, spp_offset + s, stream, seed);
-// a path that died only adds +0.0 there until the lane folds it, so
-// leaving the bounce loop at death changes nothing; the budget kills
-// without a background add; the accumulator folds samples in order; the
-// mean is a multiply by the f32-rounded 1/spp the host passes. The RNG
-// keys off the pixel id alone, so any mapping of pixels to threads gives
+// The sampler (`render_pixel`) is the TPU kernels' per-lane regeneration
+// loop (tinyraytracer_tpu/ops/megakernel.py:365, `_regen_sample_loop`)
+// written per thread: one loop whose every pass runs one bounce of the
+// thread's current sample. When the path dies or spends max_bounces, the
+// thread folds the sample's colour and, on the next pass, takes the camera
+// ray of its next sample. A warp therefore runs as many passes as its
+// busiest thread has bounces over all its samples, where a per-sample
+// loop with a bounce loop inside would run every sample until the warp's
+// longest path of that sample ends. Only the threads that start a sample
+// diverge, around the camera ray; the closest hit and the shading run
+// with the warp converged. The per-pixel op sequence is that of the
+// lockstep twin: sample s takes its camera ray from stream 0 and bounce b
+// (counted within the sample) from stream 1 + b of pcg4d(pid,
+// spp_offset + s, stream, seed); the budget kills without a background
+// add; samples fold in order into an accumulator from +0.0; the mean is a
+// multiply by the f32-rounded 1/spp the host passes. The RNG keys off the
+// pixel id alone, so any mapping of pixels and samples to threads gives
 // the same image.
 //
 // Where the numbers could drift from the reference, and what is done:
@@ -37,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace tinyrt {
 
 constexpr float kTMin = 1e-3f;
@@ -45,8 +55,16 @@ constexpr float kTwoPi = 6.2831855f;
 constexpr float kThird = 0.33333334f;
 constexpr float kInv2p24 = 5.9604645e-08f;
 constexpr int kCamWords = 32;
+// Forward blocks of 16x8 threads, one pixel each: a warp covers a 16x2
+// tile, so its camera rays stay coherent. On the H100, 128-thread blocks
+// were as fast as or faster than 256 (16x16) and 64 (8x8) at every
+// config (PERF.md, the launch-shape sweep): a block holds its SM slot
+// until its slowest warp ends, and smaller blocks free slots sooner.
 constexpr int kBlockX = 16;
-constexpr int kBlockY = 16;
+constexpr int kBlockY = 8;
+// A grid of fewer blocks than the card holds at once (one wave) spreads
+// each pixel's samples over enough threads for this many waves.
+constexpr int kSplitWaves = 4;
 
 __device__ __forceinline__ void pcg4d(uint32_t& x, uint32_t& y, uint32_t& z,
                                       uint32_t& w) {
@@ -305,47 +323,128 @@ __device__ __forceinline__ void camera_ray(const float* cam, float px,
   normalize3(dx, dy, dz);
 }
 
-// Mean radiance of pixel (x, y) over samples [spp_offset, +spp), written
-// to out[3 * pid .. +3). `scene.closest_hit(ox, oy, oz, dx, dy, dz, best,
-// w)` is the kernel's own search: the strict-`<` first minimum over
-// spheres, then quads, and the winner's payload (zero on a miss).
+// What a forward launch renders: samples [spp_offset, +spp) of a
+// (height, width) image. With split == 1 each thread folds all samples of
+// its pixel and writes the mean to out[3 * pid .. +3). With split > 1 the
+// samples of a pixel are cut into `split` contiguous parts, one thread
+// each (blockIdx.z is the part), and each thread writes every sample's
+// colour to samples[(s * width * height + pid) * 3 .. +3), which
+// fold_kernel (megakernel.cu) adds up in sample order.
+struct Frame {
+  float* out;
+  float* samples;
+  int width, height;
+  uint32_t seed, spp_offset;
+  int spp, max_bounces, split;
+  float inv_spp;
+};
+
+// Renders part `part` of pixel (x, y)'s samples (see Frame), one bounce
+// per pass of a single loop. Every thread of the warp calls it, those
+// outside the image too (they run no pass): the loop's one back edge is
+// a vote of the whole warp. With the exit test on the thread's own
+// counters instead, the compiler threads the not-yet-ended path straight
+// back to the loop head, which makes a bounce loop inside a sample loop
+// again, with the warp reconverging at the end of every sample.
+// `scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w)` is the kernel's
+// own search: the strict-`<` first minimum over spheres, then quads, and
+// the winner's payload (zero on a miss).
 template <bool HAS_MET, bool HAS_DIE, bool SKY, class Scene>
 __device__ __forceinline__ void render_pixel(const float* cam,
-                                             const Scene& scene, int x,
-                                             int y, int width, uint32_t seed,
-                                             uint32_t spp_offset, int spp,
-                                             int max_bounces, float inv_spp,
-                                             float* __restrict__ out) {
-  const uint32_t pid = (uint32_t)y * (uint32_t)width + (uint32_t)x;
+                                             const Scene& scene,
+                                             const Frame& f, int x, int y,
+                                             int part) {
+  const bool in_image = x < f.width && y < f.height;
+  const uint32_t pid = (uint32_t)y * (uint32_t)f.width + (uint32_t)x;
+  const int s_end = (int)((long long)f.spp * (part + 1) / f.split);
+  int s = (int)((long long)f.spp * part / f.split);
+  bool active = in_image && s < s_end;  // more parts than samples: none
   const float px = (float)x;
   const float py = (float)y;
+  const size_t npix = (size_t)f.width * (size_t)f.height;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < spp; ++s) {
-    const uint32_t samp = spp_offset + (uint32_t)s;
-    float ox, oy, oz, dx, dy, dz;
-    camera_ray(cam, px, py, pid, samp, seed, ox, oy, oz, dx, dy, dz);
-    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-    float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-    bool alive = true;
-    for (int b = 0; b < max_bounces && alive; ++b) {
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  bool alive = true;
+  int b = 0;  // bounce within the current sample
+  while (__any_sync(0xffffffffu, active)) {
+    if (active) {
+      const uint32_t samp = f.spp_offset + (uint32_t)s;
+      if (b == 0) {  // a new sample: its camera ray, stream 0
+        camera_ray(cam, px, py, pid, samp, f.seed, ox, oy, oz, dx, dy, dz);
+        tr = tg = tb = 1.0f;
+        cr = cg = cb = 0.0f;
+        alive = true;
+      }
       float best;
       Payload w;
       scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w);
       float u1, u2, u3, u4;  // scatter randomness: stream 1 + bounce
-      uniform4(pid, samp, 1u + (uint32_t)b, seed, u1, u2, u3, u4);
-      shade_bounce<HAS_MET, HAS_DIE, SKY>(ox, oy, oz, dx, dy, dz, tr, tg, tb,
-                                          cr, cg, cb, alive, best,
+      uniform4(pid, samp, 1u + (uint32_t)b, f.seed, u1, u2, u3, u4);
+      shade_bounce<HAS_MET, HAS_DIE, SKY>(ox, oy, oz, dx, dy, dz, tr, tg,
+                                          tb, cr, cg, cb, alive, best,
                                           best < kMiss, w, u1, u2, u3, u4,
                                           cam);
+      ++b;
+      // the sample ends when the path died or spent the budget (which
+      // kills it without a background add)
+      if (!alive || b == f.max_bounces) {
+        if (f.split > 1) {
+          float* c = f.samples + ((size_t)s * npix + pid) * 3;
+          c[0] = cr;
+          c[1] = cg;
+          c[2] = cb;
+        } else {
+          acc_r = acc_r + cr;
+          acc_g = acc_g + cg;
+          acc_b = acc_b + cb;
+        }
+        b = 0;
+        active = ++s < s_end;
+      }
     }
-    acc_r = acc_r + cr;
-    acc_g = acc_g + cg;
-    acc_b = acc_b + cb;
   }
-  float* o = out + 3 * (size_t)pid;
-  o[0] = acc_r * inv_spp;
-  o[1] = acc_g * inv_spp;
-  o[2] = acc_b * inv_spp;
+  if (in_image && f.split == 1) {
+    float* o = f.out + 3 * (size_t)pid;
+    o[0] = acc_r * f.inv_spp;
+    o[1] = acc_g * f.inv_spp;
+    o[2] = acc_b * f.inv_spp;
+  }
+}
+
+// The grid of a forward launch: the image in blocks, times the parts.
+inline dim3 forward_grid(const Frame& f) {
+  return dim3((f.width + kBlockX - 1) / kBlockX,
+              (f.height + kBlockY - 1) / kBlockY, f.split);
+}
+
+// Sample parts per pixel (Frame::split) for a (height, width) image of
+// spp samples rendered by `kernel` with `smem` bytes of dynamic shared
+// memory: 1 when the grid fills one wave of the card, else enough parts
+// for kSplitWaves waves, at most spp. Under one wave the slowest pixels
+// set the kernel's time; their samples then run side by side.
+template <class Kernel>
+cudaError_t sample_split(Kernel kernel, size_t smem, int width, int height,
+                         int spp, int& split) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kBlockX * kBlockY, smem);
+  }
+  if (e != cudaSuccess) return e;
+  const long long wave = (long long)per_sm * sms;
+  const long long blocks = (long long)((width + kBlockX - 1) / kBlockX) *
+                           ((height + kBlockY - 1) / kBlockY);
+  split = blocks >= wave
+              ? 1
+              : (int)std::min<long long>(
+                    spp, (kSplitWaves * wave + blocks - 1) / blocks);
+  return cudaSuccess;
 }
 
 // Calls launcher.template run<HAS_MET, HAS_DIE, SKY>() for the runtime

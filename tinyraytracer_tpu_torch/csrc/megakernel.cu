@@ -7,8 +7,10 @@
 // in the scene layout and the closest-hit search. Its plain PyTorch twin
 // is `render_flat_reference` in ops/megakernel.py.
 //
-// Design: one thread per pixel, 16x16 pixels per block, the grid over
-// (W, H). The TPU kernel's dense (rows, rays) candidate matrix, its
+// Design: one thread per pixel in blocks of 16x8, the grid over (W, H)
+// and, for an image of less than one wave of the card, over parts of
+// each pixel's samples (common.cuh: the sampler, the block shape and the
+// split rule). The TPU kernel's dense (rows, rays) candidate matrix, its
 // row-streamed fold and its one-hot payload product become, per thread:
 // - a walk over the real sphere rows, then the real quad rows, read from
 //   device memory through the read-only path (`__ldg`), with the strict
@@ -32,11 +34,18 @@
 // What bounds it: FP32 issue. A sphere row costs about 25-30 operations
 // per bounce segment (with --fmad=false every add and multiply is its own
 // instruction), a quad row about 35, and shading plus the camera ray a
-// few hundred per segment; memory traffic is one float3 out per pixel.
-// Threads whose paths end early idle beside long glass paths of the same
-// warp (divergence), and culled blocks only save work when the whole warp
-// skips them. Left for later: staging row blocks in shared memory, a
-// warp-level cull vote, and a BVH-like ordering of the rows.
+// few hundred per segment; memory traffic is one float3 out per pixel
+// (and, when the samples are split, 12 bytes per sample to a scratch and
+// back). Idle lanes are what the design fights: the sampler regenerates
+// per lane, so a warp pays its busiest lane's bounce total over all its
+// samples, not every sample's longest path; under one wave the slowest
+// pixels set the time, so their samples run on several threads and
+// fold_kernel adds the colours up in sample order. Culled blocks save
+// work only when the whole warp skips them. Tried and dropped: the real
+// rows staged in shared memory per block (no faster than the read-only
+// broadcast at config 4). Not done: a warp-level cull vote (a warp walks
+// the union of its lanes' blocks, about 15 % more rows than one lane: the
+// most a vote could save), a BVH-like ordering of the rows.
 
 #include "common.cuh"
 
@@ -141,10 +150,7 @@ struct FlatScene {
 
 template <bool HAS_MET, bool HAS_DIE, bool SKY>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-    flat_kernel(const float* __restrict__ cam_g, FlatScene scene,
-                float* __restrict__ out, int width, int height,
-                uint32_t seed, uint32_t spp_offset, int spp,
-                int max_bounces, float inv_spp) {
+    flat_kernel(const float* __restrict__ cam_g, FlatScene scene, Frame f) {
   __shared__ float cam[kCamWords];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < kCamWords) cam[tid] = cam_g[tid];
@@ -152,30 +158,45 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  render_pixel<HAS_MET, HAS_DIE, SKY>(cam, scene, x, y, width, seed,
-                                      spp_offset, spp, max_bounces, inv_spp,
-                                      out);
+  render_pixel<HAS_MET, HAS_DIE, SKY>(cam, scene, f, x, y, blockIdx.z);
 }
 
+// Adds up each pixel's per-sample colours in sample order and writes the
+// mean: the fold render_pixel does when a thread owns all samples.
+__global__ void fold_kernel(const float* __restrict__ samples,
+                            float* __restrict__ out, int npix, int spp,
+                            float inv_spp) {
+  const int pid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pid >= npix) return;
+  float r = 0.0f, g = 0.0f, b = 0.0f;
+  for (int s = 0; s < spp; ++s) {
+    const float* c = samples + ((size_t)s * npix + pid) * 3;
+    r = r + c[0];
+    g = g + c[1];
+    b = b + c[2];
+  }
+  out[3 * (size_t)pid] = r * inv_spp;
+  out[3 * (size_t)pid + 1] = g * inv_spp;
+  out[3 * (size_t)pid + 2] = b * inv_spp;
+}
+
+// Launches the kernel for `f` or, with `split` set, only writes the
+// sample split a launch of f's image takes (common.cuh, sample_split).
 struct FlatLaunch {
   const float* cam;
   FlatScene scene;
-  float* out;
-  int width, height;
-  uint32_t seed, spp_offset;
-  int spp, max_bounces;
-  float inv_spp;
+  Frame f;
   cudaStream_t stream;
+  int* split;
 
   template <bool HAS_MET, bool HAS_DIE, bool SKY>
   cudaError_t run() const {
-    const dim3 block(kBlockX, kBlockY);
-    const dim3 grid((width + kBlockX - 1) / kBlockX,
-                    (height + kBlockY - 1) / kBlockY);
-    flat_kernel<HAS_MET, HAS_DIE, SKY><<<grid, block, 0, stream>>>(
-        cam, scene, out, width, height, seed, spp_offset, spp, max_bounces,
-        inv_spp);
+    auto kernel = flat_kernel<HAS_MET, HAS_DIE, SKY>;
+    if (split != nullptr) {
+      return sample_split(kernel, 0, f.width, f.height, f.spp, *split);
+    }
+    kernel<<<forward_grid(f), dim3(kBlockX, kBlockY), 0, stream>>>(
+        cam, scene, f);
     return cudaGetLastError();
   }
 };
@@ -184,29 +205,56 @@ struct FlatLaunch {
 
 extern "C" {
 
-// Renders (height, width, 3) f32 mean radiance into `out` on `stream`.
-// `sph` (ns, 4), `quad` (nq, 12) and `pay` (NA, 16) are 16-byte aligned
-// f32 rows; n_sph / n_quad real rows are walked; quad j's payload row is
-// q_row0 + j. `aabb` (n_blocks, 8), or null with n_blocks 0, turns on the
-// cull over blocks of `chunk` sphere rows. Returns the launch's
-// cudaError_t (0 on success); does not synchronise.
+// Renders samples [spp_offset, +spp) of a (height, width) image on
+// `stream`: the mean radiance into `out` (H, W, 3) when split is 1; with
+// split > 1 each sample's colour into `samples` (spp, H * W, 3), for
+// tinyrt_fold_samples. `sph` (ns, 4), `quad` (nq, 12) and `pay` (NA, 16)
+// are 16-byte aligned f32 rows; n_sph / n_quad real rows are walked; quad
+// j's payload row is q_row0 + j. `aabb` (n_blocks, 8), or null with
+// n_blocks 0, turns on the cull over blocks of `chunk` sphere rows.
+// Returns the launch's cudaError_t (0 on success); does not synchronise.
 int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            int ns, const float* quad, int n_quad,
                            const float* pay, int q_row0, const float* aabb,
-                           int n_blocks, int chunk, float* out, int width,
-                           int height, unsigned int seed,
-                           unsigned int spp_offset, int spp, int max_bounces,
-                           float inv_spp, int has_met, int has_die, int sky,
+                           int n_blocks, int chunk, float* out,
+                           float* samples, int width, int height,
+                           unsigned int seed, unsigned int spp_offset,
+                           int spp, int max_bounces, float inv_spp,
+                           int split, int has_met, int has_die, int sky,
                            void* stream) {
   const FlatScene scene{reinterpret_cast<const float4*>(sph),
                         reinterpret_cast<const float4*>(quad),
                         reinterpret_cast<const float4*>(pay),
                         reinterpret_cast<const float4*>(aabb),
                         n_sph, ns, n_quad, q_row0, n_blocks, chunk};
-  const FlatLaunch launch{cam, scene, out, width, height, seed, spp_offset,
-                          spp, max_bounces, inv_spp,
-                          static_cast<cudaStream_t>(stream)};
+  const Frame f{out, samples, width, height, seed, spp_offset, spp,
+                max_bounces, split, inv_spp};
+  const FlatLaunch launch{cam, scene, f, static_cast<cudaStream_t>(stream),
+                          nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);
+}
+
+// The sample split (parts per pixel) of a launch of this image on the
+// current device, or minus the cudaError_t of the query.
+int tinyrt_megakernel_flat_split(int width, int height, int spp,
+                                 int has_met, int has_die, int sky) {
+  int split = 0;
+  const Frame f{nullptr, nullptr, width, height, 0u, 0u, spp, 0, 1, 0.0f};
+  const FlatLaunch query{nullptr, FlatScene{}, f, nullptr, &split};
+  const cudaError_t e =
+      dispatch_kinds(has_met != 0, has_die != 0, sky != 0, query);
+  return e == cudaSuccess ? split : -(int)e;
+}
+
+// out (npix, 3) = the in-order sum over s of samples (spp, npix, 3), times
+// inv_spp. Returns the launch's cudaError_t; does not synchronise.
+int tinyrt_fold_samples(const float* samples, float* out, int npix, int spp,
+                        float inv_spp, void* stream) {
+  const int threads = 256;
+  fold_kernel<<<(npix + threads - 1) / threads, threads, 0,
+                static_cast<cudaStream_t>(stream)>>>(samples, out, npix, spp,
+                                                     inv_spp);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

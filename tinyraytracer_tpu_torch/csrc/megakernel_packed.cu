@@ -8,9 +8,12 @@
 // ops/megakernel_packed.py. The sampler, shading and hit tests are
 // common.cuh's, shared with K2 (megakernel.cu).
 //
-// Design: one thread per pixel, 16x16 pixels per block; per thread the
-// sample loop and, inside it, up to max_bounces bounces (common.cuh,
-// render_pixel). The scene table (spheres of 13 floats, then quads of
+// Design: one thread per pixel in blocks of 16x8, running the sampler of
+// common.cuh (render_pixel): one bounce per pass of a single loop, a lane
+// starting its next sample as soon as its path ends, and, for an image of
+// less than one wave of the card, each pixel's samples split over several
+// threads and folded in sample order afterwards (fold_kernel in
+// megakernel.cu). The scene table (spheres of 13 floats, then quads of
 // 24: geometry, then kind, albedo, fuzz, ior, emission) and the 32-word
 // camera vector are copied into shared memory at block start and walked
 // at run time, spheres first, then quads, with the strict `<` first
@@ -18,14 +21,13 @@
 // light/ceiling z-fight). No primitive count is compiled in; the table's
 // size sets the dynamic shared memory.
 //
-// What bounds it: FP32 ALU work and warp divergence. Memory traffic is
+// What bounds it: FP32 ALU work and idle lanes. Memory traffic is
 // negligible: the table and camera once per block, one float3 out per
-// pixel. Deliberately simple, for later work: paths of different lengths
-// diverge inside a warp (per-warp regeneration or path compaction would
-// cut that); the material lobes are computed for every hit and selected,
-// as the TPU kernel does, where branching on the winner's kind would
-// skip work; the table is read from shared memory per primitive per
-// bounce, and no acceleration structure is used.
+// pixel. Deliberately simple, for later work: the material lobes are
+// computed for every hit and selected, as the TPU kernel does, where
+// branching on the winner's kind would skip work; the table is read from
+// shared memory per primitive per bounce, and no acceleration structure
+// is used.
 
 #include "common.cuh"
 
@@ -107,9 +109,7 @@ template <bool HAS_MET, bool HAS_DIE, bool SKY>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     packed_kernel(const float* __restrict__ cam_g,
                   const float* __restrict__ tab_g, int nw, int n_sph,
-                  int n_quad, float* __restrict__ out, int width, int height,
-                  uint32_t seed, uint32_t spp_offset, int spp,
-                  int max_bounces, float inv_spp) {
+                  int n_quad, Frame f) {
   extern __shared__ float smem[];  // camera vector, then the scene table
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < kCamWords + nw; i += blockDim.x * blockDim.y) {
@@ -119,23 +119,19 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
   const PackedScene scene{smem + kCamWords, n_sph, n_quad};
-  render_pixel<HAS_MET, HAS_DIE, SKY>(smem, scene, x, y, width, seed,
-                                      spp_offset, spp, max_bounces, inv_spp,
-                                      out);
+  render_pixel<HAS_MET, HAS_DIE, SKY>(smem, scene, f, x, y, blockIdx.z);
 }
 
+// Launches the kernel for `f` or, with `split` set, only writes the
+// sample split a launch of f's image takes (common.cuh, sample_split).
 struct PackedLaunch {
   const float* cam;
   const float* tab;
   int nw, n_sph, n_quad;
-  float* out;
-  int width, height;
-  uint32_t seed, spp_offset;
-  int spp, max_bounces;
-  float inv_spp;
+  Frame f;
   cudaStream_t stream;
+  int* split;
 
   template <bool HAS_MET, bool HAS_DIE, bool SKY>
   cudaError_t run() const {
@@ -146,12 +142,11 @@ struct PackedLaunch {
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
     }
-    const dim3 block(kBlockX, kBlockY);
-    const dim3 grid((width + kBlockX - 1) / kBlockX,
-                    (height + kBlockY - 1) / kBlockY);
-    kernel<<<grid, block, smem, stream>>>(cam, tab, nw, n_sph, n_quad, out,
-                                          width, height, seed, spp_offset,
-                                          spp, max_bounces, inv_spp);
+    if (split != nullptr) {
+      return sample_split(kernel, smem, f.width, f.height, f.spp, *split);
+    }
+    kernel<<<forward_grid(f), dim3(kBlockX, kBlockY), smem, stream>>>(
+        cam, tab, nw, n_sph, n_quad, f);
     return cudaGetLastError();
   }
 };
@@ -160,18 +155,35 @@ struct PackedLaunch {
 
 extern "C" {
 
-// Renders (height, width, 3) f32 mean radiance into `out` on `stream`.
-// Returns the launch's cudaError_t (0 on success); does not synchronise.
+// Renders samples [spp_offset, +spp) of a (height, width) image on
+// `stream`: the mean radiance into `out` (H, W, 3) when split is 1; with
+// split > 1 each sample's colour into `samples` (spp, H * W, 3), for
+// tinyrt_fold_samples. Returns the launch's cudaError_t (0 on success);
+// does not synchronise.
 int tinyrt_megakernel_packed(const float* cam, const float* tab, int nw,
-                             int n_sph, int n_quad, float* out, int width,
-                             int height, unsigned int seed,
-                             unsigned int spp_offset, int spp,
-                             int max_bounces, float inv_spp, int has_met,
-                             int has_die, int sky, void* stream) {
-  const PackedLaunch launch{cam, tab, nw, n_sph, n_quad, out, width, height,
-                            seed, spp_offset, spp, max_bounces, inv_spp,
-                            static_cast<cudaStream_t>(stream)};
+                             int n_sph, int n_quad, float* out,
+                             float* samples, int width, int height,
+                             unsigned int seed, unsigned int spp_offset,
+                             int spp, int max_bounces, float inv_spp,
+                             int split, int has_met, int has_die, int sky,
+                             void* stream) {
+  const Frame f{out, samples, width, height, seed, spp_offset, spp,
+                max_bounces, split, inv_spp};
+  const PackedLaunch launch{cam, tab, nw, n_sph, n_quad, f,
+                            static_cast<cudaStream_t>(stream), nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);
+}
+
+// The sample split (parts per pixel) of a launch of this image and table
+// size on the current device, or minus the cudaError_t of the query.
+int tinyrt_megakernel_packed_split(int nw, int width, int height, int spp,
+                                   int has_met, int has_die, int sky) {
+  int split = 0;
+  const Frame f{nullptr, nullptr, width, height, 0u, 0u, spp, 0, 1, 0.0f};
+  const PackedLaunch query{nullptr, nullptr, nw, 0, 0, f, nullptr, &split};
+  const cudaError_t e =
+      dispatch_kinds(has_met != 0, has_die != 0, sky != 0, query);
+  return e == cudaSuccess ? split : -(int)e;
 }
 
 const char* tinyrt_error_string(int err) {

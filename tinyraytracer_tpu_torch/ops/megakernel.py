@@ -330,6 +330,35 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
     return out.view(height, width, 3)
 
 
+def launch_forward(lib, device, width: int, height: int, spp: int,
+                   split_query, launch):
+    """Runs one forward kernel (K1 or K2) and returns (out, CUDA error).
+
+    `split_query()` returns the kernel's sample split for this image (see
+    csrc/common.cuh, `sample_split`), or minus a CUDA error;
+    `launch(out, samples, split, inv_spp, stream)` makes the kernel's own
+    call with data pointers as ints. With more than one sample part per
+    pixel, the kernel writes each sample's colour to a (spp, H * W, 3)
+    scratch and a second kernel folds them in sample order, so the image
+    has the same bits."""
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    inv = float(np.float32(1.0 / spp))
+    with torch.cuda.device(device):
+        split = split_query()
+        if split < 1:
+            return out, -split
+        samples = (torch.empty((spp, height * width, 3), dtype=torch.float32,
+                               device=device) if split > 1 else None)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = launch(out.data_ptr(),
+                     None if samples is None else samples.data_ptr(), split,
+                     inv, stream)
+        if err == 0 and samples is not None:
+            err = lib.tinyrt_fold_samples(samples.data_ptr(), out.data_ptr(),
+                                          height * width, spp, inv, stream)
+    return out, err
+
+
 # --- K2: the classic-layout megakernel ------------------------------------
 
 def _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
@@ -400,20 +429,22 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
                          "the kernel reads their rows as float4")
     lib = _build.load(fmad=fmad)
     ns = sph.shape[0]
-    out = torch.empty((height, width, 3), dtype=torch.float32,
-                      device=sph.device)
-    with torch.cuda.device(sph.device):
-        stream = torch.cuda.current_stream(sph.device).cuda_stream
-        err = lib.tinyrt_megakernel_flat(
+    flags = (int(has_met), int(has_die), int(sky))
+
+    def launch(out, samples, split, inv_spp, stream):
+        return lib.tinyrt_megakernel_flat(
             cam.data_ptr(), sph.data_ptr(), n_sph, ns, quad.data_ptr(),
             n_quad, pay.data_ptr(), ns if n_sph else 0,
             aabbs.data_ptr() if aabbs is not None else None,
             aabbs.shape[0] if aabbs is not None else 0,
-            min(scene_table.ROW_CHUNK, ns),
-            out.data_ptr(), width, height,
+            min(scene_table.ROW_CHUNK, ns), out, samples, width, height,
             seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
-            float(np.float32(1.0 / spp)),
-            int(has_met), int(has_die), int(sky), stream)
+            inv_spp, split, *flags, stream)
+
+    out, err = launch_forward(
+        lib, sph.device, width, height, spp,
+        lambda: lib.tinyrt_megakernel_flat_split(width, height, spp, *flags),
+        launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"megakernel_flat launch failed: CUDA error "

@@ -22,7 +22,6 @@ over, and both the twin and the kernel write (H, W, 3) directly.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tinyraytracer_tpu_torch import _build
@@ -82,16 +81,20 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
     if table.device.type != "cuda":
         raise ValueError(f"no megakernel for device {table.device}")
     lib = _build.load(fmad=fmad)
-    out = torch.empty((height, width, 3), dtype=torch.float32,
-                      device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.tinyrt_megakernel_packed(
+    flags = (int(has_met), int(has_die), int(sky))
+
+    def launch(out, samples, split, inv_spp, stream):
+        return lib.tinyrt_megakernel_packed(
             cam.data_ptr(), table.data_ptr(), table.numel(), n_sph, n_quad,
-            out.data_ptr(), width, height,
-            seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
-            float(np.float32(1.0 / spp)),
-            int(has_met), int(has_die), int(sky), stream)
+            out, samples, width, height, seed & 0xFFFFFFFF,
+            spp_offset & 0xFFFFFFFF, spp, max_bounces, inv_spp, split,
+            *flags, stream)
+
+    out, err = mk.launch_forward(
+        lib, table.device, width, height, spp,
+        lambda: lib.tinyrt_megakernel_packed_split(table.numel(), width,
+                                                   height, spp, *flags),
+        launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"megakernel_packed launch failed: CUDA error "
