@@ -11,7 +11,9 @@ Phases, each printed on its own lines:
    started together), as shipped (--fmad=false) and, for the numerics
    comparison, with FMA contraction; prints ptxas registers and spills.
    Disassembles the library (cuobjdump) and checks that each forward
-   kernel's sampler loop branches back on a warp vote.
+   kernel's sampler loop, the phase-1 loop of K5's and K4's image
+   kernels, and the fused kernels' three loops (the replay and adjoint
+   stages, the chunk loop) end on a warp vote.
 3. Parity, every image bit for bit and every launch repeated bit for
    bit, at 64x48 spp=4: the packed kernel (K1) against its plain PyTorch
    twin on five scenes; the classic-layout kernel (K2) against its twin
@@ -59,7 +61,13 @@ Phases, each printed on its own lines:
    scope without the silhouette: the image bit for bit, the loss and every
    gradient table within TABLE_RTOL of the table's largest entry, two
    launches bit for bit; then the same checks and K5 and its twin timed
-   at config 5's shape (600x600 mb=20, class scope; the twin at spp=2).
+   at config 5's shape (600x600 mb=20, class scope; the twin at spp=2,
+   where each thread takes several pixels), and at the edges of K5's
+   loops (FUSED_EDGES: spp=1, spp=k+1 at offset 3, chunks of k=1 and 2,
+   max_bounces=1, 61x37). Prints the registers, blocks per SM, grid, k
+   and save slots of the cfg5f launch, and the lane model: the share of
+   warp lanes on a live bounce under lockstep loops and under the
+   kernel's loops, from the twin's live bounces per (pixel, sample).
 13. The fused step against the modular one (cornell_spheres 64x64 spp=4
    mb=8, dense surrogates): the loss and every gradient field within
    `tests/test_diffkernel.py:_compare`'s tolerances; `fit(engine="fused")`
@@ -67,8 +75,8 @@ Phases, each printed on its own lines:
 14. Config 5 through `make_fused_train_step` at full size (600x600
    spp=200 mb=20, unless a step passes STEP_LIMIT_S): 1 warm-up and 2 timed
    steps ended by a host read of the loss; fwd+bwd camera Mrays/s, peak
-   memory, K5's device time and the device's busy share under
-   torch.profiler, finite loss and gradients. Every kernel counter is
+   memory, K5's device time (its image and fused kernels) and the
+   device's busy share under torch.profiler, finite loss and gradients. Every kernel counter is
    zeroed before these steps and read after; K5 must have run.
 15. The classic-layout fused kernel (K4) against its twin: the image bit
    for bit, the loss and every table within TABLE_RTOL, two launches bit
@@ -76,14 +84,16 @@ Phases, each printed on its own lines:
    scope, where K4 must also equal K5), on random_spheres n=40 under a
    lamp (32x24 spp=2 mb=4: dense, explicit-subset and sphere-class-off
    scopes), and at bench.py's cfg4-class shape (200x200 mb=8, subset and
-   dense: the twin at spp=1); K4 timed at spp=8 and 1, the twin at 1, and
-   K4's bound from the twin's live-bounce count.
+   dense: the twin at spp=1); the edges of phase 12 on the lamp scene's
+   subset scope; K4 timed at spp=8 and 1, the twin at 1, K4's bound from
+   the twin's live-bounce count, its launch and the lane model per cell.
 16. bench.py's cfg4-class step through `make_fused_train_step`
    (random_spheres n=512 200x200 spp=8 mb=8, trainable sph_center +
    mat_albedo), cell cfg4class (trainable_rows = the first 8 sphere rows)
    and cfg4class-dense (none): 1 warm-up and 3 timed steps ended by a host
    read of the loss; fwd+bwd camera Mrays/s, peak memory, K4's device time
-   and the device's busy share under torch.profiler. Every counter is
+   (its image, fold and fused kernels) and the device's busy share under
+   torch.profiler. Every counter is
    zeroed before and read after: K4 must run, K1-K3 and K5 must not;
    untrained rows exactly unmoved, trained ones moved, all finite.
 17. Routing on the card: fit(engine="auto") on a 17-sphere scene, with and
@@ -214,6 +224,44 @@ OPS_K5_ADJ = 262
 OPS_K5_SPH_SURR = 155
 OPS_K5_QUAD_SURR = 350
 K5_BYTES_PER_PIXEL = 24          # target in, image out
+# Edge shapes of the fused kernels' loops (phases 12 and 15): label,
+# image size (a window of the cell's camera), launch arguments (spp = the
+# shipped k + 1 where left out), and the chunk's k for the launch (None:
+# the shipped one; 1 and 2 make many chunks of a few samples).
+FUSED_EDGES = [
+    ("spp=1", (64, 48), dict(spp=1, max_bounces=4), None),
+    ("spp=k+1 at offset 3", (64, 48), dict(max_bounces=4, spp_offset=3),
+     None),
+    ("spp=5 at offset 3, k=1", (64, 48), dict(spp=5, max_bounces=4,
+                                              spp_offset=3), 1),
+    ("spp=5 at offset 3, k=2", (64, 48), dict(spp=5, max_bounces=4,
+                                              spp_offset=3), 2),
+    ("max_bounces=1", (64, 48), dict(spp=2, max_bounces=1), None),
+    ("61x37", (61, 37), dict(spp=2, max_bounces=4), None),
+]
+# The image kernel's sample split with parts of several samples (phases
+# 12 and 15): SPLIT_EDGE_SPP samples over an image just under one wave of
+# the image kernel, sized from its occupancy to split into at most
+# SPLIT_EDGE_PARTS parts (csrc/diff_common.cuh image_thread, s0..s1).
+SPLIT_EDGE_SPP = 12
+SPLIT_EDGE_PARTS = 5
+SPLIT_EDGE_WIDTH = 320
+# Vote-latched loops of each fused-kernel variant (csrc/diff_common.cuh
+# diff_thread): stage R, stage A and the chunk loop around them. Each
+# image kernel (image_thread, phase 1) has one.
+DIFF_VOTE_LOOPS = 3
+# Back edges of each kernel that are not its vote-latched loops: walks
+# over sphere, quad, light and surrogate rows, the table loads and the
+# fixed-order sums, read off the SASS of the shipped build. NEE adds the
+# shadow ray's and the light's walks, the silhouette its row walks. A
+# sample or bounce loop rebuilt on a thread's own counters would add one.
+PLAIN_BACK_EDGES = {"flat_kernel": 8, "packed_kernel": 7, "K5": 24,
+                    "K4": 22, "K5 image": 8, "K4 image": 8}
+PLAIN_BACK_EDGES_NEE = {"K5": 6, "K4": 6, "K5 image": 2, "K4 image": 2}
+PLAIN_BACK_EDGES_SIL = {"K5": 2, "K4": 2}
+# The K5 lane model at cfg5f reads every K5_LANE_EVERY-th warp of the
+# image (the twin's phase 1 at spp=200).
+K5_LANE_EVERY = 16
 # K4 (csrc/diffkernel.cu) runs K5's estimator (csrc/diff_common.cuh), so
 # the same counts hold, with two more read off the source: the light
 # sample inside OPS_K5_SHADE (skipped in a scene without lights, as is
@@ -257,20 +305,82 @@ def build_phase(build):
         build.load(fmad=fmad)
         dt = time.perf_counter() - t0
         log(f"[build] fmad={fmad}: {path.name} in {dt:.1f}s")
-        for line in path.with_suffix(".log").read_text().splitlines():
+        text = path.with_suffix(".log").read_text()
+        name = ""
+        for line in text.splitlines():
+            if "Compiling" in line:
+                name = line
+            if _diff_kernel_kind(name):
+                continue
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+        for (kernel, flags), (regs, st, ld) in sorted(ptxas_diff(
+                text).items()):
+            log(f"[build]   {kernel} nee/sil/met/die {flags}: {regs} "
+                f"registers, spills {st} B stored, {ld} B loaded")
+
+
+def vote_loops(ins):
+    """Loops of a kernel's SASS (`ins`: (address, instruction) pairs) that
+    end on a warp vote: a backward branch taken on the predicate a
+    VOTE.ANY set a few instructions before it, directly or through an
+    ISETP of the vote's register (the loop's test at its bottom), or an
+    unconditional backward branch to a header that votes before any
+    other branch (the test at the top; BRA.DIV, the divergent fallback of
+    the vote, does not count as a branch). Returns their count and the
+    count of all backward branches."""
+    import re
+    addrs = [int(a, 16) for a, _ in ins]
+    at = {a: i for i, a in enumerate(addrs)}
+    branch = re.compile(r"^(@!?P\d\s+)?BRA(?!\.DIV)\b|\bEXIT\b|\bRET\b")
+    votes = back = 0
+    for i, (_, x) in enumerate(ins):
+        m = re.search(r"^(?:@(!?)(P\d)\s+)?BRA (?:\S+, )?0x([0-9a-f]+)",
+                      x.strip())
+        if not m or int(m.group(3), 16) >= addrs[i]:
+            continue
+        back += 1
+        if m.group(2):      # conditional: set by a vote just before?
+            preds = {m.group(2)}
+            for j in range(i - 1, max(i - 13, -1), -1):
+                y = ins[j][1].strip()
+                if branch.search(y):
+                    break
+                v = re.search(r"VOTE\.ANY (\w+),", y)
+                if v:
+                    votes += v.group(1) in preds
+                    break
+                d = re.search(r"ISETP\S* (P\d), \w+, (R\d+)", y)
+                if d and d.group(1) in preds:
+                    preds.add(d.group(2))
+            continue
+        j = at.get(int(m.group(3), 16))
+        for k in range(j, min(j + 16, len(ins))) if j is not None else ():
+            if "VOTE.ANY" in ins[k][1]:
+                votes += 1
+                break
+            if branch.search(ins[k][1].strip()):
+                break
+    return votes, back
 
 
 def sass_phase(build):
     """Disassembles the shipped library (cuobjdump -sass, written to
-    output/forward_sass.txt) and checks the sampler's loop in each forward
-    kernel: its back edge must be a branch taken on a warp vote
-    (VOTE.ANY), the loop csrc/common.cuh writes; a compiler that rebuilt
-    a bounce loop inside a sample loop would branch back on a thread's own
-    counters. Prints each kernel's instructions and 128-bit row loads
-    (read-only global, shared): a sphere-row walk copied into each branch
-    of the sampler would show as twice the loads."""
+    output/forward_sass.txt; a kernel that fails the check also to
+    output/sass_unvoted_<n>.txt) and checks the per-lane regeneration
+    loops:
+    each must end on a warp vote (VOTE.ANY, vote_loops), the loops
+    csrc/common.cuh and csrc/diff_common.cuh write; a compiler that
+    rebuilt a bounce loop inside a sample loop would branch back on a
+    thread's own counters. Each forward kernel (K1, K2) and each image
+    kernel of K5 and K4 (phase 1) has one such loop; each variant of the
+    fused kernels has DIFF_VOTE_LOOPS: the replay and the adjoint stages,
+    and the chunk loop around them. Every other back edge is one of the
+    kernel's row walks, as many as PLAIN_BACK_EDGES counts: one more is a
+    loop rebuilt on a thread's own counters beside the vote-latched ones.
+    Prints each kernel's instructions and 128-bit loads (read-only
+    global, shared): a sphere-row walk copied into each branch of the
+    sampler would show as twice the loads."""
     import re
     lib = build.library_path(fmad=False)
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -279,27 +389,40 @@ def sass_phase(build):
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "forward_sass.txt"), "w") as f:
         f.write(sass)
-    out = {}
+    out, bad = {}, []
     for part in sass.split("Function : ")[1:]:
         name = part.split()[0]
-        if "flat_kernel" not in name and "packed_kernel" not in name:
+        kind = _diff_kernel_kind(name)
+        if not kind:
+            kind = next((k for k in ("flat_kernel", "packed_kernel")
+                         if k in name), None)
+        if not kind:
             continue
+        want = DIFF_VOTE_LOOPS if kind in ("K5", "K4") else 1
+        plain = PLAIN_BACK_EDGES[kind]
+        if kind in PLAIN_BACK_EDGES_NEE:
+            nee, sil = (x == "1" for x in re.search(
+                r"FlagsILb(\d)ELb(\d)E", name).groups())
+            plain += (nee * PLAIN_BACK_EDGES_NEE[kind]
+                      + sil * PLAIN_BACK_EDGES_SIL.get(kind, 0))
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
         ldg = sum("LDG.E.128.CONSTANT" in x for _, x in ins)
         lds = sum("LDS.128" in x for _, x in ins)
-        vote_back = 0
-        for (_, a), (addr, b) in zip(ins, ins[1:]):
-            m = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", b)
-            if "VOTE.ANY" in a and m and int(m.group(1), 16) < int(addr, 16):
-                vote_back += 1
+        votes, back = vote_loops(ins)
         out[name] = dict(instructions=len(ins), ldg128=ldg, lds128=lds,
-                         vote_back_edges=vote_back)
+                         vote_loops=votes, back_edges=back)
         log(f"[sass] {name}: {len(ins)} instructions, 128-bit loads: "
-            f"{ldg} read-only global, {lds} shared; back edges on a warp "
-            f"vote: {vote_back}")
-        if vote_back != 1:
-            raise RuntimeError(f"{name}: the sampler's loop does not branch "
-                               "back on a warp vote")
+            f"{ldg} read-only global, {lds} shared; loops ending on a warp "
+            f"vote: {votes} (want {want}) of {back} back edges (want "
+            f"{want + plain})")
+        if votes != want or back - votes != plain:
+            bad.append(name)
+            with open(os.path.join(ROOT, "output",
+                                   f"sass_unvoted_{len(bad)}.txt"), "w") as f:
+                f.write(part)
+    if bad:
+        raise RuntimeError(f"{bad}: a regeneration loop does not end on a "
+                           "warp vote, or another loop was added")
     return out
 
 
@@ -1273,6 +1396,318 @@ def twin_segments(dkp, fn):
     return out, n[0]
 
 
+# The lane model of the fused kernels K5 and K4: the share of warp lanes
+# their loops keep busy, from the twin's live bounces of every (pixel,
+# sample), for the lockstep loops they had and the regeneration loops and
+# chunked stages they run (csrc/diff_common.cuh).
+WARP = 32
+
+
+def lane_use(lens, max_bounces, ks=(8, 16, 32), stage_ops=None):
+    """Share of warp-lane passes on a live bounce, from the live-bounce
+    count of every (pixel, sample) (`lens`, (pixels, spp), pixels in id
+    order; a warp is 32 consecutive pixels, as in the kernels' rounds).
+
+    - "lockstep": a warp runs each sample until its longest path ends
+      (phase 1 and, per stage, phase 3 of the kernels before per-lane
+      regeneration);
+    - "phase1": per-lane regeneration, a warp runs as many passes as its
+      busiest lane's bounces over all samples;
+    - "phase3_k<k>": chunks of k x max_bounces slots, each chunk a stage R
+      and a stage A of as many passes as the warp's fullest lane holds;
+    - with `stage_ops` = (replay, adjoint) operations per live bounce,
+      "phase3_mixed": replay and adjoint in one regeneration loop, each
+      lane replaying a sample and then walking it back; a pass costs the
+      replay's operations if any lane replays and the adjoint's if any
+      lane walks back, both when the lanes are split.
+    Returns those shares and the sums they come from."""
+    import torch
+    lens = lens.to(torch.int64)
+    npix, spp = lens.shape
+    pad = (-npix) % WARP
+    if pad:
+        lens = torch.cat([lens, lens.new_zeros((pad, spp))])
+    w = lens.view(-1, WARP, spp)
+    live = int(lens.sum())
+    lock = int(w.amax(1).sum())
+    regen = int(w.sum(2).amax(1).sum())
+    out = {"live": live, "lockstep_passes": lock, "phase1_passes": regen,
+           "lockstep": live / max(WARP * lock, 1),
+           "phase1": live / max(WARP * regen, 1)}
+    for k in ks:
+        passes = int(chunk_fill(lens, max_bounces, k * max_bounces).view(
+            -1, WARP, spp).amax(1).sum())
+        out[f"phase3_k{k}_passes"] = passes
+        out[f"phase3_k{k}"] = live / max(WARP * passes, 1)
+    if stage_ops is not None:
+        r_ops, a_ops = stage_ops
+        busy_r, busy_a = mixed_stage_passes(w)
+        cost = r_ops * busy_r + a_ops * busy_a
+        out["phase3_mixed"] = live * (r_ops + a_ops) / max(WARP * cost, 1)
+    return out
+
+
+def mixed_stage_passes(w):
+    """Warp passes with a lane in the replay and with a lane in the
+    adjoint, for warps `w` ((warps, 32, spp) live bounces) whose lanes
+    each run, sample by sample, len passes of replay then len of adjoint
+    in one loop."""
+    import torch
+    nw, _, spp = w.shape
+    runs = w.repeat_interleave(2, dim=2)             # R, A, R, A, ...
+    end = runs.cumsum(2)
+    start = end - runs
+    horizon = int(end.max()) + 1
+    warp = torch.arange(nw)[:, None, None].expand_as(runs)
+    busy = []
+    for stage in (0, 1):
+        sl = slice(stage, None, 2)
+        diff = torch.zeros((nw, horizon + 1), dtype=torch.int64)
+        diff.index_put_((warp[..., sl].flatten(), start[..., sl].flatten()),
+                        torch.ones(1, dtype=torch.int64).expand(
+                            start[..., sl].numel()), accumulate=True)
+        diff.index_put_((warp[..., sl].flatten(), end[..., sl].flatten()),
+                        -torch.ones(1, dtype=torch.int64).expand(
+                            end[..., sl].numel()), accumulate=True)
+        busy.append(int((diff.cumsum(1) > 0).sum()))
+    return busy[0], busy[1]
+
+
+def chunk_fill(lens, max_bounces, slots):
+    """Slots each lane fills in each of its chunks ((pixels, spp): chunk c
+    in column c, zero past the last), by the kernels' rule: a chunk starts
+    empty and takes the next sample while max_bounces more slots fit."""
+    import torch
+    npix, spp = lens.shape
+    fill = torch.zeros_like(lens)
+    off = torch.zeros(npix, dtype=lens.dtype, device=lens.device)
+    ch = torch.zeros(npix, dtype=torch.int64, device=lens.device)
+    for s in range(spp):
+        new = (off + max_bounces > slots) & (off > 0)
+        ch = ch + new.long()
+        off = torch.where(new, torch.zeros_like(off), off) + lens[:, s]
+        fill.scatter_(1, ch[:, None], off[:, None])
+    return fill
+
+
+def live_bounces(dkp, tab, cam, spec, *, width, pid, spp, max_bounces,
+                 seed=0, spp_offset=0):
+    """Live bounces of each (pixel, sample) of the pixels `pid` (ids in a
+    row-major image `width` wide): (len(pid), spp) int64, the twin's phase
+    1 without its colour. These are the bounces the kernels trace, replay
+    and walk back per sample (lane_use models their warps from them)."""
+    import torch
+    tw = dkp._Twin(tab, cam, spec, seed)
+    tw.set_pixels(pid, width)
+    one = torch.ones(pid.shape[0], dtype=torch.float32, device=tab.device)
+    zero = torch.zeros_like(one)
+    lens = torch.zeros((pid.shape[0], spp), dtype=torch.int64,
+                       device=tab.device)
+    for s in range(spp):
+        samp = (spp_offset + s) & dkp._MASK
+        st = (*tw.camera_ray(samp), one, one, one, one, zero)
+        for b in range(max_bounces):
+            live = st[9] > 0.5
+            if not bool(live.any()):
+                break
+            lens[:, s] += live.long()
+            best, hit, wf = tw.closest_hit(*st[:6])
+            g = tw.shade(samp, b, st, best, hit, wf)
+            st = tuple(torch.where(live, a2, a)
+                       for a2, a in zip(tw.advance(g, st), st))
+    return lens
+
+
+def _diff_kernel_kind(name):
+    """"K5", "K4", "K5 image", "K4 image" for a fused kernel's (mangled)
+    name, else None."""
+    if "image_kernel" in name:
+        return "K4 image" if "classic_image_kernel" in name else "K5 image"
+    if "diff_kernel" in name:
+        return "K5"
+    return "K4" if "classic_kernel" in name else None
+
+
+def ptxas_diff(log_text):
+    """Registers and spills of each fused-kernel variant from a build's
+    `nvcc -Xptxas -v` log: {(kernel "K5"/"K4"/"K5 image"/"K4 image",
+    (nee, sil, met, die)): (registers, spill store bytes, spill load
+    bytes)}."""
+    import re
+    out, name, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        kind = name and _diff_kernel_kind(name)
+        if m and kind:
+            f = re.search(r"ILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            out[(kind, tuple(bool(int(x)) for x in f.groups()))] = (
+                int(m.group(1)), *spills)
+            name = None
+    return out
+
+
+def diff_lane_model(torch, dkp, ds, tab, cvec, spec, width, height, spp, mb,
+                    per_seg_fwd, per_seg_bwd, every=1, seed=0):
+    """The lane model of K5/K4 (lane_use) from the twin's
+    live bounces of every (pixel, sample) of every `every`-th warp:
+    lockstep sample and bounce loops against phase 1's regeneration,
+    phase 3's chunks at k = 8, 16, 32 and phase 3 as one loop of mixed
+    replay and adjoint passes; and the ratio of warp passes, weighting
+    each pass by its operations (phase 1: per_seg_fwd, phase 3:
+    per_seg_bwd per live bounce, of which the replay is phase 1's without
+    the colour), lockstep over the shipped k."""
+    npix = width * height
+    warps = torch.arange(0, -(-npix // 32), every, device=tab.device)
+    pid = (warps[:, None] * 32 + torch.arange(32, device=tab.device)).flatten()
+    pid = pid[pid < npix]
+    lens = live_bounces(dkp, tab, cvec, spec, width=width, pid=pid, spp=spp,
+                        max_bounces=mb, seed=seed)
+    replay = per_seg_fwd - OPS_K5_COLOR
+    u = lane_use(lens.cpu(), mb, stage_ops=(replay, per_seg_bwd - replay))
+    k = ds.CHUNK_SAMPLES
+    lock = per_seg_fwd / u["lockstep"] + per_seg_bwd / u["lockstep"]
+    new = per_seg_fwd / u["phase1"] + per_seg_bwd / u[f"phase3_k{k}"]
+    u["pass_ratio"] = lock / new
+    u["pixels"] = int(pid.numel())
+    return u
+
+
+def _lane_line(u):
+    return (f"lane use lockstep {u['lockstep']:.1%}, phase 1 regen "
+            f"{u['phase1']:.1%}, phase 3 chunks k=8 {u['phase3_k8']:.1%} "
+            f"k=16 {u['phase3_k16']:.1%} k=32 {u['phase3_k32']:.1%}, "
+            f"phase 3 as one mixed loop {u['phase3_mixed']:.1%}; "
+            f"op-weighted warp passes lockstep / new {u['pass_ratio']:.2f}x "
+            f"({u['pixels']} pixels, {u['live']} live bounces)")
+
+
+def _diff_launch_info(torch, dk, dkp, ds, build, kernel, spec, nw, npix,
+                      spp, mb):
+    """Registers, spills, blocks per SM, grid and chunk of the variant a
+    K5/K4 launch of `spec` takes on this card, and of its image kernel."""
+    lib = build.load()
+    flags = ds.variant_flags(spec)
+    regs = ptxas_diff(build.library_path().with_suffix(".log").read_text())
+    dev = torch.cuda.current_device()
+    if kernel == "K5":
+        plan, shared = dkp.k5_plan(lib, flags, nw, spec.acc_width, npix, mb)
+        per_sm = dkp._occupancy(lib, "packed", flags, nw, spec.acc_width,
+                                shared, False, dev)[0]
+    else:
+        shared = False
+        per_sm, sms = dkp._occupancy(lib, "classic", flags, 0, 0, False,
+                                     False, dev)
+        plan = ds.plan(npix, per_sm, sms, mb, cols_per_thread=spec.acc_width,
+                       max_cols=dk.DIFF_CLASSIC_MAX_COLS)
+    kern = "packed" if kernel == "K5" else "classic"
+    split = dkp.image_plan(lib, kern, flags, nw, npix, spp)
+    img_sm = dkp._occupancy(lib, kern, flags, nw, 0, False, True, dev)[0]
+    r, st, ld = regs.get((kernel, flags), (None, None, None))
+    ri, sti, ldi = regs.get((f"{kernel} image", flags), (None, None, None))
+    return dict(flags=dict(zip(("nee", "sil", "met", "die"), flags)),
+                registers=r, spill_stores=st, spill_loads=ld,
+                blocks_per_sm=per_sm, blocks=plan.blocks,
+                rounds=plan.rounds, k=ds.CHUNK_SAMPLES, slots=plan.slots,
+                saves_bytes=plan.saves_floats * 4, shared_acc=shared,
+                image_split=split,
+                image_registers=ri, image_spills=(sti, ldi),
+                image_blocks_per_sm=img_sm)
+
+
+def split_edge(torch, dkp, ds, kernel, spec, nw):
+    """The edge of the image kernel's sample split with parts of several
+    samples: (label, (width, height), launch arguments, None), the height
+    chosen from the image kernel's occupancy on this card so that the
+    launch splits SPLIT_EDGE_SPP samples into more than one part and at
+    most SPLIT_EDGE_PARTS."""
+    from tinyraytracer_tpu_torch import _build
+    kern = "packed" if kernel == "K5" else "classic"
+    flags = ds.variant_flags(spec)
+    per_sm, sms = dkp._occupancy(_build.load(), kern, flags, nw, 0, False,
+                                 True, torch.cuda.current_device())
+    blocks = -(-ds.SPLIT_WAVES * per_sm * sms // SPLIT_EDGE_PARTS)
+    w = SPLIT_EDGE_WIDTH
+    h = -(-blocks * ds.BLOCK // w)
+    split = dkp.image_plan(_build.load(), kern, flags, nw, w * h,
+                           SPLIT_EDGE_SPP)
+    if not 1 < split <= SPLIT_EDGE_PARTS < SPLIT_EDGE_SPP:
+        raise RuntimeError(f"{kernel}: the split edge {w}x{h} splits "
+                           f"{SPLIT_EDGE_SPP} samples into {split} parts")
+    return (f"image split {split} of spp={SPLIT_EDGE_SPP}", (w, h),
+            dict(spp=SPLIT_EDGE_SPP, max_bounces=4, spp_offset=3), None)
+
+
+def fused_edges(torch, dkp, ds, kernel, fn, label, tab, cvec, tgt, spec):
+    """K5 or K4 (`fn`) against the twin at FUSED_EDGES and split_edge: the
+    image bit for bit, the tables within TABLE_RTOL, two launches bit for
+    bit. An edge takes the first pixels of `tgt`, or a seeded random
+    target when it is larger. Returns the largest table error, absolute
+    and relative."""
+    worst_abs, worst_rel = 0.0, 0.0
+    shipped = ds.CHUNK_SAMPLES
+    nw = tab.numel() if kernel == "K5" else 0
+    for edge, (w, h), args, k in [*FUSED_EDGES, split_edge(
+            torch, dkp, ds, kernel, spec, nw)]:
+        if k is not None:
+            ds.CHUNK_SAMPLES = k
+        if "spp" not in args:       # spp = k + 1 of the shipped k
+            args = dict(args, spp=shipped + 1)
+        try:
+            sub = cvec.clone()
+            sub[23] = float(w * h)
+            if w * h <= tgt[..., 0].numel():
+                t = tgt.reshape(-1, 3)[: w * h].reshape(h, w, 3)
+            else:
+                t = torch.rand((h, w, 3), device=tgt.device,
+                               generator=torch.Generator(
+                                   tgt.device).manual_seed(7))
+            t = t.contiguous()
+            kw = dict(spec=spec, width=w, height=h, seed=3, **args)
+            got = fn(tab, sub, t, **kw)
+            again = fn(tab, sub, t, **kw)
+            want = dkp.packed_diff_reference(tab, sub, t, **kw)
+        finally:
+            ds.CHUNK_SAMPLES = shipped
+        det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, again))
+        img_eq = torch.equal(got[0], want[0])
+        rels, d = _tables_rel(torch, got, want)
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, max(rels.values()))
+        log(f"[{kernel.lower()}] {label}, edge {edge} ({w}x{h}, "
+            f"{', '.join(f'{a}={v}' for a, v in args.items())}"
+            + (f", k={k}" if k is not None else "")
+            + f"): image bitwise {img_eq}; tables within "
+            f"{max(rels.values()):.3g} (allowed {dkp.TABLE_RTOL:g}); two "
+            f"launches bit for bit {det}")
+        if not (img_eq and det) or max(rels.values()) > dkp.TABLE_RTOL:
+            raise RuntimeError(f"{kernel} {label} edge {edge}: disagrees "
+                               "with its twin or is not deterministic")
+    return worst_abs, worst_rel
+
+
+def per_seg_split(spec):
+    """Operations per live bounce of K5's phase 1 (trace, shade, shadow,
+    colour, advance) and of its phase 3 (replay and adjoint), as k5_bound
+    counts them."""
+    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
+    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
+                            - shade_ops(False, False))
+    fwd = 2 * rows + shade + OPS_K5_SHADOW + OPS_K5_ADVANCE
+    bwd = (fwd + shade + OPS_K5_ADJ + len(spec.surr_s) * OPS_K5_SPH_SURR
+           + len(spec.surr_q) * OPS_K5_QUAD_SURR)
+    return fwd + OPS_K5_COLOR, bwd
+
+
 def k5_bound(spec, pixels, spp, segments):
     """Least time (ms) of one K5 call and what bounds it."""
     rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
@@ -1384,14 +1819,31 @@ def k5_phase(torch, np, presets, dkp, card):
     if not (same and det) or max(rels.values()) > dkp.TABLE_RTOL:
         raise RuntimeError("cfg5 shape: K5 disagrees with its twin or is "
                            "not deterministic")
+    from tinyraytracer_tpu_torch import _build
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    e_abs, e_rel = fused_edges(torch, dkp, ds, "K5", dkp.packed_diff,
+                               "cornell_spheres class scope", tab, cvec, tgt,
+                               spec)
+    info = _diff_launch_info(torch, dk, dkp, ds, _build, "K5", spec,
+                             tab.numel(), w * h, spp, mb)
+    fwd_ops = per_seg_split(spec)[0]
+    lanes = diff_lane_model(torch, dkp, ds, tab, cvec, spec, w, h, spp, mb,
+                            fwd_ops, per_seg - fwd_ops,
+                            every=K5_LANE_EVERY)
+    log(f"[k5] cfg5f launch: {info}; over twice the resident threads at "
+        f"the cfg5 shape: {info['rounds']} pixels per thread")
+    log(f"[k5] cfg5f lane model (twin, every {K5_LANE_EVERY}th warp, "
+        f"spp={spp}): {_lane_line(lanes)}")
     return dict(ms=ms, plain_ms=plain_ms, ms_at_plain_shape=ms_twin_shape,
                 plain_shape=f"{w}x{h} spp={twin_spp} mb={mb}",
                 bound_ms=b_ms, bound_by=b_by, bound_ops=ops,
                 ops_per_segment=per_seg,
                 segments_per_ray=segs / (w * h),
-                max_abs_err=max(worst_abs, cfg5_abs),
+                max_abs_err=max(worst_abs, cfg5_abs, e_abs),
                 max_abs_err_cfg5_shape=cfg5_abs,
-                max_rel_err=max(worst_rel, max(rels.values())))
+                max_rel_err=max(worst_rel, max(rels.values()), e_rel),
+                launch=info, lanes=lanes)
 
 
 def _k5_setup(torch, dkp, scene, camera, background, flags):
@@ -1404,10 +1856,10 @@ def _k5_setup(torch, dkp, scene, camera, background, flags):
     return tab, cvec, spec
 
 
-def k4_bound(spec, pixels, spp, segments):
-    """Least time (ms) of one K4 call and what bounds it: K5's counts,
-    without the light sample, shadow ray and soft shadows in a scene
-    without lights (the K4 surrogate rows are the scope's)."""
+def k4_fwd_ops(spec):
+    """(operations of a live bounce's trace, shade and advance in K4, its
+    shade alone): K5's counts, without the light sample and shadow ray in
+    a scene without lights."""
     lit = spec.nee and spec.n_lights > 0
     rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
     shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
@@ -1415,6 +1867,15 @@ def k4_bound(spec, pixels, spp, segments):
     if not lit:
         shade -= OPS_K5_LIGHT
     fwd = (2 * rows + OPS_K5_SHADOW if lit else rows) + shade + OPS_K5_ADVANCE
+    return fwd, shade
+
+
+def k4_bound(spec, pixels, spp, segments):
+    """Least time (ms) of one K4 call and what bounds it: K5's counts,
+    without the light sample, shadow ray and soft shadows in a scene
+    without lights (the K4 surrogate rows are the scope's)."""
+    lit = spec.nee and spec.n_lights > 0
+    fwd, shade = k4_fwd_ops(spec)
     per_sph = OPS_K5_SPH_SURR if lit else (OPS_K4_SPH_SIL if spec.sil
                                            else 0)
     per_quad = OPS_K5_QUAD_SURR if lit or spec.sil else 0
@@ -1522,9 +1983,19 @@ def k4_phase(torch, np, presets, dk, dkp, card):
         check(f"random_spheres n=40 + lamp 32x24 spp=2 mb=4, {scope} "
               f"scope", dict(spec=spec, width=32, height=24, spp=2,
                              max_bounces=4, seed=3), tab, cvec, tgt)
+    from tinyraytracer_tpu_torch import _build
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+    world, cam = lit_spheres(presets, 40, 64, 48)
+    tab, cvec, tgt, spec = _k4_inputs(torch, np, dkp, world.build(), cam,
+                                      LIT_BG, (0, 5, n_sph - 1), True)
+    e_abs, e_rel = fused_edges(torch, dkp, ds, "K4", dk.classic_diff,
+                               "random_spheres n=40 + lamp, subset scope",
+                               tab, cvec, tgt, spec)
+    worst["abs"] = max(worst["abs"], e_abs)
+    worst["rel"] = max(worst["rel"], e_rel)
 
-    # bench.py's cfg4-class shape: the kernel at the cell's spp, kernel
-    # and twin at spp=1
+    # bench.py's cfg4-class shape: the kernel timed at the cell's spp and
+    # at spp=1, and held against the twin at both
     w, h, mb, spp = (CFG4C["width"], CFG4C["height"], CFG4C["max_bounces"],
                      CFG4C["spp"])
     world, cam, kw = presets.random_spheres(width=w, height=h, n=CFG4C["n"])
@@ -1543,15 +2014,26 @@ def k4_phase(torch, np, presets, dk, dkp, card):
         (_, segs), plain_ms = time_once(torch, lambda: twin_segments(
             dkp, lambda: dkp.packed_diff_reference(
                 tab, cvec, tgt, spp=1, pixel_chunk=chunk, **args)))
-        check(f"{cell} shape {w}x{h} spp=1 mb={mb} ({spec.n_sph} spheres, "
-              f"{len(spec.surr_s)} surrogate rows, na {spec.acc_width})",
-              dict(args, spp=1), tab, cvec, tgt,
-              twin_args=dict(args, spp=1, pixel_chunk=chunk))
+        info = _diff_launch_info(torch, dk, dkp, ds, _build, "K4", spec, 0,
+                                 w * h, spp, mb)
+        for s in (1, spp):      # the cell's spp splits the image kernel
+            check(f"{cell} shape {w}x{h} spp={s} mb={mb} ({spec.n_sph} "
+                  f"spheres, {len(spec.surr_s)} surrogate rows, na "
+                  f"{spec.acc_width}, image split "
+                  f"{info['image_split'] if s == spp else 1})",
+                  dict(args, spp=s), tab, cvec, tgt,
+                  twin_args=dict(args, spp=s, pixel_chunk=chunk))
         b_ms, b_by, ops, per_seg = k4_bound(spec, w * h, spp, segs * spp)
+        fwd_ops = k4_fwd_ops(spec)[0] + OPS_K5_COLOR
+        lanes = diff_lane_model(torch, dkp, ds, tab, cvec, spec, w, h, spp,
+                                mb, fwd_ops, per_seg - fwd_ops)
+        log(f"[k4] {cell} launch: {info}")
+        log(f"[k4] {cell} lane model (twin, spp={spp}): {_lane_line(lanes)}")
         rec[cell] = dict(ms=ms, ms_spp1=ms1, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, bound_ops=ops,
                          ops_per_segment=per_seg,
-                         segments_per_ray=segs / (w * h))
+                         segments_per_ray=segs / (w * h), launch=info,
+                         lanes=lanes)
         log(f"[k4] {cell} {w}x{h} mb={mb}: K4 {ms:.3f} ms at spp={spp}, "
             f"{ms1:.3f} ms at spp=1; twin {plain_ms:.1f} ms at spp=1 "
             f"({plain_ms / ms1:.1f}x); {segs / (w * h):.4f} live bounces "
@@ -1673,7 +2155,9 @@ def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()]
     busy_ms = sum(ms for _, ms, _ in rows)
-    k5_ms = sum(ms for n, ms, _ in rows if "diff_kernel" in n)
+    k5_ms = sum(ms for n, ms, _ in rows
+                if _diff_kernel_kind(n) in ("K5", "K5 image")
+                or "fold_kernel" in n)
     red_ms = sum(ms for n, ms, _ in rows if "reduce_kernel" in n)
     step_s = min(times)
     ok = (bad["loss"] == 0 and bad["grads"] == 0 and math.isfinite(loss)
@@ -1780,7 +2264,9 @@ def cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card):
         ev = [(e.key, e.self_device_time_total / 1e3, e.count)
               for e in prof.key_averages()]
         busy_ms = sum(ms for _, ms, _ in ev)
-        k4_ms = sum(ms for n, ms, _ in ev if "classic_kernel" in n)
+        k4_ms = sum(ms for n, ms, _ in ev
+                    if _diff_kernel_kind(n) in ("K4", "K4 image")
+                    or "fold_kernel" in n)
         red_ms = sum(ms for n, ms, _ in ev if "classic_reduce" in n)
         step_s = min(times)
         ok = (bad["loss"] == 0 and bad["grads"] == 0 and math.isfinite(loss)
@@ -1904,7 +2390,8 @@ def main(argv=None) -> int:
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
-                    "cfg4f (16-17); the result lines need all of them")
+                    "cfg4f (16-17); the result lines need the default "
+                    "set")
     only = ap.parse_args(argv).only.split(",")
     import numpy as np
     import torch

@@ -73,7 +73,8 @@ def test_declare_types_every_exported_function():
 
     names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
              "tinyrt_closest_hit", "tinyrt_diff_packed",
-             "tinyrt_diff_classic", "tinyrt_diff_classic_blocks",
+             "tinyrt_diff_classic", "tinyrt_diff_packed_occupancy",
+             "tinyrt_diff_classic_occupancy",
              "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
              "tinyrt_fold_samples", "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
@@ -103,19 +104,22 @@ def test_declare_types_every_exported_function():
     assert [k for k, t in enumerate(k3) if t is ctypes.c_longlong] == [
         1, 2, 4, 5]
     k5 = lib.tinyrt_diff_packed.argtypes
-    assert len(k5) == 27
+    assert len(k5) == 32
     assert [k for k, t in enumerate(k5) if t is p] == [0, 1, 8, 9, 10, 11,
-                                                       12, 26]
+                                                       12, 30, 31]
     assert k5[15] is k5[16] is ctypes.c_uint and k5[19] is ctypes.c_float
     k4 = lib.tinyrt_diff_classic.argtypes
-    assert len(k4) == 30
+    assert len(k4) == 33
     assert [k for k, t in enumerate(k4) if t is p] == [0, 1, 7, 9, 11, 12,
-                                                       13, 14, 15, 16, 29]
-    assert k4[20] is k4[21] is ctypes.c_uint and k4[24] is ctypes.c_float
-    blocks = lib.tinyrt_diff_classic_blocks.argtypes
-    assert blocks[2] is ctypes.c_longlong
-    assert blocks[3] is ctypes.POINTER(ctypes.c_int)
-    for n in names[:9]:
+                                                       13, 14, 15, 16, 31,
+                                                       32]
+    assert k4[21] is k4[22] is ctypes.c_uint and k4[25] is ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    occ5 = lib.tinyrt_diff_packed_occupancy.argtypes
+    assert occ5 == [ctypes.c_int] * 8 + [ip, ip]
+    occ4 = lib.tinyrt_diff_classic_occupancy.argtypes
+    assert occ4 == [ctypes.c_int] * 5 + [ip, ip]
+    for n in names[:10]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 

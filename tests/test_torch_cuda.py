@@ -440,3 +440,186 @@ def test_classic_diff_kernel_equals_packed_on_mixed(cuda):
         for a, b in zip(k4[1:], k5[1:]):
             scale = max(float(b.abs().max()), 1e-30)
             assert float((a - b).abs().max()) <= dkp.TABLE_RTOL * scale
+
+
+def _fused_inputs(dkp, scene, camera, bg, nee=True, sil=True, surr_sph=True,
+                  surr_quad=True, device="cuda"):
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        camera.height, camera.width, 3).astype(np.float32))
+    _, tab, cam, tgt, spec = dkp._inputs(scene.to(device), camera, target, bg,
+                                         None, nee, sil, surr_sph, surr_quad)
+    return tab, cam, tgt, spec
+
+
+def _fused_run(kernel, tab, cam, tgt, kw):
+    """Two launches of K5 or K4 and the twin: (got, again, want)."""
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    fn = dkp.packed_diff if kernel == "K5" else dk.classic_diff
+    before = fn.launches
+    got = fn(tab, cam, tgt, **kw)
+    again = fn(tab, cam, tgt, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    return got, again, dkp.packed_diff_reference(tab, cam, tgt, **kw)
+
+
+# Edge shapes of the fused kernels' loops: (label, width, height, launch
+# arguments, chunk samples k or None for the shipped one).
+FUSED_EDGES = [
+    ("spp=1", 32, 24, dict(spp=1, max_bounces=4), None),
+    ("spp=k+1 at offset 3", 32, 24, dict(spp=17, max_bounces=4,
+                                          spp_offset=3), 16),
+    ("spp=5 at offset 3, k=1 and 2", 32, 24, dict(spp=5, max_bounces=4,
+                                                  spp_offset=3), (1, 2)),
+    ("max_bounces=1", 32, 24, dict(spp=2, max_bounces=1), None),
+    ("61x37", 61, 37, dict(spp=2, max_bounces=4), None),
+    ("over twice the resident threads", 512, 288,
+     dict(spp=1, max_bounces=3), None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label, width, height, args, ks", FUSED_EDGES,
+                         ids=[e[0] for e in FUSED_EDGES])
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_fused_kernels_edge_shapes(cuda, monkeypatch, kernel, label, width,
+                                   height, args, ks):
+    """K5 (cornell_spheres, class scope) and K4 (random_spheres n=40 under
+    a lamp, a row subset) against their twin where the regeneration loops
+    and the chunked replay/adjoint can go wrong: the image bit for bit,
+    the tables within TABLE_RTOL, two launches bit for bit. The first
+    shape has fewer pixels than the grid has threads, the last gives a
+    thread at least three pixels."""
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    if kernel == "K5":
+        world, camera, kw = presets.cornell_spheres(width=width,
+                                                    height=height)
+        tab, cam, tgt, spec = _fused_inputs(dkp, world.build(), camera,
+                                            kw["background"],
+                                            surr_quad=False)
+    else:
+        scene, camera, bg = _lit_spheres(40, width, height)
+        n_sph = int(scene.sph_valid.sum())
+        tab, cam, tgt, spec = _fused_inputs(dkp, scene, camera, bg,
+                                            surr_sph=(0, 5, n_sph - 1))
+    kw = dict(spec=spec, width=width, height=height, seed=3, **args)
+    plans = []
+    real_plan = ds.plan
+
+    def recording_plan(*a, **k):
+        plans.append(real_plan(*a, **k))
+        return plans[-1]
+
+    monkeypatch.setattr(ds, "plan", recording_plan)
+    for k in ks if isinstance(ks, tuple) else (ks,):
+        if k is not None:
+            monkeypatch.setattr(ds, "CHUNK_SAMPLES", k)
+        got, again, want = _fused_run(kernel, tab, cam, tgt, kw)
+        _k4_check(dkp, got, want, again)
+    # the grids the launches took on this card
+    assert len(plans) == 2 * len(ks if isinstance(ks, tuple) else (ks,))
+    if label.startswith("over twice"):
+        assert min(p.rounds for p in plans) >= 3
+    else:
+        assert all(p.rounds == 1 for p in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_fused_kernels_image_split_parts_of_several_samples(cuda, kernel):
+    """K5 and K4 against their twin on an image just under one wave of
+    the image kernel, whose 12 samples split into at most 5 parts of
+    several samples each (csrc/diff_common.cuh image_thread): the image
+    bit for bit, the tables within TABLE_RTOL, two launches bit for bit.
+    The height comes from the image kernel's occupancy on this card."""
+    from tinyraytracer_tpu_torch import _build
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    spp, parts, width = 12, 5, 320
+
+    def inputs(height):
+        if kernel == "K5":
+            world, camera, kw = presets.cornell_spheres(width=width,
+                                                        height=height)
+            return _fused_inputs(dkp, world.build(), camera,
+                                 kw["background"], surr_quad=False)
+        scene, camera, bg = _lit_spheres(40, width, height)
+        return _fused_inputs(dkp, scene, camera, bg, surr_sph=(0, 5))
+
+    tab, _, _, spec = inputs(8)
+    kern, nw = ("packed", tab.numel()) if kernel == "K5" else ("classic", 0)
+    lib, flags = _build.load(), ds.variant_flags(spec)
+    per_sm, sms = dkp._occupancy(lib, kern, flags, nw, 0, False, True,
+                                 torch.cuda.current_device())
+    blocks = -(-ds.SPLIT_WAVES * per_sm * sms // parts)
+    height = -(-blocks * ds.BLOCK // width)
+    split = dkp.image_plan(lib, kern, flags, nw, width * height, spp)
+    assert 1 < split <= parts
+    tab, cam, tgt, spec = inputs(height)
+    kw = dict(spec=spec, width=width, height=height, spp=spp, max_bounces=4,
+              spp_offset=3, seed=3)
+    got, again, want = _fused_run(kernel, tab, cam, tgt, kw)
+    _k4_check(dkp, got, want, again)
+
+
+def _variant_world(met, die):
+    """mixed_materials (24x16) with its metal and glass spheres kept or
+    made diffuse: the four material combinations under a quad light."""
+    from tinyraytracer_tpu_torch.models.camera import Camera
+    from tinyraytracer_tpu_torch.models.geometry import Quad, Sphere
+    from tinyraytracer_tpu_torch.models.materials import (
+        Dielectric, Lambertian, Light, Metal)
+    from tinyraytracer_tpu_torch.models.world import World
+
+    world = World()
+    world.add_material("ground", Lambertian((0.6, 0.5, 0.4)))
+    world.add_material("met", Metal((0.8, 0.8, 0.9), 0.3) if met
+                       else Lambertian((0.8, 0.8, 0.9)))
+    world.add_material("glass", Dielectric((0.95, 0.95, 0.95), 1.5) if die
+                       else Lambertian((0.95, 0.95, 0.95)))
+    world.add_material("lamp", Light((10.0, 10.0, 10.0)))
+    world.add_geometry(Sphere((0.0, -100.5, -1.0), 100.0, "ground"))
+    world.add_geometry(Sphere((-0.7, 0.0, -1.2), 0.5, "met"))
+    world.add_geometry(Sphere((0.7, 0.0, -1.2), 0.5, "glass"))
+    world.add_geometry(Quad((-1.5, 2.0, -2.5), (3.0, 0.0, 0.0),
+                            (0.0, 0.0, 2.0), "lamp"))
+    camera = Camera.new(focus_distance=1.0, defocus_angle=0.0,
+                        position=(0.0, 0.3, 1.0), look_at=(0.0, 0.0, -1.0),
+                        up=(0.0, 1.0, 0.0), vertical_fov=60.0, width=24,
+                        height=16)
+    return world, camera
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("met, die", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_fused_kernels_every_variant(cuda, kernel, met, die):
+    """Each compiled switch combination (NEE, silhouette, metal,
+    dielectric) of K5 and K4 launched and held against the twin, with a
+    background colour and without one."""
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera = _variant_world(met, die)
+    seen = set()
+    for nee in (True, False):
+        for sil in (True, False):
+            for bg in ((0.05, 0.06, 0.08), (0.0, 0.0, 0.0)):
+                tab, cam, tgt, spec = _fused_inputs(dkp, world.build(),
+                                                    camera, bg, nee=nee,
+                                                    sil=sil)
+                assert (spec.has_met, spec.has_die) == (met, die)
+                kw = dict(spec=spec, width=24, height=16, spp=2,
+                          max_bounces=4, seed=5)
+                got, again, want = _fused_run(kernel, tab, cam, tgt, kw)
+                _k4_check(dkp, got, want, again)
+                seen.add(ds.variant_key(ds.variant_flags(spec)))
+    assert seen == {8 * n + 4 * s + 2 * met + die for n in (0, 1)
+                    for s in (0, 1)}
+

@@ -146,14 +146,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i
     fn = lib.tinyrt_diff_packed
     fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i, i, u, u, i, i,
-                   f, i, i, i, i, i, i, p]
+                   f, i, i, i, i, i, i, i, i, i, i, p, p]
     fn.restype = i
-    fn = lib.tinyrt_diff_classic_blocks
-    fn.argtypes = [i, i, ll, ctypes.POINTER(i)]
+    ip = ctypes.POINTER(i)
+    fn = lib.tinyrt_diff_packed_occupancy
+    fn.argtypes = [i, i, i, i, i, i, i, i, ip, ip]
+    fn.restype = i
+    fn = lib.tinyrt_diff_classic_occupancy
+    fn.argtypes = [i, i, i, i, i, ip, ip]
     fn.restype = i
     fn = lib.tinyrt_diff_classic
     fn.argtypes = [p, p, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, i, i, i,
-                   u, u, i, i, f, i, i, i, i, p]
+                   i, u, u, i, i, f, i, i, i, i, i, p, p]
     fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

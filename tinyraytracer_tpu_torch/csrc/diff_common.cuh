@@ -1,6 +1,7 @@
 // Device code shared by the fused differentiable kernels: K5
 // (diffkernel_packed.cu, the flat table in shared memory, class-level
-// surrogate scopes, a per-thread accumulator in local memory) and K4
+// surrogate scopes, a per-thread accumulator in shared or local memory)
+// and K4
 // (diffkernel.cu, the flat table in global memory, a row list per
 // surrogate class, a per-thread column of a global accumulator). Both run
 // the same estimator, function by function in the order of their plain
@@ -8,13 +9,21 @@
 // names each step after the TPU kernels' functions: shade, advance,
 // color_adds, shadow_vis, softshadow, quad_cov, silhouette, bounce_adj.
 //
-// What differs between the kernels is a template argument:
+// What differs between the kernels is a template argument or a pointer:
 //   Scope - which table rows carry surrogates: ClassScope (K5: rows
 //     0..n-1 of a class, or none) or RowScope (K4: a device list of rows
 //     per class: all, none or a subset);
-//   Acc - how a gradient term is added: LocalAcc (K5: a local array) or
-//     ColumnAcc (K4: the thread's column of a [na][threads] scratch).
-// The table pointer in Args is generic: shared or global memory.
+//   StridedAcc - where a thread's gradient terms go (shared, local or
+//     global memory, see there);
+//   the table pointer in Args: shared (K5) or global (K4) memory.
+// The estimator's switches (Flags: NEE, silhouette, metal, dielectric)
+// are template arguments too, so each combination compiles what it runs.
+//
+// Each kernel renders the NEE image first in an image kernel (image_thread:
+// a thread per pixel and sample part, at the registers phase 1 needs),
+// then runs on a grid that the card holds at once, each thread looping
+// over pixels with the replay and the adjoint in per-lane regeneration
+// loops (diff_thread), a chunk of its replay saved in its own slots.
 //
 // Numerics as common.cuh: built with --fmad=false, 1.0f/sqrtf for the
 // TPU's rsqrt, x2*x2*x for the fifth power, literals rounded as JAX rounds
@@ -34,7 +43,6 @@ constexpr int kMatOffS = 5;
 constexpr int kGeoOffQ = 12;
 constexpr int kMatOffQ = 21;
 constexpr int kLightF = 12;  // corner(3) u(3) v(3) emit(3)
-constexpr int kSaveWords = 14;
 constexpr float kInvPi = 0.31830987f;
 constexpr float kGeomMax = 50.265484f;
 constexpr float kShadowScale = 0.999f;
@@ -70,7 +78,6 @@ struct Args {
   const float* cam;  // shared memory
   const float* tab;  // the flat table: shared (K5) or global (K4) memory
   int n_sph, n_quad, n_lights, nm, light_quad, light_off;
-  bool nee, sil, has_met, has_die;
   uint32_t seed;
   // accumulator offsets
   int a_q, a_m, a_l, a_b, a_loss;
@@ -113,19 +120,16 @@ struct RowScope {
   __device__ __forceinline__ int quad(int k) const { return __ldg(q + k); }
 };
 
-// K5's accumulator: the thread's array in local memory.
-struct LocalAcc {
-  float* p;
-  __device__ __forceinline__ void add(int j, float v) const { p[j] += v; }
-};
-
-// K4's accumulator: the thread's column of a global [na][threads] scratch
-// (a warp's adds coalesce). Zero terms are skipped, which changes no bit:
-// a sum that starts at +0 never becomes -0, and x + (+-0) == x otherwise.
-// Most dense-scope surrogate terms are exact zeros (the sigmoid saturates
-// a few radii from a sphere), and each skipped add saves a read and a
-// write of device memory.
-struct ColumnAcc {
+// A thread's gradient accumulator: entry j at p[j * stride]. K5 points
+// it at the thread's column of a [na][128] block of shared memory (stride
+// 128) or, when na does not fit there, at a local array (stride 1); K4 at
+// the thread's column of a global [na][threads] scratch (stride threads),
+// where a warp's adds coalesce. Zero terms are skipped, which changes no
+// bit: a sum that starts at +0 never becomes -0, and x + (+-0) == x
+// otherwise. Most dense-scope surrogate terms are exact zeros (the sigmoid
+// saturates a few radii from a sphere), and each skipped add saves a read
+// and a write.
+struct StridedAcc {
   float* p;
   size_t stride;
   __device__ __forceinline__ void add(int j, float v) const {
@@ -238,6 +242,7 @@ struct Shade {
   float eta, cosv, ppx, ppy, ppz, zk, kk, par;
 };
 
+template <class F>
 __device__ __forceinline__ void shade(const Args& a, uint32_t pid,
                                       uint32_t samp, int b, const State& s,
                                       float best_t, const Winner& w,
@@ -299,14 +304,14 @@ __device__ __forceinline__ void shade(const Args& a, uint32_t pid,
   g.is_met = w.kind >= 0.5f && w.kind < 1.5f;
   g.is_die = w.kind >= 1.5f && w.kind < 2.5f;
   const bool is_light = w.kind >= 2.5f;
-  if (a.nee) {
+  if (F::nee) {
     const bool nee_sampled = g.quad_w && is_light;
     g.gate_e = g.hlf * (1.0f - s.pd * b2f(nee_sampled));
   } else {
     g.gate_e = g.hlf;
   }
 
-  g.nee_on = a.nee && a.n_lights > 0;
+  g.nee_on = F::nee && a.n_lights > 0;
   if (g.nee_on) {
     float nu3, nu4;
     uniform4(pid, samp, kNeeStream + (uint32_t)b, a.seed, g.nu1, g.nu2, nu3,
@@ -373,14 +378,14 @@ __device__ __forceinline__ void shade(const Args& a, uint32_t pid,
   float dny = degen ? g.ny : ly;
   float dnz = degen ? g.nz : lz;
   float rfx = 0.0f, rfy = 0.0f, rfz = 0.0f;
-  if (a.has_met || a.has_die) {
+  if (F::met || F::die) {
     g.sdn = dot3(s.dx, s.dy, s.dz, g.nx, g.ny, g.nz);
     rfx = s.dx - 2.0f * g.sdn * g.nx;
     rfy = s.dy - 2.0f * g.sdn * g.ny;
     rfz = s.dz - 2.0f * g.sdn * g.nz;
   }
   float mex = 0.0f, mey = 0.0f, mez = 0.0f;
-  if (a.has_met) {
+  if (F::met) {
     mex = rfx + w.fuzz * g.bx;
     mey = rfy + w.fuzz * g.by;
     mez = rfz + w.fuzz * g.bz;
@@ -388,7 +393,7 @@ __device__ __forceinline__ void shade(const Args& a, uint32_t pid,
   float gx = 0.0f, gy = 0.0f, gz = 0.0f;
   g.cos_clip = false;
   g.cref = false;
-  if (a.has_die) {
+  if (F::die) {
     g.eta = g.front ? 1.0f / fmaxf(w.ior, 1e-6f) : w.ior;
     const float mcos_raw = -(g.nx * s.dx + g.ny * s.dy + g.nz * s.dz);
     g.cos_clip = mcos_raw < 1.0f;
@@ -412,15 +417,15 @@ __device__ __forceinline__ void shade(const Args& a, uint32_t pid,
     gy = g.cref ? rfy : g.ppy + g.par * g.ny;
     gz = g.cref ? rfz : g.ppz + g.par * g.nz;
   }
-  if (a.has_met && a.has_die) {
+  if (F::met && F::die) {
     dnx = g.is_lam ? dnx : (g.is_met ? mex : gx);
     dny = g.is_lam ? dny : (g.is_met ? mey : gy);
     dnz = g.is_lam ? dnz : (g.is_met ? mez : gz);
-  } else if (a.has_met) {
+  } else if (F::met) {
     dnx = g.is_lam ? dnx : mex;
     dny = g.is_lam ? dny : mey;
     dnz = g.is_lam ? dnz : mez;
-  } else if (a.has_die) {
+  } else if (F::die) {
     dnx = g.is_lam ? dnx : gx;
     dny = g.is_lam ? dny : gy;
     dnz = g.is_lam ? dnz : gz;
@@ -635,14 +640,14 @@ struct Cot {
 // One bounce backwards: recompute its shading, apply the hand VJPs, add
 // the parameter terms to acc and return the entering state's cotangent.
 // The surrogate chains run over the rows of `sc`.
-template <class Acc, class Scope>
-__device__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
+template <class F, class Acc, class Scope>
+__device__ __forceinline__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
                            uint32_t samp, int b, const State& s, float best_t,
                            int win, float vis, Cot& c, float chr, float chg,
                            float chb, const Acc& acc) {
   const Winner w = winner_fields(a, win);
   Shade g;
-  shade(a, pid, samp, b, s, best_t, w, g);
+  shade<F>(a, pid, samp, b, s, best_t, w, g);
   const float T1r = s.tr, T1g = s.tg, T1b = s.tb;
   const float scf = g.scf;
   const float inv_s = 1.0f - scf;
@@ -677,14 +682,14 @@ __device__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
   float cnz = lamf * cdnz;
   float creflx = 0.0f, crefly = 0.0f, creflz = 0.0f;
   float cfuzz = 0.0f, cior = 0.0f;
-  if (a.has_met) {
+  if (F::met) {
     const float metf = b2f(g.is_met);
     creflx = metf * cdnx;
     crefly = metf * cdny;
     creflz = metf * cdnz;
     cfuzz = metf * (g.bx * cdnx + g.by * cdny + g.bz * cdnz);
   }
-  if (a.has_die) {
+  if (F::die) {
     const float dief = b2f(g.is_die);
     const float creff = b2f(g.cref);
     creflx = creflx + dief * creff * cdnx;
@@ -725,7 +730,7 @@ __device__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
     const float iors = fmaxf(w.ior, 1e-6f);
     cior = ceta * (frontf * (-1.0f / (iors * iors)) + (1.0f - frontf));
   }
-  if (a.has_met || a.has_die) {
+  if (F::met || F::die) {
     const float ndotcr = nx * creflx + ny * crefly + nz * creflz;
     cdx = cdx + creflx - 2.0f * ndotcr * nx;
     cdy = cdy + crefly - 2.0f * ndotcr * ny;
@@ -926,7 +931,7 @@ __device__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
   }
 
   // A1 silhouette
-  if (a.sil && (n_s || n_q)) {
+  if (F::sil && (n_s || n_q)) {
     const float cF = cT1r * T1r + cT1g * T1g + cT1b * T1b;
     const bool live = s.alive > 0.5f;
     const float t_lim = g.hit ? best_t : kFar;
@@ -1094,45 +1099,96 @@ __device__ void bounce_adj(const Args& a, const Scope& sc, uint32_t pid,
   c.tb = cT1b;
 }
 
-// One pixel's whole estimator:
-//   phase 1, the NEE image: per sample, bounces until the path ends;
-//   phase 2, the cotangent 2 (img - target) / (npix 3 spp) and the pixel's
-//     squared error (added at a.a_loss);
-//   phase 3, per sample: a replay of the bounces that stores 14 floats per
-//     bounce (state, winner t and index, shadow visibility) in `saves`,
-//     word w of bounce b at saves[(b * kSaveWords + w) * stride], then the
-//     walk back over the live bounces through bounce_adj. The bounces after
-//     a path ended are skipped: the TPU kernels replay them, and their
-//     terms are exact zeros (the twin's replay_dead test holds that).
-template <class Acc, class Scope>
-__device__ __forceinline__ void diff_pixel(
-    const Args& a, const Scope& sc, int pix, int width, int spp, int mb,
-    uint32_t spp_offset, float inv_spp, const float* __restrict__ target,
-    float* __restrict__ img, float* __restrict__ saves, size_t stride,
-    const Acc& acc) {
-  const float* cam = a.cam;
-  const uint32_t pid = (uint32_t)pix;
-  const float px = (float)(pix % width);
-  const float py = (float)(pix / width);
+// What one launch computes (see diff_thread).
+struct Launch {
+  int npix, width, spp, mb, na;
+  int slots;  // save slots per thread: k samples x mb bounces
+  uint32_t spp_offset;
+  float inv_spp;
+};
 
-  // ---- phase 1: the forward NEE image
+
+// A save slot: the 14 words a live bounce keeps for its adjoint (state,
+// winner t and index, shadow visibility), then the sample's live-bounce
+// count (written in its first slot when the sample ends) and a pad, so
+// that a slot is four 128-bit accesses.
+constexpr int kSlotVec = 4;  // float4 per slot
+
+__device__ __forceinline__ void save_bounce(float4* sl, const State& s,
+                                            float best, int win, float vis) {
+  sl[0] = make_float4(s.ox, s.oy, s.oz, s.dx);
+  sl[1] = make_float4(s.dy, s.dz, s.tr, s.tg);
+  sl[2] = make_float4(s.tb, s.alive, s.pd, best);
+  sl[3] = make_float4(__int_as_float(win), vis, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ void load_bounce(const float4* sl, State& s,
+                                            float& best, int& win,
+                                            float& vis) {
+  const float4 v0 = sl[0], v1 = sl[1], v2 = sl[2], v3 = sl[3];
+  s.ox = v0.x;
+  s.oy = v0.y;
+  s.oz = v0.z;
+  s.dx = v0.w;
+  s.dy = v1.x;
+  s.dz = v1.y;
+  s.tr = v1.z;
+  s.tg = v1.w;
+  s.tb = v2.x;
+  s.alive = v2.y;
+  s.pd = v2.z;
+  best = v2.w;
+  win = __float_as_int(v3.x);
+  vis = v3.y;
+}
+
+__device__ __forceinline__ int sample_length(const float4* sl) {
+  return __float_as_int(reinterpret_cast<const float*>(sl)[14]);
+}
+
+// Phase 1, the forward NEE image, in the image kernel: pixel
+// blockIdx.x * blockDim.x + threadIdx.x, samples [s0, s1) of part
+// blockIdx.y of `split`. One bounce per pass of a loop whose only back
+// edge is a vote of the whole warp (every thread of the warp runs it,
+// those past the image too). A lane starts its next sample as soon as its
+// path ends and adds each sample's colour to the pixel's sum in sample
+// order from +0.0, so the image keeps the bits of a sample loop, and
+// writes the mean to img. With split > 1 it writes each sample's colour
+// to samples[(s * npix + pix) * 3 ..] instead, for fold_kernel to add up
+// in the same order.
+template <class F>
+__device__ __forceinline__ void image_thread(const Args& a, const Launch& L,
+                                             int split,
+                                             float* __restrict__ samples,
+                                             float* __restrict__ img) {
+  const float* cam = a.cam;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s1 = (int)((long long)L.spp * (blockIdx.y + 1) / split);
+  const uint32_t pid = (uint32_t)pix;
+  const float px = (float)(pix % L.width);
+  const float py = (float)(pix / L.width);
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  for (int sidx = 0; sidx < spp; ++sidx) {
-    const uint32_t samp = spp_offset + (uint32_t)sidx;
-    State s;
-    camera_ray(cam, px, py, pid, samp, a.seed, s.ox, s.oy, s.oz, s.dx, s.dy,
-               s.dz);
-    s.tr = s.tg = s.tb = 1.0f;
-    s.alive = 1.0f;
-    s.pd = 0.0f;
-    float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-    for (int b = 0; b < mb && s.alive > 0.5f; ++b) {
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  State s;
+  int sidx = (int)((long long)L.spp * blockIdx.y / split), b = 0;
+  bool active = pix < L.npix && sidx < s1;
+  while (__any_sync(0xffffffffu, active)) {
+    if (active) {
+      const uint32_t samp = L.spp_offset + (uint32_t)sidx;
+      if (b == 0) {
+        camera_ray(cam, px, py, pid, samp, a.seed, s.ox, s.oy, s.oz, s.dx,
+                   s.dy, s.dz);
+        s.tr = s.tg = s.tb = 1.0f;
+        s.alive = 1.0f;
+        s.pd = 0.0f;
+        cr = cg = cb = 0.0f;
+      }
       int win;
       const float best =
           closest_hit(a, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, win);
       const Winner w = winner_fields(a, win);
       Shade g;
-      shade(a, pid, samp, b, s, best, w, g);
+      shade<F>(a, pid, samp, b, s, best, w, g);
       const float vis = shadow_vis(a, g);
       float dr, dg, db;
       color_adds(g, s, w, vis, cam, dr, dg, db);
@@ -1140,88 +1196,220 @@ __device__ __forceinline__ void diff_pixel(
       cg = cg + dg;
       cb = cb + db;
       s = advance(g, s, w);
+      ++b;
+      if (!(s.alive > 0.5f) || b == L.mb) {
+        if (split > 1) {
+          float* c = samples + ((size_t)sidx * L.npix + pix) * 3;
+          c[0] = cr;
+          c[1] = cg;
+          c[2] = cb;
+        } else {
+          ar = ar + cr;
+          ag = ag + cg;
+          ab = ab + cb;
+        }
+        b = 0;
+        active = ++sidx < s1;
+      }
     }
-    ar = ar + cr;
-    ag = ag + cg;
-    ab = ab + cb;
   }
-  const float img_r = ar * inv_spp;
-  const float img_g = ag * inv_spp;
-  const float img_b = ab * inv_spp;
-  img[3 * (size_t)pix + 0] = img_r;
-  img[3 * (size_t)pix + 1] = img_g;
-  img[3 * (size_t)pix + 2] = img_b;
+  if (pix < L.npix && split == 1) {
+    img[3 * (size_t)pix + 0] = ar * L.inv_spp;
+    img[3 * (size_t)pix + 1] = ag * L.inv_spp;
+    img[3 * (size_t)pix + 2] = ab * L.inv_spp;
+  }
+}
 
-  // ---- phase 2: the loss cotangent and the pixel's squared error
-  const float npixf = cam[23];
-  const float dr = img_r - target[3 * (size_t)pix + 0];
-  const float dg = img_g - target[3 * (size_t)pix + 1];
-  const float db = img_b - target[3 * (size_t)pix + 2];
-  const float cscale = 2.0f / (npixf * 3.0f * (float)spp);
-  const float chr = cscale * dr;
-  const float chg = cscale * dg;
-  const float chb = cscale * db;
-  acc.add(a.a_loss, dr * dr + dg * dg + db * db);
+// The pixels of one thread's warp, one pixel per lane and round: pixel
+// base + lane, base = warp's first thread + r x (threads of the grid).
+// Every thread of the grid runs it, those without a pixel too: every loop
+// below ends on a vote of the whole warp (__any_sync), and that vote is
+// the loop's only back edge. With the exit test on a thread's own
+// counters instead, nvcc threads an unfinished path straight back to the
+// loop head and rebuilds the nested sample/bounce loops, the warp then
+// waiting at every sample for its longest path (csrc/common.cuh,
+// render_pixel).
+//
+// Per pixel, in the order of the twin `packed_diff_reference`:
+//   (phase 1, the NEE image, ran in the image kernel: image_thread);
+//   phase 2, the cotangent 2 (img - target) / (npix 3 spp) and the pixel's
+//     squared error (added at a.a_loss);
+//   phase 3, in chunks: stage R replays samples, one bounce per pass, and
+//     saves each live bounce in the thread's next slot; a lane starts
+//     another sample while a path of mb bounces still fits in L.slots.
+//     Stage A then walks the chunk's samples in ascending order and each
+//     sample's bounces in descending order through bounce_adj. Each stage
+//     is a loop of its own: in one loop the lanes would drift into
+//     different stages and a warp would pay for both bodies in a pass.
+// The bounces after a path ended are skipped: the TPU kernels replay
+// them, and their terms are exact zeros (the twin's replay_dead test
+// holds that). A thread adds its terms in the order of a loop over its
+// pixels, samples ascending, bounces descending.
+template <class F, class Acc, class Scope>
+__device__ __forceinline__ void diff_thread(
+    const Args& a, const Scope& sc, const Launch& L,
+    const float* __restrict__ target, const float* __restrict__ img,
+    float4* __restrict__ saves, const Acc& acc) {
+  const float* cam = a.cam;
+  const int lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  for (int base = tid - lane; base < L.npix; base += nt) {
+    const int pix = base + lane;
+    const bool in = pix < L.npix;
+    const uint32_t pid = (uint32_t)pix;
+    const float px = (float)(pix % L.width);
+    const float py = (float)(pix / L.width);
 
-  // ---- phase 3: replay + adjoint, per sample
-  const size_t np = stride;
-  for (int sidx = 0; sidx < spp; ++sidx) {
-    const uint32_t samp = spp_offset + (uint32_t)sidx;
+    // ---- phase 2: the loss cotangent and the pixel's squared error, from
+    // the image kernel's image (phase 1)
+    float chr = 0.0f, chg = 0.0f, chb = 0.0f;
+    if (in) {
+      const float npixf = cam[23];
+      const float dr = img[3 * (size_t)pix + 0] - target[3 * (size_t)pix + 0];
+      const float dg = img[3 * (size_t)pix + 1] - target[3 * (size_t)pix + 1];
+      const float db = img[3 * (size_t)pix + 2] - target[3 * (size_t)pix + 2];
+      const float cscale = 2.0f / (npixf * 3.0f * (float)L.spp);
+      chr = cscale * dr;
+      chg = cscale * dg;
+      chb = cscale * db;
+      acc.add(a.a_loss, dr * dr + dg * dg + db * db);
+    }
+
+    // ---- phase 3: chunks of replay (stage R) and adjoint (stage A)
     State s;
-    camera_ray(cam, px, py, pid, samp, a.seed, s.ox, s.oy, s.oz, s.dx, s.dy,
-               s.dz);
-    s.tr = s.tg = s.tb = 1.0f;
-    s.alive = 1.0f;
-    s.pd = 0.0f;
-    int n_live = 0;
-    for (int b = 0; b < mb && s.alive > 0.5f; ++b) {
-      int win;
-      const float best =
-          closest_hit(a, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, win);
-      const Winner w = winner_fields(a, win);
-      Shade g;
-      shade(a, pid, samp, b, s, best, w, g);
-      const float vis = shadow_vis(a, g);
-      float* sv = saves + (size_t)b * kSaveWords * np;
-      sv[0 * np] = s.ox;
-      sv[1 * np] = s.oy;
-      sv[2 * np] = s.oz;
-      sv[3 * np] = s.dx;
-      sv[4 * np] = s.dy;
-      sv[5 * np] = s.dz;
-      sv[6 * np] = s.tr;
-      sv[7 * np] = s.tg;
-      sv[8 * np] = s.tb;
-      sv[9 * np] = s.alive;
-      sv[10 * np] = s.pd;
-      sv[11 * np] = best;
-      sv[12 * np] = (float)win;
-      sv[13 * np] = vis;
-      s = advance(g, s, w);
-      n_live = b + 1;
-    }
-    Cot c{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int b = n_live - 1; b >= 0; --b) {
-      const float* sv = saves + (size_t)b * kSaveWords * np;
-      State sb;
-      sb.ox = sv[0 * np];
-      sb.oy = sv[1 * np];
-      sb.oz = sv[2 * np];
-      sb.dx = sv[3 * np];
-      sb.dy = sv[4 * np];
-      sb.dz = sv[5 * np];
-      sb.tr = sv[6 * np];
-      sb.tg = sv[7 * np];
-      sb.tb = sv[8 * np];
-      sb.alive = sv[9 * np];
-      sb.pd = sv[10 * np];
-      const float best = sv[11 * np];
-      const int win = (int)sv[12 * np];
-      const float vis = sv[13 * np];
-      bounce_adj(a, sc, pid, samp, b, sb, best, win, vis, c, chr, chg, chb,
-                 acc);
+    int b = 0;
+    int next = 0;  // the first sample not yet replayed
+    bool more = in;
+    while (__any_sync(0xffffffffu, more)) {
+      const int first = next;
+      int off = 0, start = 0;
+      b = 0;
+      bool rep = more;
+      while (__any_sync(0xffffffffu, rep)) {
+        if (rep) {
+          const uint32_t samp = L.spp_offset + (uint32_t)next;
+          if (b == 0) {
+            camera_ray(cam, px, py, pid, samp, a.seed, s.ox, s.oy, s.oz,
+                       s.dx, s.dy, s.dz);
+            s.tr = s.tg = s.tb = 1.0f;
+            s.alive = 1.0f;
+            s.pd = 0.0f;
+            start = off;
+          }
+          int win;
+          const float best =
+              closest_hit(a, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, win);
+          const Winner w = winner_fields(a, win);
+          Shade g;
+          shade<F>(a, pid, samp, b, s, best, w, g);
+          const float vis = shadow_vis(a, g);
+          save_bounce(saves + (size_t)off * kSlotVec, s, best, win, vis);
+          s = advance(g, s, w);
+          ++b;
+          ++off;
+          if (!(s.alive > 0.5f) || b == L.mb) {
+            reinterpret_cast<float*>(saves + (size_t)start * kSlotVec)[14] =
+                __int_as_float(b);
+            b = 0;
+            ++next;
+            rep = next < L.spp && off + L.mb <= L.slots;
+          }
+        }
+      }
+      more = more && next < L.spp;
+
+      int j = first, len = 0;
+      start = 0;
+      Cot c{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      bool adj = in && first < next;
+      if (adj) {
+        len = sample_length(saves);
+        b = len - 1;
+      }
+      while (__any_sync(0xffffffffu, adj)) {
+        if (adj) {
+          State sb;
+          float best, vis;
+          int win;
+          load_bounce(saves + (size_t)(start + b) * kSlotVec, sb, best, win,
+                      vis);
+          bounce_adj<F>(a, sc, pid, L.spp_offset + (uint32_t)j, b, sb, best,
+                        win, vis, c, chr, chg, chb, acc);
+          if (b > 0) {
+            --b;
+          } else if (++j < next) {
+            start += len;
+            len = sample_length(saves + (size_t)start * kSlotVec);
+            b = len - 1;
+            c = Cot{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          } else {
+            adj = false;
+          }
+        }
+      }
     }
   }
+}
+
+// The estimator's switches: NEE, the silhouette surrogates, the metal and
+// the dielectric chains. Each combination is its own kernel, with the
+// absent parts compiled out (as dispatch_kinds does for the forward
+// kernels).
+template <bool NEE, bool SIL, bool MET, bool DIE>
+struct Flags {
+  static constexpr bool nee = NEE, sil = SIL, met = MET, die = DIE;
+};
+
+// Calls launcher.template run<Flags<...>>() for the run-time switches.
+// Every combination is built: render_value_and_grad takes nee and
+// silhouette from its caller, and the scene decides metal and dielectric.
+// ops/diff_schedule.py's variant_key names the same 16 cases.
+template <class Launcher>
+cudaError_t dispatch_flags(bool nee, bool sil, bool met, bool die,
+                           const Launcher& l) {
+  const int key = (nee ? 8 : 0) | (sil ? 4 : 0) | (met ? 2 : 0) |
+                  (die ? 1 : 0);
+  switch (key) {
+    case 0: return l.template run<Flags<false, false, false, false>>();
+    case 1: return l.template run<Flags<false, false, false, true>>();
+    case 2: return l.template run<Flags<false, false, true, false>>();
+    case 3: return l.template run<Flags<false, false, true, true>>();
+    case 4: return l.template run<Flags<false, true, false, false>>();
+    case 5: return l.template run<Flags<false, true, false, true>>();
+    case 6: return l.template run<Flags<false, true, true, false>>();
+    case 7: return l.template run<Flags<false, true, true, true>>();
+    case 8: return l.template run<Flags<true, false, false, false>>();
+    case 9: return l.template run<Flags<true, false, false, true>>();
+    case 10: return l.template run<Flags<true, false, true, false>>();
+    case 11: return l.template run<Flags<true, false, true, true>>();
+    case 12: return l.template run<Flags<true, true, false, false>>();
+    case 13: return l.template run<Flags<true, true, false, true>>();
+    case 14: return l.template run<Flags<true, true, true, false>>();
+    default: return l.template run<Flags<true, true, true, true>>();
+  }
+}
+
+// Blocks of `kernel` (kBlock threads, `smem` bytes of dynamic shared
+// memory) one SM holds at once, and the SMs of the current device.
+template <class Kernel>
+cudaError_t occupancy(Kernel kernel, int block, size_t smem, int* per_sm,
+                      int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess && smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, block,
+                                                      smem);
+  }
+  return e;
 }
 
 }  // namespace diff

@@ -12,11 +12,13 @@
 // function by function (diff_common.cuh).
 //
 // Design, and what it does about the TPU kernel's layout:
-// - One thread per pixel runs the pixel's whole estimator (diff_pixel), as
-//   in K5. The TPU kernel's (rows, lanes) candidate matrices and one-hot
-//   payload products become a walk over the table's real rows in scene
-//   order with a strict `<` (the first minimum, as the TPU's argmin), and
-//   the winner's fields read by row index. `row_chunk` streaming has no
+// - As in K5, classic_image_kernel renders the NEE image first (a thread
+//   per pixel and sample part), then a thread of classic_kernel runs a
+//   pixel's replay and adjoint at a time (diff_thread). The TPU
+//   kernel's (rows, lanes) candidate matrices and one-hot payload
+//   products become a walk over the table's real rows in scene order with
+//   a strict `<` (the first minimum, as the TPU's argmin), and the
+//   winner's fields read by row index. `row_chunk` streaming has no
 //   counterpart: the walk reads any number of rows.
 // - The table is K5's flat table (spheres, quads, lights, AoS rows) read
 //   from global memory: all threads of a warp read the same row at once,
@@ -28,16 +30,18 @@
 //   TPU kernel's code does (diffkernel.py:1729-1755).
 // - The gradient table has any width (na floats: about 6 150 for 512
 //   spheres with 512 materials), too wide for a per-thread array. The grid
-//   is capped at the blocks the card holds at once (and at what the
-//   scratch budget allows); each thread loops over pixels tid, tid + T,
-//   ... (T threads in all) and adds into its own column of a global
-//   [na][T] scratch, so a warp's adds coalesce, and skips exact-zero
-//   terms (ColumnAcc). At the end each warp sums its 32 columns with
-//   shuffles into one row of a [warps][na] table; a second kernel sums, per
-//   entry, the 4 warps of a block in order and then the blocks in order.
-//   Every sum has a fixed order, so two launches give the same bits. The
-//   scratch (na x T floats, T = blocks x 128) and the saves ([bounce][14]
-//   [T]) do not grow with the pixel count.
+//   is one the card holds at once, sized on the host
+//   (ops/diff_schedule.py) so that every thread gets the same number of
+//   pixels, give or take one, and the scratch stays within its budget.
+//   Each thread loops over pixels with K5's per-lane regeneration loops
+//   (diff_common.cuh) and adds into its own column of a
+//   global [na][T] scratch (T threads in all), so a warp's adds coalesce,
+//   skipping exact-zero terms. At the end each warp sums its 32 columns
+//   with shuffles into one row of a [warps][na] table; a second kernel
+//   sums, per entry, the 4 warps of a block in order and then the blocks
+//   in order. Every sum has a fixed order, so two launches give the same
+//   bits. The scratch (na x T floats) and the replay's save slots (T x
+//   slots x 16 floats) do not grow with the pixel count.
 //
 // What bounds it: FP32 work. A live bounce walks every row twice (phase 1
 // and the replay) and re-shades in the adjoint; a dense scope adds each
@@ -46,6 +50,12 @@
 
 #include "diff_common.cuh"
 
+// megakernel.cu: adds per-sample colours up in sample order.
+extern "C" int tinyrt_fold_samples(const float* samples, float* out,
+                                   int npix, int spp, float inv_spp,
+                                   void* stream);
+
+
 namespace {
 
 using namespace tinyrt;
@@ -53,17 +63,32 @@ using namespace tinyrt::diff;
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
+// Blocks per SM that ptxas must make room for (__launch_bounds__): 2
+// leaves it 255 registers, 3 168, 4 128. 3 is the fastest at cfg5f and
+// ties at cfg4class (PERF.md section 6 has the sweep): the NEE variants
+// spill 170-230 bytes there, and a third block per SM pays for it; the
+// others fit in 121-162 registers.
+constexpr int kMinBlocks = 3;
 
-struct Launch {
-  int npix, width, spp, mb, na;
-  uint32_t spp_offset;
-  float inv_spp;
-};
-
+// Phase 1 on its own (image_thread): a thread per pixel and sample part,
+// no accumulator.
+template <class F>
 __global__ void __launch_bounds__(kBlock)
+    classic_image_kernel(const float* __restrict__ cam_g, Args a, Launch L,
+                         int split, float* __restrict__ samples,
+                         float* __restrict__ img) {
+  __shared__ float cam[kCamWords];
+  for (int i = threadIdx.x; i < kCamWords; i += kBlock) cam[i] = cam_g[i];
+  __syncthreads();
+  a.cam = cam;
+  image_thread<F>(a, L, split, samples, img);
+}
+
+template <class F>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     classic_kernel(const float* __restrict__ cam_g, Args a, RowScope sc,
                    Launch L, const float* __restrict__ target,
-                   float* __restrict__ img, float* __restrict__ saves,
+                   const float* __restrict__ img, float4* __restrict__ saves,
                    float* __restrict__ cols, float* __restrict__ wpart) {
   __shared__ float cam[kCamWords];
   for (int i = threadIdx.x; i < kCamWords; i += kBlock) cam[i] = cam_g[i];
@@ -71,14 +96,11 @@ __global__ void __launch_bounds__(kBlock)
   a.cam = cam;
 
   const size_t nt = (size_t)gridDim.x * kBlock;
-  const int tid = blockIdx.x * kBlock + threadIdx.x;
+  const size_t tid = (size_t)blockIdx.x * kBlock + threadIdx.x;
   float* col = cols + tid;
   for (int j = 0; j < L.na; ++j) col[(size_t)j * nt] = 0.0f;
-  const ColumnAcc acc{col, nt};
-  for (int pix = tid; pix < L.npix; pix += (int)nt) {
-    diff_pixel(a, sc, pix, L.width, L.spp, L.mb, L.spp_offset, L.inv_spp,
-               target, img, saves + tid, nt, acc);
-  }
+  diff_thread<F>(a, sc, L, target, img, saves + tid * L.slots * kSlotVec,
+                 StridedAcc{col, nt});
 
   // ---- each warp's 32 columns, summed with shuffles in a fixed order
   const int lane = threadIdx.x & 31;
@@ -108,74 +130,102 @@ __global__ void classic_reduce(const float* __restrict__ wpart, int blocks,
   out[j] = j == loss_idx ? v / loss_div : v;
 }
 
+struct Occupancy {
+  bool image;
+  int* per_sm;
+  int* sms;
+  template <class F>
+  cudaError_t run() const {
+    return image ? occupancy(classic_image_kernel<F>, kBlock, 0, per_sm, sms)
+                 : occupancy(classic_kernel<F>, kBlock, 0, per_sm, sms);
+  }
+};
+
+struct Launcher {
+  const float* cam;
+  Args a;
+  RowScope sc;
+  Launch L;
+  int split;  // the image kernel's sample parts
+  const float* target;
+  float *img, *samples;
+  float4* saves;
+  float *cols, *wpart;
+  int blocks;
+  cudaStream_t st;
+  template <class F>
+  cudaError_t run() const {
+    const dim3 grid((L.npix + kBlock - 1) / kBlock, split);
+    classic_image_kernel<F><<<grid, kBlock, 0, st>>>(cam, a, L, split,
+                                                     samples, img);
+    cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess && split > 1) {
+      e = (cudaError_t)tinyrt_fold_samples(samples, img, L.npix, L.spp,
+                                           L.inv_spp, st);
+    }
+    if (e != cudaSuccess) return e;
+    classic_kernel<F><<<blocks, kBlock, 0, st>>>(cam, a, sc, L, target, img,
+                                                 saves, cols, wpart);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// The grid K4 launches for `npix` pixels and an accumulator of `na`
-// floats on the current device: at most the blocks the card holds at once,
-// no more than the pixels need, and few enough that the [na][threads]
-// scratch stays within `max_cols` floats. Writes it to *blocks; returns a
-// cudaError_t (0 on success).
-int tinyrt_diff_classic_blocks(int npix, int na, long long max_cols,
-                               int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, classic_kernel,
-                                                      kBlock, 0);
-  }
-  if (e != cudaSuccess) return (int)e;
-  long long n = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long need = ((long long)npix + kBlock - 1) / kBlock;
-  const long long fit = max_cols / ((long long)(na > 0 ? na : 1) * kBlock);
-  if (need < n) n = need;
-  if (fit < n) n = fit;
-  *blocks = (int)(n > 0 ? n : 1);
-  return 0;
+// Blocks of K4's kernel (`image` 0) or of its image kernel (1) for these
+// switches that one SM holds at once (*per_sm), and the device's SMs
+// (*sms). Returns a cudaError_t (0 on success).
+int tinyrt_diff_classic_occupancy(int image, int nee, int sil, int has_met,
+                                  int has_die, int* per_sm, int* sms) {
+  return (int)dispatch_flags(nee != 0, sil != 0, has_met != 0, has_die != 0,
+                             Occupancy{image != 0, per_sm, sms});
 }
 
-// Runs K4 on `stream` with `blocks` blocks (tinyrt_diff_classic_blocks):
-// writes the (height, width, 3) image into `img` and the summed gradient
+// Runs K4 on `stream` with `blocks` blocks (ops/diff_schedule.py): writes
+// the (height, width, 3) image into `img` and the summed gradient
 // accumulator (layout as K5's) into `acc`. `surr_s` / `surr_q` list the
-// sphere / quad table rows whose surrogates run (n_s, n_q of them).
-// Scratch: `saves` max_bounces x 14 x T floats, `cols` na x T, `wpart`
-// blocks x 4 x na (T = blocks x 128). Returns the first failing launch's
-// cudaError_t (0 on success); does not synchronise.
+// sphere / quad table rows whose surrogates run (n_s, n_q of them). Phase
+// 1 runs first in the image kernel, each pixel's samples in `split` parts
+// (`samples` then holds spp x npix x 3 floats when split > 1). Scratch:
+// `saves` T x slots x 16 floats (slots >= max_bounces), `cols` na x T,
+// `wpart` blocks x 4 x na (T = blocks x 128). Returns the first failing
+// launch's cudaError_t (0 on success); does not synchronise.
 int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
                         int n_quad, int n_lights, int nm, int light_quad,
                         const int* surr_s, int n_s, const int* surr_q,
                         int n_q, const float* target, float* img,
                         float* saves, float* cols, float* wpart, float* acc,
-                        int blocks, int width, int height, unsigned int seed,
-                        unsigned int spp_offset, int spp, int max_bounces,
-                        float inv_spp, int nee, int sil, int has_met,
-                        int has_die, void* stream) {
+                        int blocks, int slots, int width, int height,
+                        unsigned int seed, unsigned int spp_offset, int spp,
+                        int max_bounces, float inv_spp, int nee, int sil,
+                        int has_met, int has_die, int split, float* samples,
+                        void* stream) {
   Args a{};
   const int na = set_layout(a, n_sph, n_quad, n_lights, nm, light_quad);
   a.tab = tab;
-  a.nee = nee != 0;
-  a.sil = sil != 0;
-  a.has_met = has_met != 0;
-  a.has_die = has_die != 0;
   a.seed = seed;
-  const RowScope sc{surr_s, surr_q, n_s, n_q};
   Launch L;
   L.npix = width * height;
   L.width = width;
   L.spp = spp;
   L.mb = max_bounces;
   L.na = na;
+  L.slots = slots;
   L.spp_offset = spp_offset;
   L.inv_spp = inv_spp;
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || slots < max_bounces || split < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  classic_kernel<<<blocks, kBlock, 0, st>>>(cam, a, sc, L, target, img, saves,
-                                            cols, wpart);
-  cudaError_t e = cudaGetLastError();
+  const Launcher launch{cam,    a,       RowScope{surr_s, surr_q, n_s, n_q},
+                        L,      split,   target,
+                        img,    samples, reinterpret_cast<float4*>(saves),
+                        cols,   wpart,   blocks,
+                        st};
+  cudaError_t e = dispatch_flags(nee != 0, sil != 0, has_met != 0,
+                                 has_die != 0, launch);
   if (e != cudaSuccess) return (int)e;
   const float loss_div = (float)(width * height) * 3.0f;
   classic_reduce<<<(na + 127) / 128, 128, 0, st>>>(wpart, blocks, na,

@@ -30,7 +30,6 @@ mat_albedo, mat_fuzz, mat_ior, mat_emit, background.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -39,6 +38,7 @@ import torch
 
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models import materials as mat
+from tinyraytracer_tpu_torch.ops import diff_schedule
 
 _T_MIN = 1.0e-3
 _MISS = 3.0e38
@@ -56,7 +56,6 @@ DIFF_PACKED_MAX_ACC = 1024
 # Floats of K4's per-thread gradient columns ([na][threads]) that the
 # launch may allocate: the grid shrinks below one wave to stay within it.
 DIFF_CLASSIC_MAX_COLS = 1 << 30
-_BLOCK = 128
 _MASK = 0xFFFFFFFF
 
 
@@ -176,7 +175,7 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
     subset (K4 only; the soft-shadow visibility product then runs over the
     listed rows only). `packed` None routes by `routes_packed`; an explicit
     subset always takes K4. `tile` is accepted and ignored (the CUDA
-    kernels run one thread per pixel).
+    kernels size their grids from the card, ops/diff_schedule.py).
     """
     if np.asarray(background, np.float32).ndim != 1:
         raise ValueError(
@@ -233,20 +232,21 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
     dev = tab.device
     npix = width * height
     na = spec.acc_width
+    flags = diff_schedule.variant_flags(spec)
+    f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        blocks = ctypes.c_int(0)
-        err = lib.tinyrt_diff_classic_blocks(npix, na, DIFF_CLASSIC_MAX_COLS,
-                                             ctypes.byref(blocks))
-        if err != 0:
-            raise RuntimeError(f"diffkernel occupancy query failed: CUDA "
-                               f"error {err} "
-                               f"({lib.tinyrt_error_string(err).decode()})")
-        nt = blocks.value * _BLOCK
-        f32 = dict(dtype=torch.float32, device=dev)
+        per_sm, sms = dkp._occupancy(lib, "classic", flags, 0, 0, False,
+                                     False, torch.cuda.current_device())
+        plan = diff_schedule.plan(npix, per_sm, sms, max_bounces,
+                                  cols_per_thread=na,
+                                  max_cols=DIFF_CLASSIC_MAX_COLS)
+        split = dkp.image_plan(lib, "classic", flags, 0, npix, spp)
         img = torch.empty((height, width, 3), **f32)
-        saves = torch.empty((max_bounces, dkp.SAVE_WORDS, nt), **f32)
-        cols = torch.empty((na, nt), **f32)
-        wpart = torch.empty((blocks.value * (_BLOCK // 32), na), **f32)
+        samples = torch.empty((spp * npix * 3 if split > 1 else 0,), **f32)
+        saves = torch.empty((plan.saves_floats,), **f32)
+        cols = torch.empty((na, plan.threads), **f32)
+        wpart = torch.empty((plan.blocks * (diff_schedule.BLOCK // 32), na),
+                            **f32)
         acc = torch.empty((na,), **f32)
         srows, qrows = _scope_tensors(spec.surr_s, spec.surr_q, str(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -255,10 +255,10 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             spec.n_lights, spec.nm, spec.light_quad, srows.data_ptr(),
             srows.numel(), qrows.data_ptr(), qrows.numel(),
             target.data_ptr(), img.data_ptr(), saves.data_ptr(),
-            cols.data_ptr(), wpart.data_ptr(), acc.data_ptr(), blocks.value,
-            width, height, seed & _MASK, spp_offset & _MASK, spp,
-            max_bounces, float(np.float32(1.0 / spp)), int(spec.nee),
-            int(spec.sil), int(spec.has_met), int(spec.has_die), stream)
+            cols.data_ptr(), wpart.data_ptr(), acc.data_ptr(), plan.blocks,
+            plan.slots, width, height, seed & _MASK, spp_offset & _MASK,
+            spp, max_bounces, float(np.float32(1.0 / spp)),
+            *map(int, flags), split, samples.data_ptr(), stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel launch failed: CUDA error {err} "

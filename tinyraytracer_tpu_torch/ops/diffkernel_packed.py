@@ -21,8 +21,9 @@ pixel:
 
 `packed_diff` is the kernel's wrapper: on a CPU tensor it runs
 `packed_diff_reference`, the plain PyTorch twin; on a CUDA tensor it
-launches csrc/diffkernel_packed.cu, built at first use, and raises if the
-launch fails. `packed_diff.launches` counts launches.
+launches csrc/diffkernel_packed.cu (an image kernel for step 1, then the
+fused kernel), built at first use, and raises if the launch fails.
+`packed_diff.launches` counts launches.
 `render_value_and_grad_packed` takes a scene to (loss, image, grads)
 through the wrapper; `render_value_and_grad_packed_reference` does the
 same through the twin. The flat table (`packed_flat_table`), the spec
@@ -40,13 +41,14 @@ over pixels and rows in another order than the kernels', so they agree
 to reassociation.
 
 The TPU kernel's (S, L) tiling, its relayout and its phase-1 intersection
-cache are not carried over: the RNG keys off the pixel id, the CUDA kernel
-runs one thread per pixel in pixel order, and the cache only fit the
-replay into TPU VMEM (its values are identical without it).
+cache are not carried over: the RNG keys off the pixel id, the CUDA
+kernels give each thread whole pixels (ops/diff_schedule.py), and the cache
+only fit the replay into TPU VMEM (its values are identical without it).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 
 from tinyraytracer_tpu_torch import _build
-from tinyraytracer_tpu_torch.ops import rng, scene_table
+from tinyraytracer_tpu_torch.ops import diff_schedule, rng, scene_table
 from tinyraytracer_tpu_torch.ops.diffkernel import (
     _MISS,
     _T_MIN,
@@ -83,10 +85,6 @@ _LIGHT_F = 12  # corner(3) u(3) v(3) emit(3)
 
 # Quad edge-surrogate width (diffkernel_packed.py:888).
 _WQE = 0.05
-# Values the kernel keeps per bounce for the reverse sweep: 11 state
-# values, winner t, winner row, shadow visibility.
-SAVE_WORDS = 14
-_BLOCK = 128
 # How far the kernel's loss and gradient tables may stand from the twin's,
 # as a share of each table's largest entry: both sum the same terms, the
 # kernel per thread and then over blocks in a fixed order, the twin over
@@ -362,14 +360,19 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
     lib = _build.load()
     dev = tab.device
     npix = width * height
-    blocks = -(-npix // _BLOCK)
     na = spec.acc_width
-    img = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    saves = torch.empty((max_bounces, SAVE_WORDS, npix), dtype=torch.float32,
-                        device=dev)
-    part = torch.empty((blocks, na), dtype=torch.float32, device=dev)
-    acc = torch.empty((na,), dtype=torch.float32, device=dev)
+    nee, sil, met, die = diff_schedule.variant_flags(spec)
+    f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        plan, shared = k5_plan(lib, (nee, sil, met, die), tab.numel(), na,
+                               npix, max_bounces)
+        split = image_plan(lib, "packed", (nee, sil, met, die), tab.numel(),
+                           npix, spp)
+        img = torch.empty((height, width, 3), **f32)
+        samples = torch.empty((spp * npix * 3 if split > 1 else 0,), **f32)
+        saves = torch.empty((plan.saves_floats,), **f32)
+        part = torch.empty((plan.blocks, na), **f32)
+        acc = torch.empty((na,), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tinyrt_diff_packed(
             cam.data_ptr(), tab.data_ptr(), tab.numel(), spec.n_sph,
@@ -377,9 +380,10 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             target.data_ptr(), img.data_ptr(), saves.data_ptr(),
             part.data_ptr(), acc.data_ptr(), width, height,
             seed & _MASK, spp_offset & _MASK, spp, max_bounces,
-            float(np.float32(1.0 / spp)), int(spec.nee), int(spec.sil),
-            int(spec.has_met), int(spec.has_die), int(bool(spec.surr_s)),
-            int(bool(spec.surr_q)), stream)
+            float(np.float32(1.0 / spp)), int(nee), int(sil), int(met),
+            int(die), int(bool(spec.surr_s)), int(bool(spec.surr_q)),
+            plan.blocks, plan.slots, int(shared), split, samples.data_ptr(),
+            stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel_packed launch failed: CUDA error "
@@ -389,6 +393,51 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
 
 
 packed_diff.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _occupancy(lib, kernel: str, flags: tuple, nw: int, na: int,
+               shared: bool, image: bool, device: int) -> tuple:
+    """(blocks per SM, SMs) of K5 ("packed") or K4 ("classic"), or of its
+    image kernel, for a variant on the current device (`device` keys the
+    cache)."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    if kernel == "packed":
+        err = lib.tinyrt_diff_packed_occupancy(
+            nw, na, int(shared), int(image), *map(int, flags),
+            ctypes.byref(per_sm), ctypes.byref(sms))
+    else:
+        err = lib.tinyrt_diff_classic_occupancy(
+            int(image), *map(int, flags), ctypes.byref(per_sm),
+            ctypes.byref(sms))
+    if err != 0:
+        raise RuntimeError(f"diff kernel occupancy query failed: CUDA error "
+                           f"{err} ({lib.tinyrt_error_string(err).decode()})")
+    return per_sm.value, sms.value
+
+
+def image_plan(lib, kernel: str, flags: tuple, nw: int, npix: int,
+               spp: int) -> int:
+    """The sample parts of a launch's image kernel on the current device
+    (diff_schedule.image_split)."""
+    per_sm, sms = _occupancy(lib, kernel, flags, nw, 0, False, True,
+                             torch.cuda.current_device())
+    return diff_schedule.image_split(npix, spp, per_sm, sms)
+
+
+def k5_plan(lib, flags: tuple, nw: int, na: int, npix: int,
+            max_bounces: int):
+    """K5's launch on the current device: (diff_schedule.Plan, whether
+    the accumulator lives in shared memory). A thread's accumulator is its
+    column of a [na][128] block of shared memory when that costs no block
+    per SM against a local array (so when na is small), else a local
+    array."""
+    dev = torch.cuda.current_device()
+    local = _occupancy(lib, "packed", flags, nw, na, False, False, dev)
+    shared = _occupancy(lib, "packed", flags, nw, na, True, False, dev)
+    use = shared[0] >= local[0] and shared[0] > 0
+    per_sm, sms = shared if use else local
+    return diff_schedule.plan(npix, per_sm, sms, max_bounces), use
 
 
 # --- the plain PyTorch twin -------------------------------------------------
