@@ -41,10 +41,22 @@ Phases, each printed on its own lines:
    regeneration loop and under a lockstep sample loop.
 7. `render_batch` / `render_async` on the card: frames bitwise equal to
    single renders.
-8. The closest-hit kernel (K3) against its twin, bit for bit on t and j:
-   primary rays (64x48 spp=4) and the scattered and NEE shadow rays of a
-   traced bounce on four scenes, then config 5's full wavefront of
-   720 000 primary rays, where both are also timed.
+8. The closest-hit kernel (K3) against its twin, bit for bit on t and on
+   j where it is returned, through both routes (the rows in the kernel's
+   parameter bank, when the scene has at most 48 real rows, and the rows
+   in device memory) and the t-only launch of shadow rays, each launch
+   repeated bit for bit: primary rays (64x48 spp=4) and the scattered
+   and NEE shadow rays of a traced bounce on four scenes (K3_SCENES); the
+   edges (K3_EDGES: no spheres, no quads, 48 and 49 rows, two coincident
+   spheres; 0, 1, 31, 33 rays and counts around a block; strided rays);
+   the global route timed on the scattered and shadow rays of a scene
+   that takes it (K3_GLOBAL: 501 rows, 320 000 rays); then config 5's
+   own K3 inputs, captured from one round of its training render
+   (720 000 rays: the primary rays and the scattered and shadow rays of
+   K3_BOUNCES). There K3 is timed on every wavefront and as the
+   launch-weighted mean of a round (1 primary, 19 scattered, 20 shadow
+   launches), beside the twin. K3's SASS instructions per sphere and quad
+   row, read off the cuobjdump listing, give the issue time of the rows.
 9. The modular train step (`make_train_step`, 64x64 spp=4 mb=8) with K3
    and with the twin's selection: loss, gradients and updated params bit
    for bit, the step deterministic, K3 launched 2 x bounces x rounds
@@ -184,6 +196,24 @@ OPS_K3_QUAD_ROW = 49
 K3_BYTES_PER_RAY = 32
 K3_SCENES = [("cornell_spheres", {}), ("cornell_box", {}),
              ("three_spheres", {}), ("random_spheres", dict(n=500))]
+# K3's edge scenes (label, preset, random_spheres' n, extra spheres in the
+# Cornell box, a coincident copy of the last sphere): no spheres; no quads
+# at the bank's limit of 48 rows and one row over; spheres and quads at
+# the limit and one over; two coincident spheres.
+K3_EDGES = [("no spheres", "cornell_box", None, 0, False),
+            ("48 spheres, no quads", "random_spheres", 48, 0, False),
+            ("49 spheres, no quads", "random_spheres", 49, 0, False),
+            ("18 quads + 30 spheres", "cornell_box", None, 30, False),
+            ("18 quads + 31 spheres", "cornell_box", None, 31, False),
+            ("two coincident spheres", "sphere_ground", None, 0, True)]
+# Config 5's captured wavefronts: the scattered and shadow rays of these
+# bounces (and the primary rays) are checked and timed.
+K3_BOUNCES = (1, 5, 10, 19)
+# K3's global route timed on a scene that takes it: examples/
+# manysphere_fit.py's lit scene (lit_spheres) with config 4's 500 spheres,
+# 501 real rows, at bench.py's cfg4-class image and samples (CFG4C:
+# 200x200 spp=8, 320 000 rays); its scattered and shadow rays are timed.
+K3_GLOBAL = dict(n=500, width=200, height=200, spp=8)
 # Config 5 (BASELINE.md:36, bench.py:289-310): the sphere fit.
 CFG5 = dict(width=600, height=600, spp=200, max_bounces=20)
 TRAINABLE = ("sph_center", "mat_albedo")
@@ -994,15 +1024,20 @@ def api_phase(np, presets, Renderer):
 
 
 class RayCapture:
-    """A selection tape for `trace` that keeps a copy of every ray batch
-    it is asked to select for (primary, shadow, scattered, ...)."""
+    """A selection tape for `trace` that keeps a copy of the ray batches
+    it is asked to select for (primary, shadow, scattered, ...): every
+    call's, or those whose index is in `keep`, by call index. `kinds`
+    records each call's need_j (False: an NEE shadow ray's t-only test)."""
 
-    def __init__(self):
-        self.rays = []
+    def __init__(self, keep=None):
+        self.keep, self.rays, self.kinds = keep, {}, []
 
     def __call__(self, select, o, d, need_j=True):
-        self.rays.append((o.detach().clone(), d.detach().clone()))
-        return select(o, d)
+        i = len(self.kinds)
+        self.kinds.append(need_j)
+        if self.keep is None or i in self.keep:
+            self.rays[i] = (o.detach().clone(), d.detach().clone())
+        return select(o, d, need_j)
 
 
 def _device_ms(torch, fn, name, reps):
@@ -1013,60 +1048,224 @@ def _device_ms(torch, fn, name, reps):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if name in e.key
-          and e.self_device_time_total > 0]
-    if not ev:
-        raise RuntimeError(f"the profiler saw no {name} kernel")
-    return (sum(e.self_device_time_total for e in ev) / 1e3
-            / sum(e.count for e in ev))
+    for _ in range(3):   # a session now and then records no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if name in e.key
+              and e.self_device_time_total > 0]
+        if ev:
+            return (sum(e.self_device_time_total for e in ev) / 1e3
+                    / sum(e.count for e in ev))
+    raise RuntimeError(f"the profiler saw no {name} kernel")
 
 
 def _cfg5_wavefront(torch, presets, trace_ops, generate_rays):
+    """Config 5's scene at the fit's start (`_perturbed`) and the primary
+    rays of its first round (600x600, chunk 2: 720 000 rays), with their
+    pixel and sample ids and the preset's settings."""
     world, camera, kw = presets.cornell_spheres(width=CFG5["width"],
                                                 height=CFG5["height"])
-    scene = world.build().to("cuda")
+    scene = _perturbed(torch, world.build()).to("cuda")
     npix = CFG5["width"] * CFG5["height"]
     chunk, _ = trace_ops.sample_rounds(npix, CFG5["spp"], True)
     pid, sid = trace_ops.round_ids(torch.arange(npix, device="cuda"), chunk,
                                    0)
     o, d = generate_rays(camera.to("cuda"), pid, sid, 0)
-    return scene, o, d
+    return scene, o, d, pid, sid, kw
+
+
+def cfg5_wavefronts(torch, presets, ik, trace_ops, generate_rays):
+    """K3's inputs in config 5's training render (one round of
+    `render_loss`'s forward pass: NEE and silhouette, seed 0), captured
+    through a tape: (kind, bounce, need_j, o, d) for the primary rays and
+    the scattered and shadow rays of K3_BOUNCES. Bounce b's selection is
+    the round's call 2b, its NEE shadow ray's 2b + 1."""
+    scene, o, d, pid, sid, kw = _cfg5_wavefront(torch, presets, trace_ops,
+                                                generate_rays)
+    keep = {0} | {2 * b + k for b in K3_BOUNCES for k in (0, 1)}
+    cap = RayCapture(keep)
+    with torch.no_grad():
+        trace_ops.trace(scene, o, d, pid, sid, 0, CFG5["max_bounces"],
+                        kw["background"],
+                        compact=ik.compact_rows(scene, "cuda"), nee=True,
+                        silhouette=True, tape=cap)
+    if len(cap.kinds) != 2 * CFG5["max_bounces"] or any(
+            cap.kinds[i] != (i % 2 == 0) for i in range(len(cap.kinds))):
+        raise RuntimeError(f"cfg5 trace made selections {cap.kinds}")
+    waves = [("primary", 0, True, *cap.rays[0])]
+    for kind, k, need_j in (("scattered", 0, True), ("shadow", 1, False)):
+        waves += [(kind, b, need_j, *cap.rays[2 * b + k])
+                  for b in K3_BOUNCES]
+    return scene, waves
+
+
+def launch_weighted(times):
+    """The mean K3 time per launch of one config-5 round from `times`
+    {(kind, bounce): ms}: 1 primary, scattered at bounces 1..mb-1 and
+    shadow at 0..mb-1, each bounce's time interpolated linearly between
+    the measured bounces (held flat beyond them)."""
+    import numpy as np
+    mb = CFG5["max_bounces"]
+    total, n = times[("primary", 0)], 1
+    for kind, bounces in (("scattered", range(1, mb)),
+                          ("shadow", range(mb))):
+        xs = sorted(b for k, b in times if k == kind)
+        ys = [times[(kind, b)] for b in xs]
+        total += float(np.interp(list(bounces), xs, ys).sum())
+        n += len(bounces)
+    return total / n
+
+
+def _k3_world(presets, base, extra_spheres=0, coincident=False):
+    """An edge scene of K3 (64x48): a preset's world with `extra_spheres`
+    small spheres in a grid inside the Cornell box, or with a copy of its
+    last sphere under another material after it (the first must win)."""
+    from tinyraytracer_tpu_torch.models.geometry import Sphere
+    from tinyraytracer_tpu_torch.models.materials import Lambertian
+    world, camera, kw = presets.PRESETS[base](width=64, height=48)
+    if extra_spheres or coincident:
+        world.add_material("k3_extra", Lambertian((0.3, 0.5, 0.7)))
+    for k in range(extra_spheres):
+        world.add_geometry(Sphere((10.0 + 12.0 * (k % 7),
+                                   8.0 + 12.0 * (k // 7), 70.0), 4.0,
+                                  "k3_extra"))
+    if coincident:
+        last = [g for g in world.geometries if isinstance(g, Sphere)][-1]
+        world.add_geometry(Sphere(last.center, last.radius, "k3_extra"))
+    return world, camera, kw
+
+
+def _k3_sass_rows(ins):
+    """SASS instructions per row and ray of a K3 kernel (`ins`: its
+    (address, instruction) pairs): a row loop whose body holds only the
+    sphere test's sqrt (MUFU.RSQ) or only the quad test's divide
+    (MUFU.RCP) gives its length over their count; an unrolled walk, the
+    median distance between two of them in a row.
+    Only the kernel's main body counts, up to its closing self-branch
+    (the slow paths of sqrt and divide follow it)."""
+    import re
+    addrs = [int(a, 16) for a, _ in ins]
+    end = next((i for i, (a, x) in enumerate(ins)
+                if re.fullmatch(rf"BRA 0x0*{int(a, 16):x}", x.strip())),
+               len(ins))
+    main = [x for _, x in ins[:end]]
+    per = {}
+    for i, x in enumerate(main):
+        m = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)$", x.strip())
+        if not m or int(m.group(1), 16) >= addrs[i]:
+            continue
+        top = addrs.index(int(m.group(1), 16))
+        body = main[top:i + 1]
+        n_rsq = sum("MUFU.RSQ" in y for y in body)
+        n_rcp = sum("MUFU.RCP" in y for y in body)
+        if n_rsq and not n_rcp:
+            per.setdefault("sphere", len(body) / n_rsq)
+        if n_rcp and not n_rsq:
+            per.setdefault("quad", len(body) / n_rcp)
+    for key, op in (("sphere", "MUFU.RSQ"), ("quad", "MUFU.RCP")):
+        at = [i for i, y in enumerate(main) if op in y]
+        if key not in per and len(at) > 1:
+            gaps = sorted(b - a for a, b in zip(at, at[1:]))
+            per[key] = float(gaps[len(gaps) // 2])
+    per["main"] = len(main)
+    return per
+
+
+def k3_sass(sass_text):
+    """_k3_sass_rows of every K3 kernel in a cuobjdump listing, keyed by
+    the kernel's template arguments."""
+    import re
+    out = {}
+    for part in sass_text.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "closest_hit" not in name:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        m = re.search(r"closest_hit_kernelI(.*)EEv", name)
+        out[m.group(1) if m else name] = _k3_sass_rows(ins)
+    return out
+
+
+def _sm_clock_hz():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(smi.stdout.split()[0]) * 1e6
+
+
+def issue_ms(rays, n_sph, n_quad, per, sms, clock_hz):
+    """The issue time of the row tests alone: warps x (spheres x sphere +
+    quads x quad instructions) over 4 warp instructions per SM per
+    clock."""
+    warps = -(-rays // 32)
+    ins = warps * (n_sph * per.get("sphere", 0) + n_quad * per.get("quad", 0))
+    return ins / (4 * sms * clock_hz) * 1e3
 
 
 def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
-    """K3 against its twin on the card, bit for bit; times both at
-    config 5's wavefront. Returns the K3 record for the kernels line."""
+    """K3 against its twin on the card, bit for bit on t and on j where it
+    is returned, through both routes (the parameter bank, when the scene
+    fits it, and the global rows) and the t-only launch, each launch
+    repeated bit for bit: the wavefronts of K3_SCENES, the edges (K3_EDGES,
+    ray counts and strides), K3_GLOBAL's and config 5's captured
+    wavefronts. Times K3 on the last two and counts its SASS instructions
+    per row. Returns the K3 record for the kernels line."""
+    import dataclasses
     worst_t, worst_j = 0.0, 0
 
-    def compare(label, cs, o, d):
-        nonlocal worst_t, worst_j
-        before = ik.closest_hit.launches
-        t_k, j_k = ik.closest_hit(cs, o, d)
-        torch.cuda.synchronize()
-        if ik.closest_hit.launches != before + 1:
-            raise RuntimeError("K3 launch counter did not rise")
-        t_r, j_r = ik.closest_hit_reference(cs, o, d)
-        dt = float((t_k - t_r).abs().max())
-        dj = int((j_k != j_r).sum())
-        hits = float((j_k >= 0).float().mean())
-        worst_t, worst_j = max(worst_t, dt), max(worst_j, dj)
-        log(f"[k3] {label}: {o.shape[0]} rays, hit {hits:.1%}; max |dt| "
-            f"{dt:g}, j differing {dj}, t bitwise {torch.equal(t_k, t_r)}")
-        if not torch.equal(t_k, t_r) or dj:
-            raise RuntimeError(f"{label}: K3 differs from its twin")
+    def routes(cs):
+        return ([cs, dataclasses.replace(cs, bank=None)]
+                if cs.bank is not None else [cs])
 
-    for name, pkw in K3_SCENES:
-        world, camera, kw = presets.PRESETS[name](width=64, height=48,
-                                                  **pkw)
-        scene = world.build().to("cuda")
-        cs = ik.compact_rows(scene, "cuda")
+    def compare(label, cs, o, d, quiet=False):
+        nonlocal worst_t, worst_j
+        t_r, j_r = ik.closest_hit_reference(cs, o, d)
+        bad = []
+        for c in routes(cs):
+            for need_j in (True, False):
+                outs = []
+                for _ in range(2):
+                    before = ik.closest_hit.launches
+                    outs.append(ik.closest_hit(c, o, d, need_j))
+                    torch.cuda.synchronize()
+                    if ik.closest_hit.launches != before + (o.shape[0] > 0):
+                        raise RuntimeError("K3 launch counter did not rise")
+                (t_k, j_k), (t_2, j_2) = outs
+                tag = f"{c.route}{'' if need_j else ' t-only'}"
+                if need_j:
+                    worst_j = max(worst_j, int((j_k != j_r).sum()))
+                    if not torch.equal(j_k, j_r):
+                        bad.append(f"{tag}: j")
+                    if not torch.equal(j_k, j_2):
+                        bad.append(f"{tag}: j repeat")
+                elif j_k is not None:
+                    bad.append(f"{tag}: returned j")
+                if o.shape[0]:
+                    worst_t = max(worst_t, float((t_k - t_r).abs().max()))
+                if not torch.equal(t_k, t_r):
+                    bad.append(f"{tag}: t")
+                if not torch.equal(t_k, t_2):
+                    bad.append(f"{tag}: t repeat")
+        if not quiet or bad:
+            hits = float((j_r >= 0).float().mean()) if o.shape[0] else 0.0
+            log(f"[k3] {label}: {o.shape[0]} rays, hit {hits:.1%}; "
+                f"{'+'.join(c.route for c in routes(cs))}, (t, j) and "
+                "t-only, each launched twice: "
+                + ("bit for bit with the twin" if not bad else
+                   f"DIFFER {bad}"))
+        if bad:
+            raise RuntimeError(f"{label}: K3 differs from its twin")
+        return j_r
+
+    def traced(scene, camera, kw, spp=4):
+        """Primary rays and the shadow, scattered and shadow rays of one
+        traced bounce."""
         cap = RayCapture()
-        pix = torch.arange(64 * 48, device="cuda")
-        pid, sid = trace_ops.round_ids(pix, 4, 0)
+        pix = torch.arange(camera.width * camera.height, device="cuda")
+        pid, sid = trace_ops.round_ids(pix, spp, 0)
         o, d = generate_rays(camera.to("cuda"), pid, sid, 3)
         plain = ik.compact_rows(scene, "cuda", plain=True)
         with torch.no_grad():
@@ -1074,30 +1273,144 @@ def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
                             compact=plain, nee=True, tape=cap)
         labels = ["primary", "shadow (bounce 0)", "scattered (bounce 1)",
                   "shadow (bounce 1)"]
-        for label, (ro, rd) in zip(labels, cap.rays):
+        return [(lab, *cap.rays[i]) for i, lab in enumerate(labels)]
+
+    for name, pkw in K3_SCENES:
+        world, camera, kw = presets.PRESETS[name](width=64, height=48,
+                                                  **pkw)
+        scene = world.build().to("cuda")
+        cs = ik.compact_rows(scene, "cuda")
+        for label, ro, rd in traced(scene, camera, kw):
             compare(f"{name} {label}", cs, ro, rd)
 
-    scene, o, d = _cfg5_wavefront(torch, presets, trace_ops, generate_rays)
+    for label, base, n, extra, coincident in K3_EDGES:
+        if n is None:
+            world, camera, kw = _k3_world(presets, base, extra, coincident)
+        else:
+            world, camera, kw = presets.PRESETS[base](width=64, height=48,
+                                                      n=n)
+        scene = world.build().to("cuda")
+        cs = ik.compact_rows(scene, "cuda")
+        want = ("bank" if cs.n_sph + cs.n_quad <= ik.BANK_MAX_ROWS
+                else "global")
+        if cs.route != want:
+            raise RuntimeError(f"{label}: {cs.n_sph} + {cs.n_quad} rows took "
+                               f"the {cs.route} route")
+        for wl, ro, rd in traced(scene, camera, kw):
+            j = compare(f"edge {label} {wl}", cs, ro, rd, quiet=True)
+            if coincident:
+                sph, im = cs.sph[:cs.n_sph].cpu(), cs.index_map.cpu()
+                a, b = next((a, b) for a in range(cs.n_sph)
+                            for b in range(a + 1, cs.n_sph)
+                            if torch.equal(sph[a], sph[b]))
+                first, second = int(im[a]), int(im[b])
+                if (j == second).any() or (wl == "primary"
+                                           and not (j == first).any()):
+                    raise RuntimeError("coincident spheres: the second won")
+        log(f"[k3] edge {label}: {cs.n_sph} spheres + {cs.n_quad} quads, "
+            f"{cs.route} route; 4 wavefronts bit for bit, both routes and "
+            "t-only" + ("; the first of the two rows wins every tie"
+                        if coincident else ""))
+    # ray counts around a warp and a block of 128, and strides
+    world, camera, kw = presets.cornell_spheres(width=64, height=48)
+    scene = world.build().to("cuda")
     cs = ik.compact_rows(scene, "cuda")
-    compare("cfg5 wavefront (600x600, 2 samples)", cs, o, d)
-    ms = _device_ms(torch, lambda: ik.closest_hit(cs, o, d), "closest_hit",
-                    50)
+    _, ro, rd = traced(scene, camera, kw, spp=8)[2]
+    counts = (0, 1, 31, 33, 127, 129, 389)
+    for r in counts:
+        compare(f"edge R={r}", cs, ro[:r], rd[:r], quiet=True)
+    wide = torch.cat([ro, rd], 1)
+    compare("edge (R, 3) views of an (R, 6) array", cs, wide[:, :3],
+            wide[:, 3:], quiet=True)
+    compare("edge (3, R).T views", cs, ro.t().contiguous().t(),
+            rd.t().contiguous().t(), quiet=True)
+    log(f"[k3] edges: R in {counts}, (R, 3) views of an (R, 6) array and "
+        "(3, R).T views bit for bit, both routes and t-only")
+
+    def dev_ms(fn):
+        return _device_ms(torch, fn, "closest_hit", 50)
+
+    # the global route on a scene that takes it
+    g = K3_GLOBAL
+    world, camera = lit_spheres(presets, g["n"], g["width"], g["height"])
+    scene = world.build().to("cuda")
+    cs = ik.compact_rows(scene, "cuda")
+    if cs.route != "global":
+        raise RuntimeError(f"{cs.n_sph + cs.n_quad} rows took the {cs.route} "
+                           "route")
+    glob_times = {}
+    for label, o, d in traced(scene, camera, dict(background=LIT_BG),
+                              g["spp"]):
+        compare(f"lit random_spheres n={g['n']} {label}", cs, o, d)
+        if label == "primary":
+            continue
+        need_j = not label.startswith("shadow")
+        glob_times[label] = dev_ms(lambda o=o, d=d, need_j=need_j:
+                                   ik.closest_hit(cs, o, d, need_j))
+        log(f"[k3] global route, lit random_spheres n={g['n']} "
+            f"{g['width']}x{g['height']} spp={g['spp']} {label} "
+            f"({o.shape[0]} rays, {cs.n_sph} spheres + {cs.n_quad} quads, "
+            f"{'(t, j)' if need_j else 't-only'}): K3 "
+            f"{glob_times[label]:.4f} ms")
+    glob_rays, glob_rows = o.shape[0], (cs.n_sph, cs.n_quad)
+    t_ops = glob_rays * (cs.n_sph * OPS_K3_SPHERE_ROW
+                         + cs.n_quad * OPS_K3_QUAD_ROW) / FP32_PEAK
+    t_bytes = glob_rays * K3_BYTES_PER_RAY / HBM_BYTES_S
+    glob_bound = max(t_ops, t_bytes) * 1e3
+    log(f"[k3] global route bound: {glob_bound:.4f} ms a wavefront "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+
+    scene, waves = cfg5_wavefronts(torch, presets, ik, trace_ops,
+                                   generate_rays)
+    cs = ik.compact_rows(scene, "cuda")
+    for kind, b, _, o, d in waves:
+        compare(f"cfg5 {kind} (bounce {b})", cs, o, d)
+
+    times = {}
+    r = waves[0][3].shape[0]
+    for kind, b, need_j, o, d in waves:
+        times[(kind, b)] = dev_ms(lambda o=o, d=d, need_j=need_j:
+                                  ik.closest_hit(cs, o, d, need_j))
+        log(f"[k3] cfg5 {kind} bounce {b} "
+            f"({'(t, j)' if need_j else 't-only'}): K3 "
+            f"{times[(kind, b)]:.4f} ms")
+    mean = launch_weighted(times)
+    o, d = waves[0][3], waves[0][4]
     plain_ms = time_kernel(torch, lambda: ik.closest_hit_reference(cs, o, d),
                            3)
-    r = o.shape[0]
     ops = r * (cs.n_sph * OPS_K3_SPHERE_ROW + cs.n_quad * OPS_K3_QUAD_ROW)
     t_ops, t_bytes = ops / FP32_PEAK, r * K3_BYTES_PER_RAY / HBM_BYTES_S
-    rec = dict(rays=r, ms=ms, plain_ms=plain_ms,
+
+    def named(t):
+        return {f"{k} {b}": v for (k, b), v in t.items()}
+
+    rec = dict(rays=r, ms=times[("primary", 0)], plain_ms=plain_ms,
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               max_abs_err=worst_t, j_differing=worst_j)
-    host_ms = time_kernel(torch, lambda: ik.closest_hit(cs, o, d), 50)
-    rec["host_loop_ms"] = host_ms
-    log(f"[k3] cfg5 wavefront ({r} rays, {cs.n_sph} spheres + {cs.n_quad} "
-        f"quads): K3 {ms:.4f} ms per call on the device (profiler; a loop "
-        f"of calls timed with events: {host_ms:.4f} ms each), twin "
+               max_abs_err=worst_t, j_differing=worst_j,
+               ms_launch_weighted=mean, wavefront_ms=named(times),
+               global_rays=glob_rays, global_wavefront_ms=glob_times,
+               global_bound_ms=glob_bound)
+    log(f"[k3] cfg5 wavefronts ({r} rays, {cs.n_sph} spheres + {cs.n_quad} "
+        f"quads): K3 primary {rec['ms']:.4f} ms, launch-weighted mean "
+        f"{mean:.4f} ms a launch (1 primary, {CFG5['max_bounces'] - 1} "
+        f"scattered, {CFG5['max_bounces']} shadow); twin "
         f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}); on {card}")
+
+    with open(os.path.join(ROOT, "output", "forward_sass.txt")) as f:
+        counts = k3_sass(f.read())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _sm_clock_hz()
+    for tag, per in sorted(counts.items()):
+        est = issue_ms(r, cs.n_sph, cs.n_quad, per, sms, clock)
+        est_g = issue_ms(glob_rays, *glob_rows, per, sms, clock)
+        log(f"[k3] sass {tag}: {per.get('sphere', 0):.1f} instructions per "
+            f"sphere row and ray, {per.get('quad', 0):.1f} per quad row "
+            f"({per['main']} in the main body); the rows alone issue in "
+            f"{est:.4f} ms at cfg5, {est_g:.4f} ms on the global-route "
+            f"scene, at {clock / 1e6:.0f} MHz on {sms} SMs")
+    rec["sass_per_row"] = counts
     return rec
 
 
@@ -2392,7 +2705,8 @@ def main(argv=None) -> int:
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
                     "cfg4f (16-17); the result lines need the default "
                     "set")
-    only = ap.parse_args(argv).only.split(",")
+    args = ap.parse_args(argv)
+    only = args.only.split(",")
     import numpy as np
     import torch
 
@@ -2483,7 +2797,8 @@ def main(argv=None) -> int:
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
          "plain_shape": f"{k3['rays']} rays",
-         "ms_at_plain_shape": k3["ms"]},
+         "ms_at_plain_shape": k3["ms"],
+         "ms_launch_weighted": k3["ms_launch_weighted"]},
         {"name": "diffkernel_packed", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel_packed.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel_packed.py:240",

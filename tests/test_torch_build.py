@@ -96,13 +96,14 @@ def test_declare_types_every_exported_function():
     fold = lib.tinyrt_fold_samples.argtypes
     assert fold == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
     k3 = lib.tinyrt_closest_hit.argtypes
-    assert len(k3) == 16
-    assert [k for k, t in enumerate(k3) if t is p] == [0, 3, 6, 8, 11, 12,
-                                                       13, 15]
-    # the ray strides are 64-bit: a (R, 3) view's row stride times R
-    # passes 2^31 elements at R = 716 million rays
+    assert len(k3) == 17
+    assert [k for k, t in enumerate(k3) if t is p] == [0, 3, 7, 9, 12, 13,
+                                                       14, 16]
+    assert k3[6] is ctypes.c_char_p     # the bank's bytes, or None
+    # the ray strides and count are 64-bit: a (R, 3) view's row stride
+    # times R passes 2^31 elements at R = 716 million rays
     assert [k for k, t in enumerate(k3) if t is ctypes.c_longlong] == [
-        1, 2, 4, 5]
+        1, 2, 4, 5, 15]
     k5 = lib.tinyrt_diff_packed.argtypes
     assert len(k5) == 32
     assert [k for k, t in enumerate(k5) if t is p] == [0, 1, 8, 9, 10, 11,
@@ -137,6 +138,16 @@ def test_flags_target_hopper_without_fast_math():
         assert "arch=compute_90a,code=sm_90a" in f
         assert f"--fmad={'true' if fmad else 'false'}" in f
         assert not any("fast" in x for x in f)
+
+
+def test_k3_bank_is_the_kernels():
+    """The bank's row limit and bytes the host packs are the ones
+    csrc/closest_hit.cu is built with."""
+    from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
+
+    src = (_build.CSRC_DIR / "closest_hit.cu").read_text()
+    assert f"constexpr int kBankRows = {ik.BANK_MAX_ROWS};" in src
+    assert f"sizeof(BankRows) == {ik.BANK_BYTES}" in src
 
 
 def test_k5_accumulator_limit_is_the_kernels():

@@ -17,6 +17,7 @@ from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
 from tinyraytracer_tpu_torch.ops import megakernel as mk
 from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 from tinyraytracer_tpu_torch.ops import trace as trace_ops
+from torch_k3_scenes import k3_world
 
 # Kernel vs twin on one card. Both use the card's sinf/cosf/expf/logf,
 # IEEE sqrt and division, and no FMA contraction (the kernel is built
@@ -279,6 +280,116 @@ def test_closest_hit_kernel_equals_twin(cuda, name, pkw):
         assert ik.closest_hit.launches == before + 1
         t_r, j_r = ik.closest_hit_reference(cs, ro, rd)
         assert torch.equal(t, t_r) and torch.equal(j, j_r)
+
+
+def _k3_routes(cs):
+    """The scene's routes: the parameter bank where it fits, and always
+    the global rows."""
+    import dataclasses
+    glob = dataclasses.replace(cs, bank=None)
+    return [cs, glob] if cs.bank is not None else [glob]
+
+
+def _k3_bitwise(cs, o, d):
+    """K3 through each route, (t, j) and t-only, launched twice: t and j
+    bit for bit with the twin and with the other launch. Returns the
+    twin's j."""
+    t_r, j_r = ik.closest_hit_reference(cs, o, d)
+    for c in _k3_routes(cs):
+        for need_j in (True, False):
+            runs = []
+            for _ in range(2):
+                before = ik.closest_hit.launches
+                runs.append(ik.closest_hit(c, o, d, need_j))
+                torch.cuda.synchronize()
+                assert ik.closest_hit.launches == before + (o.shape[0] > 0)
+            for t, j in runs:
+                assert torch.equal(t, t_r), (c.route, need_j)
+                if need_j:
+                    assert torch.equal(j, j_r), c.route
+                else:
+                    assert j is None
+    return j_r
+
+
+def _k3_wavefronts(cuda, scene, camera, kw):
+    """Primary rays and the shadow, scattered and shadow rays of a traced
+    bounce (32x24, 2 samples)."""
+    pid, sid = trace_ops.round_ids(torch.arange(32 * 24, device=cuda), 2, 0)
+    o, d = generate_rays(camera.to(cuda), pid, sid, 3)
+    cap = _RayCapture()
+    with torch.no_grad():
+        trace_ops.trace(scene, o, d, pid, sid, 3, 2, kw["background"],
+                        compact=ik.compact_rows(scene, cuda, plain=True),
+                        nee=True, tape=cap)
+    return cap.rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, n, extra, coincident", [
+    ("cornell_box", None, 0, False),          # no spheres
+    ("random_spheres", 48, 0, False),         # no quads, the bank's limit
+    ("random_spheres", 49, 0, False),         # one row over
+    ("cornell_box", None, 30, False),         # 18 quads + 30: the limit
+    ("cornell_box", None, 31, False),         # one row over
+    ("sphere_ground", None, 0, True),         # two coincident spheres
+])
+def test_closest_hit_edge_scenes_on_both_routes(cuda, name, n, extra,
+                                                coincident):
+    """K3's edge scenes through the parameter bank and the global rows,
+    (t, j) and t-only: bit for bit with the twin, launches repeatable; a
+    scene of at most 48 real rows takes the bank, one more the global
+    route; of two coincident spheres the first row wins every tie."""
+    world, camera, kw = k3_world(name, n, extra, coincident)
+    scene = world.build().to(cuda)
+    cs = ik.compact_rows(scene, cuda)
+    rows = cs.n_sph + cs.n_quad
+    assert cs.route == ("bank" if rows <= ik.BANK_MAX_ROWS else "global")
+    assert rows in (18, 48, 49, 3)
+    for i, (ro, rd) in enumerate(_k3_wavefronts(cuda, scene, camera, kw)):
+        j = _k3_bitwise(cs, ro, rd)
+        if coincident:
+            sph, im = cs.sph[:cs.n_sph].cpu(), cs.index_map.cpu()
+            a, b = next((a, b) for a in range(cs.n_sph)
+                        for b in range(a + 1, cs.n_sph)
+                        if torch.equal(sph[a], sph[b]))
+            assert not (j == int(im[b])).any()
+            if i == 0:                  # the camera sees the sphere
+                assert (j == int(im[a])).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 1, 31, 33, 127, 129, 389])
+def test_closest_hit_ray_counts(cuda, r):
+    """Ray counts around a warp and K3's block of 128 (csrc/closest_hit.cu
+    kThreads), bit for bit on both routes and t-only (cornell_spheres'
+    scattered rays)."""
+    world, camera, kw = presets.cornell_spheres(width=32, height=24)
+    scene = world.build().to(cuda)
+    cs = ik.compact_rows(scene, cuda)
+    ro, rd = _k3_wavefronts(cuda, scene, camera, kw)[2]
+    _k3_bitwise(cs, ro[:r], rd[:r])
+
+
+@pytest.mark.cuda
+def test_closest_hit_strided_rays_and_t_only(cuda):
+    """(R, 3) views of an (R, 6) array and (3, R).T views give the
+    contiguous rays' bits; the t-only launch gives the full launch's t,
+    j None, and counts as one launch."""
+    world, camera, kw = presets.cornell_spheres(width=32, height=24)
+    scene = world.build().to(cuda)
+    cs = ik.compact_rows(scene, cuda)
+    assert cs.route == "bank"
+    ro, rd = _k3_wavefronts(cuda, scene, camera, kw)[1]
+    wide = torch.cat([ro, rd], 1)
+    _k3_bitwise(cs, wide[:, :3], wide[:, 3:])
+    _k3_bitwise(cs, ro.t().contiguous().t(), rd.t().contiguous().t())
+    t, j = ik.closest_hit(cs, ro, rd)
+    before = ik.closest_hit.launches
+    t1, j1 = ik.closest_hit(cs, ro, rd, need_j=False)
+    torch.cuda.synchronize()
+    assert ik.closest_hit.launches == before + 1 and j1 is None
+    assert torch.equal(t, t1)
 
 
 @pytest.mark.cuda

@@ -142,7 +142,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i
     ll = ctypes.c_longlong
     fn = lib.tinyrt_closest_hit
-    fn.argtypes = [p, ll, ll, p, ll, ll, p, i, p, i, i, p, p, p, i, p]
+    fn.argtypes = [p, ll, ll, p, ll, ll, ctypes.c_char_p, p, i, p, i, i, p,
+                   p, p, ll, p]
     fn.restype = i
     fn = lib.tinyrt_diff_packed
     fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i, i, u, u, i, i,

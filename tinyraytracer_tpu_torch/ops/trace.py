@@ -108,7 +108,7 @@ class SelectionTape:
 
     def __call__(self, select, o, d, need_j=True):
         if self._pos is None:
-            t, j = select(o, d)
+            t, j = select(o, d, need_j)
             out = (t, j if need_j else None)
             self.entries.append(out)
             return out
@@ -156,11 +156,12 @@ def trace(
 
     def select(o, d, need_j=True):
         """Detached closest-hit selection: (t_screen, j). j < 0 = miss;
-        a shadow ray needs only t (`need_j` False lets a tape drop j)."""
+        a shadow ray needs only t (`need_j` False: K3 launches t-only and
+        returns j None, a tape drops j)."""
         if compact is not None:
             if compact.plain:
-                return closest_hit_reference(compact, o, d)
-            return closest_hit(compact, o, d)
+                return closest_hit_reference(compact, o, d, need_j)
+            return closest_hit(compact, o, d, need_j)
         return isect.closest_select(scene, o, d, exact=exact)
 
     if tape is not None:
