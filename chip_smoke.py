@@ -114,9 +114,27 @@ Phases, each printed on its own lines:
    diffuse sphere's row, Adam 0.08, 20 steps): loss and position error
    every 5 steps, the untrained rows' drift exactly 0.
 
+18. The mesh routes (parallel/sharded.py) on meshes of the one card
+   repeated (cells on one device run one after another). First, outside
+   the counted window: K1 and K2 over every mesh shape against the
+   twins' sharded renders bit for bit (64x48 spp=4; K2 dense and culled),
+   and K1 at the sample split's threshold, where the whole image fills a
+   wave and a (2, 1) shard does not. Then, with every counter zeroed:
+   config 3 (K1) over (2, 1), (1, 2) and (2, 2), configs 4b and 4 (K2; 4
+   at MESH_CFG4_SPP) over (2, 1): tile-only meshes bit for bit with one
+   launch, sample splits within MESH_SPLIT_RTOL, each counter rising by
+   the cells; config 5's fused step (K5, cfg5f's full shape) and the
+   cfg4-class step (K4, trainable_rows) over 2 cells: the loss, image and
+   gradient tables against one device, two steps deterministic; the
+   modular step with K3 (phase 9's shape) over (1, 2); config 3's meshes
+   and cfg5f's objective over a one-rank NCCL process group, bit for bit
+   with the one-process mesh. Wall times of each sharded run beside the
+   one-device run, in alternating pairs (median and range); with more
+   than one card, a mesh of all of them.
+
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17).
+(16-17), mesh (18).
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -1520,7 +1538,7 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
     template, camera, target, kw = _train_setup(torch, presets, Renderer, w,
                                                 h, CFG5["spp"])
     finite, nonfinite = [], {}
-    real_vg = inverse.value_and_grad
+    real_vg = inverse.mesh_value_and_grad
 
     def checking_vg(*a, **k):
         loss, g = real_vg(*a, **k)
@@ -1579,7 +1597,7 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
     from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
     mkp.render_packed.launches = mk.render_flat.launches = 0
     ik.closest_hit.launches = 0
-    inverse.value_and_grad = checking_vg
+    inverse.mesh_value_and_grad = checking_vg
     try:
         state, loss0, warm_s = timed(step, state, 0)
         torch.cuda.reset_peak_memory_stats()
@@ -1590,7 +1608,7 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
             times.append(dt)
             per_step.append(ik.closest_hit.launches - before)
     finally:
-        inverse.value_and_grad = real_vg
+        inverse.mesh_value_and_grad = real_vg
     counters.update(K1=mkp.render_packed.launches,
                     K2=mk.render_flat.launches, K3=ik.closest_hit.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2691,8 +2709,491 @@ def routing_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, optim,
     return dict(curve=curve, seconds=dt, drift=drift, launches=n)
 
 
+# Phase 18, the mesh route (parallel/sharded.py) on the one card: meshes
+# of cuda:0 repeated, (tile, sample) shapes. Config 3 through K1 over each
+# of MESH_SHAPES; configs 4b (culled) and 4 (spp cut to MESH_CFG4_SPP:
+# the dense walk at full resolution) through K2 over (2, 1); the fused
+# steps over 2 cells; the modular step over (1, 2).
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2)]
+MESH_CFG4_SPP = 20
+# A sample split changes only the sample mean's summation order (the JAX
+# package's atol 1e-6, tests/test_sharded.py:47-58): each value within
+# MESH_SPLIT_RTOL x max(1, |one-device value|), since the Cornell light's
+# radiance passes 1. Its distance in ulps is printed.
+MESH_SPLIT_RTOL = 1e-6
+# The fused steps over a mesh against one device (tests/test_diffkernel.py
+# :130-160): the loss within 1e-6 relative, the image within 1e-6, each
+# gradient table within 1e-5 of its largest entry. The modular step's
+# sample split: the loss within 1e-5 (tests/test_diff.py:114-131), each
+# gradient field within MESH_TABLE_RTOL of its largest entry.
+MESH_LOSS_RTOL = 1e-6
+MESH_IMG_ATOL = 1e-6
+MESH_TABLE_RTOL = 1e-5
+MESH_MODULAR_LOSS_RTOL = 1e-5
+# Each mesh run is timed against the one-device run of the same work in
+# MESH_TIME_REPS alternating pairs (which of the two runs first flips
+# each pair); the median and the range [min, max] of each are printed. A
+# mesh's overhead is stated only where the two ranges do not overlap.
+MESH_TIME_REPS = 7
+
+
+def _spread(xs):
+    """(median, min, max) of a list of seconds."""
+    ys = sorted(xs)
+    n = len(ys)
+    return (ys[(n - 1) // 2] + ys[n // 2]) / 2, ys[0], ys[-1]
+
+
+def _pair_line(key, one, mesh):
+    """A printable line and a record of one mesh-vs-one-device pair."""
+    m1, lo1, hi1 = _spread(one)
+    m2, lo2, hi2 = _spread(mesh)
+    resolved = lo2 > hi1 or hi2 < lo1
+    rec = dict(one_s=one, mesh_s=mesh, one_median_s=m1, mesh_median_s=m2,
+               overhead=(m2 / m1 - 1) if resolved else None)
+    over = (f"{m2 / m1 - 1:+.1%}" if resolved
+            else "inside the spread (not resolved)")
+    line = (f"{key}: one device {m1 * 1e3:.2f} ms [{lo1 * 1e3:.2f}, "
+            f"{hi1 * 1e3:.2f}], mesh {m2 * 1e3:.2f} ms [{lo2 * 1e3:.2f}, "
+            f"{hi2 * 1e3:.2f}] (median [min, max] of {len(one)}); mesh "
+            f"overhead {over}")
+    return line, rec
+
+
+def _ulps(torch, a, b):
+    """Largest distance in ulps between two f32 tensors of one sign."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def _mesh_twin_part(mkp, mk, r, packed, max_bounces, seed):
+    """render_sharded's part function through the forward twins."""
+    def part(device, begin, count, spp, offset):
+        if packed:
+            low = r.lowered
+            table, cam = r.packed_tensors(device)
+            return mkp.render_packed_reference(
+                table, cam, n_sph=low.n_sph, n_quad=low.n_quad,
+                width=r.camera.width, height=r.camera.height, spp=spp,
+                max_bounces=max_bounces, seed=seed, spp_offset=offset,
+                has_met=low.has_met, has_die=low.has_die, sky=low.sky,
+                pixels=(begin, count))
+        args = r.flat_args(spp=spp, max_bounces=max_bounces, seed=seed,
+                           spp_offset=offset, device=device,
+                           pixels=(begin, count))
+        args.pop("aabbs")
+        return mk.render_flat_reference(**args)
+    return part
+
+
+def mesh_twin_checks(torch, presets, mk, mkp, sharded, lib):
+    """K1 and K2 over meshes against the twins' sharded renders, bit for
+    bit, at 64x48 spp=4 (every mesh shape; K2 dense and culled) and at the
+    sample split's threshold for K1 (an image that fills one wave, whose
+    (2, 1) shards do not); K5 and K4 over a (2, 2) mesh against the twin
+    on each cell's range. Kernel launches here are comparisons and are
+    not counted."""
+    dev = torch.device("cuda", 0)
+    spp, mb, seed = 4, 8, 3
+
+    def check(label, r, packed, shapes):
+        w, h = r.camera.width, r.camera.height
+        one = r.render(spp=spp, max_bounces=mb, seed=seed, packed=packed)
+        for shape in shapes:
+            mesh = sharded.make_mesh([dev] * (shape[0] * shape[1]),
+                                     sample_parallel=shape[1])
+            got = r.render(spp=spp, max_bounces=mb, seed=seed,
+                           packed=packed, mesh=mesh)
+            want = sharded.render_sharded(
+                mesh, _mesh_twin_part(mkp, mk, r, packed, mb, seed),
+                npix=w * h, spp=spp).view(h, w, 3)
+            same = bool(torch.equal(got, want))
+            tile_same = bool(torch.equal(got, one)) if shape[1] == 1 else None
+            log(f"[mesh] {label} {w}x{h} spp={spp} mesh {shape}: kernel == "
+                f"twin's sharded render bitwise {same}"
+                + ("" if tile_same is None else
+                   f", == one-device launch bitwise {tile_same}"))
+            if not same or tile_same is False:
+                raise RuntimeError(f"{label} mesh {shape}: the kernel's "
+                                   "sharded render differs")
+
+    r, _ = _scene(presets, mk, "cornell_box", {}, 64, 48)
+    check("K1 cornell_box", r, True, MESH_SHAPES)
+    r, _ = _scene(presets, mk, "random_spheres", dict(n=500), 64, 48)
+    check("K2 random_spheres_500", r, False, MESH_SHAPES)
+    r, _ = _scene(presets, mk, "random_spheres", dict(n=8000), 64, 48)
+    check("K2 random_spheres_8000 (culled)", r, False, [(2, 1)])
+    r, _ = _scene(presets, mk, "cornell_box", {}, 64, 48)
+    low = r.lowered
+    flags = (int(low.has_met), int(low.has_die), int(low.sky))
+    query = lambda w, h: lib.tinyrt_megakernel_packed_split(  # noqa: E731
+        low.table.size, w, h, spp, *flags)
+    (w, h) = split_threshold(query)[1]
+    shard_rows = -(-h // 2) + 1
+    log(f"[mesh] K1 split threshold: {w}x{h} takes split {query(w, h)}, a "
+        f"(2, 1) shard's {shard_rows} rows split {query(w, shard_rows)}")
+    if not (query(w, h) == 1 and query(w, shard_rows) > 1):
+        raise RuntimeError("the threshold image's shards do not split")
+    r, _ = _scene(presets, mk, "cornell_box", {}, w, h)
+    check("K1 cornell_box at the split threshold", r, True, [(2, 1)])
+
+    # K5 and K4 over a (2, 2) mesh: each cell's range against the twin on
+    # the same range (cornell_spheres 64x48 spp=2 mb=4, class scope; K4
+    # with the first sphere row as an explicit subset)
+    import numpy as np
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera, kw = presets.cornell_spheres(width=64, height=48)
+    scene = world.build().to(dev)
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        48, 64, 3).astype(np.float32) * 0.5)
+    mesh = sharded.make_mesh([dev] * 4, sample_parallel=2)
+    row = dk.build_diff_static(scene).sph_rows[0]
+    for kid, fn, surr in (("K5", dkp.packed_diff, (True, False)),
+                          ("K4", dk.classic_diff, ((0,), False))):
+        run = lambda f: dkp._value_and_grad(  # noqa: E731
+            f, scene, camera, target, spp=2, max_bounces=4,
+            background=kw["background"], seed=3, spp_offset=1, nee=True,
+            silhouette=True, static=None, mesh=mesh, surr_sph=surr[0],
+            surr_quad=surr[1])
+        lk, ik_, gk = run(fn)
+        lt, it, gt = run(dkp.packed_diff_reference)
+        same = bool(torch.equal(ik_, it))
+        rel = max(float((gk[k] - gt[k]).abs().max())
+                  / max(float(gt[k].abs().max()), 1e-30) for k in gt)
+        loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
+        log(f"[mesh] {kid} cornell_spheres 64x48 spp=2 mb=4 over (2, 2) "
+            f"(sphere row {row} {'only' if kid == 'K4' else 'class'}): "
+            f"image == twin bitwise {same}, loss rel {loss_rel:.3g}, "
+            f"fields (max |d| / max) worst {rel:.3g}")
+        if not same or max(rel, loss_rel) > dkp.TABLE_RTOL:
+            raise RuntimeError(f"{kid} over a mesh differs from its twin")
+
+
+def mesh_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, sharded,
+               Renderer, card):
+    """Phase 18: the mesh routes on the card at full width, a
+    process-group route over a one-rank NCCL group, and the times of each
+    sharded run beside the one-device run. Returns its record, with the
+    kernels' launches in the counted window."""
+    from tinyraytracer_tpu_torch.diff.params import scene_params
+
+    dev = torch.device("cuda", 0)
+    mesh_of = lambda shape, group=None: sharded.make_mesh(  # noqa: E731
+        [dev] * (shape[0] * shape[1]), sample_parallel=shape[1], group=group)
+    times, res = {}, {"card": card}
+
+    def pair(key, one, mesh_run, reps=MESH_TIME_REPS):
+        """Times `one` and `mesh_run` in `reps` alternating pairs into
+        times[key] = (one's seconds, the mesh's seconds)."""
+        got = ([], [])
+        for i in range(reps):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (one, mesh_run)[j]()
+                torch.cuda.synchronize()
+                got[j].append(time.perf_counter() - t0)
+        times[key] = got
+
+    def rises(name, fn, n):
+        before = _counters(ik, mk, mkp, dk, dkp)[name]
+        out = fn()
+        torch.cuda.synchronize()
+        got = _counters(ik, mk, mkp, dk, dkp)[name] - before
+        if got != n:
+            raise RuntimeError(f"{name} launched {got} times, expected {n}")
+        return out
+
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    # -- forward: config 3 (K1) over each shape, 4b and 4 (K2) over (2, 1)
+    fwd = {}
+    for label, name, pkw, w, h, spp, mb, _ in CONFIGS:
+        if label not in ("cfg3", "cfg4b", "cfg4"):
+            continue
+        if label == "cfg4":
+            spp = MESH_CFG4_SPP
+        world, camera, kw = presets.PRESETS[name](width=w, height=h, **pkw)
+        r = mk.MegakernelRenderer(world.build(), camera, kw["background"],
+                                  dev)
+        kid = "K1" if label == "cfg3" else "K2"
+        render = lambda mesh=None: r.render(  # noqa: E731
+            spp=spp, max_bounces=mb, seed=0, mesh=mesh)
+        rises(kid, render, 1)                              # warm-up
+        one = rises(kid, render, 1)
+        shapes = MESH_SHAPES if label == "cfg3" else [(2, 1)]
+        for shape in shapes:
+            mesh = mesh_of(shape)
+            rises(kid, lambda: render(mesh), mesh.size)    # warm-up
+            img = rises(kid, lambda: render(mesh), mesh.size)
+            pair(f"{label} mesh {shape}", render, lambda: render(mesh))
+            d = float((img - one).abs().max())
+            ulps = _ulps(torch, img, one)
+            if shape[1] == 1:
+                ok = bool(torch.equal(img, one))
+            else:
+                tol = MESH_SPLIT_RTOL * torch.clamp_min(one.abs(), 1.0)
+                ok = bool(((img - one).abs() <= tol).all())
+            fwd[f"{label} {shape}"] = dict(max_abs=d, max_ulps=ulps, ok=ok)
+            log(f"[mesh] {label} {name} {w}x{h} spp={spp} mb={mb} ({kid}) "
+                f"mesh {shape}: {'bitwise' if shape[1] == 1 else 'split'} "
+                f"check {ok}, max |d| {d:.3g} ({ulps} ulp)")
+            if not ok:
+                raise RuntimeError(f"{label} mesh {shape}: the sharded "
+                                   "render differs from one device")
+        if label == "cfg3":       # the public API's mesh: Renderer(devices=)
+            rnd = Renderer(spp, max_bounces=mb,
+                           background_color=kw["background"], seed=0,
+                           devices=[dev] * 4, sample_parallel=2)
+            fb = rises(kid, lambda: rnd.render_array(camera, r.scene), 4)
+            same = bool(torch.equal(fb, img))
+            log(f"[mesh] Renderer(devices=[cuda:0] * 4, sample_parallel=2)"
+                f" {rnd.mesh!r}: == MegakernelRenderer.render(mesh=) "
+                f"bitwise {same}")
+            if not same:
+                raise RuntimeError("Renderer's mesh route differs")
+    res["forward"] = fwd
+
+    # -- the fused steps over 2 cells: cfg5f (K5) and cfg4class (K4)
+    w, h, mb = CFG5["width"], CFG5["height"], CFG5["max_bounces"]
+    template, camera, target, kw = _train_setup(torch, presets, Renderer, w,
+                                                h, CFG5["spp"])
+    world4, camera4, kw4 = presets.random_spheres(
+        width=CFG4C["width"], height=CFG4C["height"], n=CFG4C["n"])
+    template4 = world4.build()
+    rows4 = dk.build_diff_static(template4).sph_rows[:CFG4C_ROWS]
+    fused = {}
+    for cell, kid, tmpl, cam, tgt, bg, spp, mbb, rows in (
+            ("cfg5f", "K5", template, camera, target, kw["background"],
+             CFG5["spp"], mb, None),
+            ("cfg4class", "K4", template4, camera4,
+             torch.zeros((CFG4C["height"], CFG4C["width"], 3)),
+             kw4["background"], CFG4C["spp"], CFG4C["max_bounces"],
+             {"sph": rows4})):
+        mesh = mesh_of((2, 1))
+        # the surrogate scope make_fused_train_step takes for TRAINABLE
+        surr = {"sph": None if rows is None else rows["sph"], "quad": ()}
+        scene = tmpl.to(dev)
+        vg = lambda m=None: dk.render_value_and_grad(  # noqa: E731
+            scene, cam, tgt, spp=spp, max_bounces=mbb, background=bg,
+            seed=0, surr_rows=surr, mesh=m)
+        l1, i1, g1 = rises(kid, vg, 1)
+        lm, im, gm = rises(kid, lambda: vg(mesh), 2)
+        loss_rel = abs(float(lm) - float(l1)) / abs(float(l1))
+        img_d = float((im - i1).abs().max())
+        tabs = {k: float((gm[k] - g1[k]).abs().max())
+                / max(float(g1[k].abs().max()), 1e-30) for k in g1}
+        make = lambda m=None: inverse.make_fused_train_step(  # noqa: E731
+            tmpl, cam, tgt, spp=spp, max_bounces=mbb, background=bg,
+            seed=0, trainable=TRAINABLE, trainable_rows=rows, mesh=m,
+            device=dev)
+        s1, st1 = make()
+        sm, stm = make(mesh)
+        rises(kid, lambda: s1(*st1, 0), 1)                 # warm-up
+        rises(kid, lambda: sm(*stm, 0), 2)
+        a = rises(kid, lambda: s1(*st1, 0), 1)
+        b = rises(kid, lambda: sm(*stm, 0), 2)
+        c = rises(kid, lambda: sm(*stm, 0), 2)
+        b2 = rises(kid, lambda: sm(b[0], b[1], 1), 2)
+        c2 = rises(kid, lambda: sm(c[0], c[1], 1), 2)
+        det = all(bool(torch.equal(x[0][k], y[0][k])) for x, y in
+                  ((b, c), (b2, c2)) for k in x[0]) and bool(
+            torch.equal(b2[2], c2[2]))
+        step_rel = abs(float(b[2]) - float(a[2])) / abs(float(a[2]))
+        ok = (loss_rel <= MESH_LOSS_RTOL and img_d <= MESH_IMG_ATOL
+              and max(tabs.values()) <= MESH_TABLE_RTOL and det
+              and step_rel <= MESH_LOSS_RTOL)
+        fused[cell] = dict(loss_rel=loss_rel, img_max_abs=img_d,
+                           table_rel=tabs, deterministic=det,
+                           step_loss_rel=step_rel, ok=ok)
+        log(f"[mesh] {cell} ({kid}) {cam.width}x{cam.height} spp={spp} "
+            f"mb={mbb} over 2 cells: loss rel {loss_rel:.3g}, image max "
+            f"|d| {img_d:.3g}, tables (max |d| / max) worst "
+            f"{max(tabs.values()):.3g}; two steps deterministic {det}; step "
+            f"loss rel {step_rel:.3g}")
+        if not ok:
+            raise RuntimeError(f"{cell} over 2 cells disagrees with one "
+                               "device or is not deterministic")
+        pair(f"{cell} step mesh (2, 1)", lambda: s1(*st1, 0),
+             lambda: sm(*stm, 0))
+    res["fused"] = fused
+
+    # -- the modular step with K3 (phase 9's shape) over (1, 2)
+    mspp, mmb = 4, 8
+    mtmpl, mcam, mtgt, mkw = _train_setup(torch, presets, Renderer, 64, 64,
+                                          16)
+    mscene = mtmpl.to(dev)
+    compact = ik.compact_rows(mscene, dev)
+    p0 = scene_params(mscene)
+    mesh = mesh_of((1, 2))
+    lkw = dict(spp=mspp, max_bounces=mmb, background=mkw["background"],
+               seed=0)
+    l1, g1 = rises("K3", lambda: inverse.value_and_grad(
+        lambda p: inverse.render_loss(p, mscene, mcam, mtgt, compact=compact,
+                                      **lkw), p0), 2 * mmb)
+    lm, gm = rises("K3", lambda: inverse.mesh_value_and_grad(
+        mesh, p0, mscene, mcam, mtgt, compact=compact, **lkw), 2 * 2 * mmb)
+    loss_rel = abs(float(lm) - float(l1)) / abs(float(l1))
+    grel = {k: float((gm[k] - g1[k]).abs().max())
+            / max(float(g1[k].abs().max()), 1e-30) for k in TRAINABLE}
+    make = lambda m=None: inverse.make_train_step(  # noqa: E731
+        mtmpl, mcam, mtgt, trainable=TRAINABLE, use_kernel=True, mesh=m,
+        device=dev, **lkw)
+    s1, st1 = make()
+    sm, stm = make(mesh)
+    a = s1(*st1, 0)
+    b = sm(*stm, 0)
+    c = sm(*stm, 0)
+    det = all(bool(torch.equal(b[0][k], c[0][k])) for k in b[0]) and bool(
+        torch.equal(b[2], c[2]))
+    close = all(bool(torch.allclose(b[0][k], a[0][k], rtol=1e-3, atol=1e-6))
+                for k in a[0])
+    ok = (loss_rel <= MESH_MODULAR_LOSS_RTOL and det and close
+          and max(grel.values()) <= MESH_TABLE_RTOL)
+    res["modular"] = dict(loss_rel=loss_rel, grad_rel=grel,
+                          deterministic=det, params_close=close, ok=ok)
+    log(f"[mesh] modular step (K3) 64x64 spp={mspp} mb={mmb} over (1, 2): "
+        f"loss rel {loss_rel:.3g}, trained fields' gradients (max |d| / "
+        f"max) {', '.join(f'{k} {v:.3g}' for k, v in grel.items())}; "
+        f"deterministic {det}; params after a step within rtol 1e-3 "
+        f"{close}")
+    if not ok:
+        raise RuntimeError("the modular mesh step disagrees with one "
+                           "device or is not deterministic")
+    pair("modular step mesh (1, 2)", lambda: s1(*st1, 0),
+         lambda: sm(*stm, 0))
+
+    # -- the process-group route: a one-rank NCCL group
+    res["group"] = mesh_group_route(torch, presets, mk, dk, sharded, dev,
+                                    template, camera, target, kw, mesh_of,
+                                    pair)
+    launches = _counters(ik, mk, mkp, dk, dkp)
+    log(f"[mesh] launches in the mesh phase: {launches}")
+    if min(launches.values()) < 1:
+        raise RuntimeError("the mesh phase did not launch every kernel")
+
+    # -- times
+    log(f"[mesh] times on {card} (wall, synchronised; repeated cells of "
+        "one card run one after another):")
+    res["pairs"] = {}
+    for k, (one, mesh_s) in times.items():
+        line, res["pairs"][k] = _pair_line(k, one, mesh_s)
+        log(f"[mesh]   {line}")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        res["multi_card"] = multi_card_times(torch, presets, mk, dk, sharded,
+                                             template, camera, target, kw)
+    else:
+        log("[mesh] multi-GPU scaling: not measured (one card)")
+        res["multi_card"] = None
+    res.update(launches=launches)
+    return res
+
+
+def mesh_group_route(torch, presets, mk, dk, sharded, dev, template, camera,
+                     target, kw, mesh_of, pair):
+    """Config 3's meshes and config 5's fused objective over a one-rank
+    NCCL process group (file:// rendezvous under output/): the same bits
+    as the one-process mesh of the same shape, and the one-device
+    checks."""
+    import torch.distributed as dist
+
+    os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
+    rdv = os.path.join(ROOT, "output", "chip_smoke_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        group = dist.group.WORLD
+        _, name, _, w, h, spp, mb, _ = CONFIGS[2]             # cfg3
+        world, cam3, kw3 = presets.PRESETS[name](width=w, height=h)
+        r = mk.MegakernelRenderer(world.build(), cam3, kw3["background"],
+                                  dev)
+        render = lambda mesh=None: r.render(  # noqa: E731
+            spp=spp, max_bounces=mb, seed=0, mesh=mesh)
+        one = render()
+        for shape in ((2, 1), (1, 2)):
+            gm = mesh_of(shape, group)
+            render(gm)              # warm-up: NCCL makes its communicator
+            got = render(gm)
+            pair(f"cfg3 group mesh {shape}", render, lambda: render(gm))
+            same = bool(torch.equal(got, render(mesh_of(shape))))
+            tile = bool(torch.equal(got, one)) if shape[1] == 1 else None
+            out[f"cfg3 {shape}"] = dict(same_as_one_process=same,
+                                        tile_bitwise=tile)
+            log(f"[mesh] group route, cfg3 mesh {shape} ({gm!r}): == "
+                f"one-process mesh bitwise {same}"
+                + ("" if tile is None else f", == one device {tile}"))
+            if not same or tile is False:
+                raise RuntimeError(f"group route cfg3 {shape} differs")
+        scene = template.to(dev)
+        vg = lambda m=None: dk.render_value_and_grad(  # noqa: E731
+            scene, camera, target, spp=CFG5["spp"],
+            max_bounces=CFG5["max_bounces"], background=kw["background"],
+            seed=0, surr_rows={"sph": None, "quad": ()}, mesh=m)
+        vg(mesh_of((2, 1), group))
+        lg, ig, gg = vg(mesh_of((2, 1), group))
+        pair("cfg5f objective group mesh (2, 1)", vg,
+             lambda: vg(mesh_of((2, 1), group)))
+        lp, ip, gp = vg(mesh_of((2, 1)))
+        l1 = vg()[0]
+        same = (bool(torch.equal(lg, lp)) and bool(torch.equal(ig, ip))
+                and all(bool(torch.equal(gg[k], gp[k])) for k in gg))
+        rel = abs(float(lg) - float(l1)) / abs(float(l1))
+        out["cfg5f (2, 1)"] = dict(same_as_one_process=same, loss_rel=rel)
+        log(f"[mesh] group route, cfg5f over 2 cells: loss, image and "
+            f"gradients == one-process mesh bitwise {same}; loss rel to "
+            f"one device {rel:.3g}")
+        if not same or rel > MESH_LOSS_RTOL:
+            raise RuntimeError("group route cfg5f differs")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(rdv):
+            os.remove(rdv)
+    return out
+
+
+def multi_card_times(torch, presets, mk, dk, sharded, template, camera,
+                     target, kw):
+    """Config 3 and config 5's fused objective over a tile mesh of every
+    card, timed beside one card."""
+    mesh = sharded.make_mesh()
+    _, name, _, w, h, spp, mb, _ = CONFIGS[2]                 # cfg3
+    world, cam3, kw3 = presets.PRESETS[name](width=w, height=h)
+    r = mk.MegakernelRenderer(world.build(), cam3, kw3["background"],
+                              mesh.device)
+    out = {}
+    for label, fn in (
+            ("cfg3", lambda m=None: r.render(spp=spp, max_bounces=mb,
+                                             seed=0, mesh=m)),
+            ("cfg5f", lambda m=None: dk.render_value_and_grad(
+                template.to(mesh.device), camera, target, spp=CFG5["spp"],
+                max_bounces=CFG5["max_bounces"],
+                background=kw["background"], seed=0,
+                surr_rows={"sph": None, "quad": ()}, mesh=m))):
+        got = ([], [])
+        fn(None)
+        fn(mesh)
+        for i in range(MESH_TIME_REPS):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                for d in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(d)
+                t0 = time.perf_counter()
+                fn((None, mesh)[j])
+                for d in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(d)
+                got[j].append(time.perf_counter() - t0)
+        line, out[label] = _pair_line(
+            f"multi-card {label}, one card against {mesh.size} cards", *got)
+        log(f"[mesh] {line}")
+    return out
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f")
+          "cfg5f", "k4", "cfg4f", "mesh")
 
 
 def main(argv=None) -> int:
@@ -2703,8 +3204,8 @@ def main(argv=None) -> int:
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
-                    "cfg4f (16-17); the result lines need the default "
-                    "set")
+                    "cfg4f (16-17), mesh (18); the result lines need the "
+                    "default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
@@ -2722,6 +3223,7 @@ def main(argv=None) -> int:
     from tinyraytracer_tpu_torch.ops import megakernel as mk
     from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
     from tinyraytracer_tpu_torch.ops import trace as trace_ops
+    from tinyraytracer_tpu_torch.parallel import sharded
 
     t_start = time.perf_counter()
     build_phase(_build)
@@ -2762,6 +3264,10 @@ def main(argv=None) -> int:
                                        inverse, card)
         results["route"] = routing_phase(torch, presets, ik, mk, mkp, dk,
                                          dkp, inverse, optim, card)
+    if "mesh" in only:
+        mesh_twin_checks(torch, presets, mk, mkp, sharded, _build.load())
+        results["mesh"] = mesh_phase(torch, presets, ik, mk, mkp, dk, dkp,
+                                     inverse, sharded, Renderer, card)
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -2770,12 +3276,14 @@ def main(argv=None) -> int:
     if set(only) != set(PHASES):
         return 0
 
+    mesh = results["mesh"]["launches"]
+
     def entry(kid, name, source, replaces, cfg):
         res = results[cfg]
         return {
             "name": name, "route": "cuda",
             "source": f"tinyraytracer_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches[kid],
+            "replaces": replaces, "launches": launches[kid] + mesh[kid],
             "max_abs_err": worst[kid], "ms": res["kernel_ms"],
             "plain_ms": res["twin_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
@@ -2792,7 +3300,7 @@ def main(argv=None) -> int:
         {"name": "closest_hit", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/closest_hit.cu",
          "replaces": "tinyraytracer_tpu/ops/intersect_pallas.py:166",
-         "launches": results["cfg5"]["launches"]["K3"],
+         "launches": results["cfg5"]["launches"]["K3"] + mesh["K3"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
@@ -2802,7 +3310,7 @@ def main(argv=None) -> int:
         {"name": "diffkernel_packed", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel_packed.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel_packed.py:240",
-         "launches": results["cfg5f"]["launches"]["K5"],
+         "launches": results["cfg5f"]["launches"]["K5"] + mesh["K5"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None, "config": "cfg5f",
@@ -2811,7 +3319,8 @@ def main(argv=None) -> int:
         {"name": "diffkernel", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel.py:357",
-         "launches": results["cfg4f"]["cfg4class"]["launches"]["K4"],
+         "launches": results["cfg4f"]["cfg4class"]["launches"]["K4"]
+         + mesh["K4"],
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,

@@ -734,3 +734,123 @@ def test_fused_kernels_every_variant(cuda, kernel, met, die):
     assert seen == {8 * n + 4 * s + 2 * met + die for n in (0, 1)
                     for s in (0, 1)}
 
+
+
+# --- pixel ranges and the mesh route (parallel/sharded.py) -----------------
+
+# Ranges of a 61x37 image (2 257 pixels): the first pixel, one starting
+# mid-row and crossing rows, a middle cut, the last 5 pixels, the whole.
+PIXEL_RANGES = [(0, 1), (70, 300), (1000, 1128), (2252, 5), (0, 2257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1", "K2", "K2 culled"])
+def test_forward_kernels_on_a_pixel_range_equal_twins(cuda, route):
+    """K1 (cornell_box) and K2 (random_spheres n=500; 8000, culled) over
+    pixel ranges of a 61x37 image, spp=5 at offset 2: bit for bit with
+    the twin on the same range and with the whole image's rows, one
+    launch each; a range outside the image raises."""
+    name, pkw = (("cornell_box", {}) if route == "K1" else
+                 ("random_spheres", dict(n=8000 if "culled" in route
+                                         else 500)))
+    world, camera, kw = presets.PRESETS[name](width=61, height=37, **pkw)
+    r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
+    if route == "K1":
+        low = r.lowered
+        args = dict(n_sph=low.n_sph, n_quad=low.n_quad, width=61, height=37,
+                    spp=5, max_bounces=6, seed=3, spp_offset=2,
+                    has_met=low.has_met, has_die=low.has_die, sky=low.sky)
+        fn = lambda **o: mkp.render_packed(r.table, r.cam, **args, **o)  # noqa
+        twin = lambda **o: mkp.render_packed_reference(  # noqa: E731
+            r.table, r.cam, **args, **o)
+        counter = mkp.render_packed
+    else:
+        args = r.flat_args(spp=5, max_bounces=6, seed=3, spp_offset=2)
+        args.pop("pixels")
+        assert (args["aabbs"] is not None) == ("culled" in route)
+        fn = lambda **o: mk.render_flat(**args, **o)  # noqa: E731
+        twin_args = {k: v for k, v in args.items() if k != "aabbs"}
+        twin = lambda **o: mk.render_flat_reference(**twin_args, **o)  # noqa
+        counter = mk.render_flat
+    whole = fn().reshape(-1, 3)
+    for b, n in PIXEL_RANGES:
+        before = counter.launches
+        got = fn(pixels=(b, n))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert got.shape == (n, 3)
+        assert torch.equal(got, twin(pixels=(b, n)))
+        assert torch.equal(got, whole[b:b + n])
+    with pytest.raises(ValueError, match="range"):
+        fn(pixels=(2250, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_fused_kernels_on_a_pixel_range_equal_twins(cuda, kernel):
+    """K5 (cornell_spheres, class scope) and K4 (the same scene forced
+    onto it) over pixel ranges of a 61x37 image: the image bit for bit
+    with the twin on the range and with the whole image's rows, the loss
+    and tables within TABLE_RTOL of the twin's; the tables over a split of
+    the image add up to the whole image's within TABLE_RTOL."""
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera, kw = presets.cornell_spheres(width=61, height=37)
+    tab, cam, tgt, spec = _fused_inputs(dkp, world.build(), camera,
+                                        kw["background"], surr_quad=False,
+                                        device=cuda)
+    fn = dkp.packed_diff if kernel == "K5" else dk.classic_diff
+    kw = dict(spec=spec, width=61, height=37, spp=3, max_bounces=4, seed=1,
+              spp_offset=2)
+    whole = fn(tab, cam, tgt, **kw)
+    rows = tgt.view(-1, 3)
+    for b, n in PIXEL_RANGES:
+        part = rows[b:b + n].contiguous()
+        got = fn(tab, cam, part, pixels=(b, n), **kw)
+        want = dkp.packed_diff_reference(tab, cam, part, pixels=(b, n), **kw)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[0], whole[0].view(-1, 3)[b:b + n])
+        for a, c in zip(got[1:], want[1:]):
+            scale = max(float(c.abs().max()), 1e-30)
+            assert float((a - c).abs().max()) <= dkp.TABLE_RTOL * scale
+    cuts = [(0, 1000), (1000, 1257)]
+    parts = [fn(tab, cam, rows[b:b + n].contiguous(), pixels=(b, n), **kw)
+             for b, n in cuts]
+    for k in range(1, 6):
+        total = parts[0][k] + parts[1][k]
+        scale = max(float(whole[k].abs().max()), 1e-30)
+        assert float((total - whole[k]).abs().max()) <= dkp.TABLE_RTOL * scale
+
+
+@pytest.mark.cuda
+def test_mesh_routes_on_one_card(cuda):
+    """A (2 x 2) mesh of the one card: the forward megakernel route within
+    1e-6 of one launch (a tile-only mesh bit for bit), one launch per
+    cell, and the fused step's loss within 1e-6 relative of one device."""
+    from tinyraytracer_tpu_torch.diff import inverse
+    from tinyraytracer_tpu_torch.parallel import sharded
+
+    world, camera, kw = presets.cornell_box(width=64, height=48)
+    r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
+    ref = r.render(spp=4, max_bounces=6, seed=3)
+    dev = [cuda] * 4
+    before = mkp.render_packed.launches
+    tile = r.render(spp=4, max_bounces=6, seed=3,
+                    mesh=sharded.make_mesh(dev))
+    split = r.render(spp=4, max_bounces=6, seed=3,
+                     mesh=sharded.make_mesh(dev, sample_parallel=2))
+    torch.cuda.synchronize()
+    assert mkp.render_packed.launches == before + 8
+    assert torch.equal(tile, ref)
+    assert float((split - ref).abs().max()) <= 1e-6
+    world, camera, kw = presets.cornell_spheres(width=32, height=32)
+    common = dict(spp=2, max_bounces=4, background=kw["background"],
+                  trainable=("sph_center", "mat_albedo"))
+    losses = []
+    for mesh in (None, sharded.make_mesh(dev, sample_parallel=2)):
+        step, (p, o) = inverse.make_fused_train_step(
+            world.build(), camera, torch.zeros((32, 32, 3)), mesh=mesh,
+            device=cuda, **common)
+        losses.append(float(step(p, o, 0)[2]))
+    assert abs(losses[1] - losses[0]) <= 1e-6 * losses[0]

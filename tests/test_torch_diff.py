@@ -34,6 +34,7 @@ from tinyraytracer_tpu_torch.diff import inverse as tinv
 from tinyraytracer_tpu_torch.diff import optim
 from tinyraytracer_tpu_torch.diff import params as tpar
 from tinyraytracer_tpu_torch.models import presets as tpresets
+from tinyraytracer_tpu_torch.parallel.sharded import make_mesh
 
 W = H = 8
 SPP, MB, LR = 2, 4, 1e-2
@@ -237,8 +238,15 @@ def test_fit_engines_devices_and_resume(cornell, tmp_path, monkeypatch):
     assert len(losses) == 1 and np.isfinite(losses[0])
     others = torch.arange(ts.sph_center.shape[0]) != row
     assert torch.equal(pinned.sph_center[others], ts.sph_center[others])
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tinv.fit(ts, tc, target, steps=1, mesh=object(), device="cpu", **kw)
+    # fit(mesh=) shards the step: over a (2 x 1) CPU mesh the modular
+    # step's one-step fit takes the one-device loss and params within
+    # tests/test_diff.py's sharded-gradient tolerances
+    mesh = make_mesh(["cpu", "cpu"])
+    msc, mlosses = tinv.fit(ts, tc, target, steps=1, mesh=mesh, **kw)
+    osc, olosses = tinv.fit(ts, tc, target, steps=1, device="cpu", **kw)
+    assert abs(mlosses[0] - olosses[0]) <= 1e-5 * max(1.0, olosses[0])
+    torch.testing.assert_close(msc.sph_center, osc.sph_center, rtol=1e-3,
+                               atol=1e-6)
     with pytest.raises(ValueError):
         tinv.fit(ts, tc, target, steps=1, engine="warp", device="cpu", **kw)
     path = str(tmp_path / "fit.ckpt")

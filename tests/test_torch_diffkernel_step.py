@@ -38,6 +38,7 @@ from tinyraytracer_tpu_torch.diff import optim
 from tinyraytracer_tpu_torch.diff import params as tpar
 from tinyraytracer_tpu_torch.models import presets as tpresets
 from tinyraytracer_tpu_torch.ops import diffkernel as tdk
+from tinyraytracer_tpu_torch.parallel.sharded import make_mesh
 from test_diffkernel import _mixed_world
 from test_torch_diffkernel import to_port
 
@@ -192,12 +193,16 @@ def test_classic_kernel_cases_raise_not_implemented(case, monkeypatch):
     runs on the port's K4 (`classic_diff`; its twin on the CPU), and so
     does a scene whose gradients overflow the CUDA K5's accumulator (131
     materials: 1 100 floats), on every device; each gives a finite
-    result. The sharded step is not ported and still raises."""
+    result. The sharded route runs too: a row subset over a two-cell CPU
+    mesh launches K4 once per cell and gives the one-device result (the
+    loss within 1e-6, the image bit for bit, each field within 1e-5 of
+    its largest entry: tests/test_diffkernel.py's mesh tolerances)."""
     tw, tc, kw = tpresets.cornell_spheres(width=4, height=4)
     scene, kwargs = tw.build(), {}
+    rows = {"sph": (int(np.flatnonzero(scene.sph_valid.numpy())[0]),),
+            "quad": ()}
     if case == "rows":
-        kwargs = dict(surr_rows={"sph": (int(np.flatnonzero(
-            scene.sph_valid.numpy())[0]),), "quad": ()})
+        kwargs = dict(surr_rows=rows)
     elif case == "prims":
         scene = _n_prims(2, 47)
     elif case == "spheres":
@@ -205,22 +210,25 @@ def test_classic_kernel_cases_raise_not_implemented(case, monkeypatch):
     elif case == "palette":
         scene = _n_prims(2, n_mat=131)
     else:
-        kwargs = dict(mesh=object())
-    call = lambda: tdk.render_value_and_grad(  # noqa: E731
+        kwargs = dict(surr_rows=rows, mesh=make_mesh(["cpu", "cpu"]))
+    call = lambda **o: tdk.render_value_and_grad(  # noqa: E731
         scene, tc, torch.zeros(4, 4, 3), spp=1, max_bounces=1,
-        background=kw["background"], **kwargs)
-    if case == "mesh":
-        with pytest.raises(NotImplementedError, match="sharded"):
-            call()
-        return
+        background=kw["background"], **{**kwargs, **o})
     calls = []
     real = tdk.classic_diff
     monkeypatch.setattr(tdk, "classic_diff",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     loss, img, grads = call()
-    assert calls == [1]
+    assert calls == [1] * (2 if case == "mesh" else 1)
     assert bool(torch.isfinite(loss)) and bool(torch.isfinite(img).all())
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if case == "mesh":
+        one_loss, one_img, one = call(mesh=None)
+        assert abs(float(loss) - float(one_loss)) <= 1e-6 * float(one_loss)
+        assert torch.equal(img, one_img)
+        for k, g in one.items():
+            scale = max(float(g.abs().max()), 1e-8)
+            assert float((grads[k] - g).abs().max()) <= 1e-5 * scale, k
 
 
 def test_fused_step_unported_options_and_sky_raise():
@@ -228,9 +236,20 @@ def test_fused_step_unported_options_and_sky_raise():
     scene, target = tw.build(), torch.zeros(4, 4, 3)
     common = dict(spp=1, max_bounces=1, background=kw["background"],
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tinv.make_fused_train_step(scene, tc, target, mesh=object(),
-                                   **common)
+    # the sharded step is ported: over a (1 x 2) CPU mesh it takes the
+    # one-device step's loss and params (tests/test_diff.py's mesh
+    # tolerances)
+    mstep, (mp, mo) = tinv.make_fused_train_step(
+        scene, tc, target, mesh=make_mesh(["cpu", "cpu"], sample_parallel=2),
+        **{k: v for k, v in common.items() if k != "device"})
+    mp, mo, mloss = mstep(mp, mo, 0)
+    ostep, (op_, oo) = tinv.make_fused_train_step(scene, tc, target,
+                                                  **common)
+    op_, oo, oloss = ostep(op_, oo, 0)
+    assert mloss.device.type == "cpu"
+    assert abs(float(mloss) - float(oloss)) <= 1e-6 * float(oloss)
+    for k in op_:
+        torch.testing.assert_close(mp[k], op_[k], rtol=1e-3, atol=1e-6)
     sky = ((0.5, 0.7, 1.0), (1.0, 1.0, 1.0))
     with pytest.raises(ValueError, match="constant backgrounds"):
         tdk.render_value_and_grad(scene, tc, target, spp=1, max_bounces=1,

@@ -99,15 +99,62 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         cli_main(["--width", "4", "--height", "4", "--spp", "1"])
 
 
+@pytest.mark.parametrize("device,want", [
+    ("cuda", dict(devices=[torch.device("cuda", 0), torch.device("cuda", 1)],
+                  device=None)),
+    ("cuda:1", dict(devices=None, device="cuda:1")),
+    ("cpu", dict(devices=None, device="cpu")),
+])
+def test_cli_mesh_only_for_bare_cuda(monkeypatch, device, want):
+    """On a two-card machine, --device cuda renders over a mesh of every
+    card, while --device cuda:k names one card, which is used alone."""
+    from tinyraytracer_tpu_torch import renderer
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def recording(*a, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(renderer, "Renderer", recording)
+    with pytest.raises(Stop):
+        cli_main(["--width", "4", "--height", "4", "--spp", "2",
+                  "--sample-parallel", "2", "--device", device])
+    assert {k: seen[k] for k in want} == want
+    assert seen["sample_parallel"] == 2
+
+
 @pytest.mark.parametrize("kw", [
-    dict(accelerator="bvh"), dict(accelerator="none", devices=["a", "b"]),
-    dict(devices=["a", "b"]), dict(sample_parallel=2),
+    dict(accelerator="bvh"), dict(accelerator="none", devices=["cpu", "cpu"]),
+    dict(devices=["cpu", "cpu"]), dict(sample_parallel=2),
 ])
 def test_unported_options_raise(kw):
-    """ops/bvh.py and multi-device rendering are not ported (the modular
-    route, accelerator="none", is: tests/test_torch_trace.py)."""
-    with pytest.raises(NotImplementedError):
-        Renderer(4, device="cpu", **kw)
+    """ops/bvh.py is not ported: accelerator="bvh" raises. Multi-device
+    rendering is (parallel/sharded.py): a mesh of two CPU cells renders
+    the one-device image bit for bit on the modular route
+    (accelerator="none") and on the megakernel's, and sample_parallel=2
+    on one device only checks that spp divides, as in the JAX package."""
+    if kw.get("accelerator") == "bvh":
+        with pytest.raises(NotImplementedError):
+            Renderer(4, device="cpu", **kw)
+        return
+    world, camera, pkw = presets.cornell_box(width=12, height=10)
+    common = dict(max_bounces=3, background_color=pkw["background"], seed=2,
+                  accelerator=kw.get("accelerator", "auto"))
+    want = Renderer(4, device="cpu", **common).render_array(camera,
+                                                            world.build())
+    r = Renderer(4, **{**common, **kw},
+                 **({} if "devices" in kw else {"device": "cpu"}))
+    assert (r.mesh is None) == ("devices" not in kw)
+    assert torch.equal(r.render_array(camera, world.build()), want)
+    with pytest.raises(ValueError, match="divisible"):
+        Renderer(3, **{**common, **kw, "sample_parallel": 2},
+                 **({} if "devices" in kw else {"device": "cpu"}))
 
 
 def test_unported_entry_points_raise():

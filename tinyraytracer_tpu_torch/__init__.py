@@ -1,19 +1,31 @@
-"""tinyraytracer_tpu_torch — the path tracer in PyTorch, with its forward
-megakernel hand-written in CUDA for NVIDIA Hopper (sm_90a).
+"""tinyraytracer_tpu_torch — the path tracer in PyTorch, with its kernels
+hand-written in CUDA for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `tinyraytracer_tpu`, which stays the reference
 it is tested against. This package imports neither JAX nor the JAX
-package. Implemented so far: the scene API (cameras, spheres, quads,
-groups, materials, worlds, presets), the forward render path
-(`Renderer.render` -> scene lowering -> the packed megakernel for scenes
-of up to 48 primitives, the classic-layout megakernel above -> gamma-2.2
-`Image` -> PNG), `Renderer.render_batch` and `Renderer.render_async`, the
-CLI (`python -m tinyraytracer_tpu_torch`), and the modular differentiable
-path (`ops/trace.py`, `diff/`: the training loss, `make_train_step`,
-`fit`) with its closest-hit selection on a CUDA kernel.
+package. It has:
 
-A CUDA device renders with the CUDA kernel (csrc/, built with nvcc at
-first use); `device="cpu"` renders with the kernel's plain PyTorch twin.
+- the scene API: cameras, spheres, quads, groups, materials, worlds,
+  presets;
+- the forward render path: `Renderer.render` -> scene lowering -> the
+  packed megakernel (K1) for scenes of up to 48 primitives, the
+  classic-layout megakernel (K2) above -> gamma-2.2 `Image` -> PNG;
+  `Renderer.render_batch` and `Renderer.render_async`; the CLI
+  (`python -m tinyraytracer_tpu_torch`);
+- the modular differentiable path (`ops/trace.py`, `diff/`: the training
+  loss, `make_train_step`, `fit(engine="modular")`), its closest-hit
+  selection on kernel K3;
+- the fused training path: `make_fused_train_step` and
+  `fit(engine="fused"|"auto")`, one launch of the fused differentiable
+  kernel K5 (small scenes) or K4 (the rest, and row-subset surrogates)
+  per step;
+- sharded rendering and training over a (tile x sample) device mesh
+  (`parallel/sharded.py`: `Renderer(devices=, sample_parallel=)`,
+  `render_image_sharded`, and `mesh=` on the megakernels and every train
+  step), in one process or over a torch.distributed process group.
+
+A CUDA device renders with the CUDA kernels (csrc/, built with nvcc at
+first use); `device="cpu"` runs each kernel's plain PyTorch twin.
 """
 
 from tinyraytracer_tpu_torch.models.camera import Camera

@@ -5,11 +5,16 @@
     python -m tinyraytracer_tpu_torch --width 600 --height 600 --spp 200 \\
         --out output/cornell600.png --progress
     python -m tinyraytracer_tpu_torch --device cpu --width 64 --height 48
+    python -m tinyraytracer_tpu_torch --sample-parallel 2   # over all cards
 
 Defaults reproduce the reference binary: Cornell box, 300x300, spp=300,
 max_bounces=20, background (0.001, 0.001, 0.001) (src/main.rs:6-21). The
 device defaults to CUDA and is never guessed: without CUDA, pass
-`--device cpu` to render with the kernel's PyTorch twin.
+`--device cpu` to render with the kernel's PyTorch twin. With `--device
+cuda` and more than one visible CUDA device the render runs over a (tile
+x sample) mesh of all of them, `--sample-parallel` of them splitting each
+pixel's samples (parallel/sharded.py); `--device cuda:k` renders on that
+card alone.
 """
 
 from __future__ import annotations
@@ -38,7 +43,13 @@ def main(argv=None) -> int:
     ap.add_argument("--progress", action="store_true",
                     help="progress bar (the indicatif analog)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device: cuda (CUDA kernel) or cpu (twin)")
+                    help="torch device: cuda (CUDA kernel; every visible "
+                         "card), cuda:k (that card alone) or cpu (twin)")
+    ap.add_argument("--sample-parallel", type=int, default=1,
+                    help="devices cooperating on the same pixels: with "
+                         "--device cuda and more than one visible CUDA "
+                         "device the render runs over a mesh of all of "
+                         "them")
     args = ap.parse_args(argv)
 
     import torch
@@ -57,13 +68,21 @@ def main(argv=None) -> int:
     )
     if max_bounces < 1:
         ap.error("--max-bounces must be >= 1")
+    devices = None
+    # a bare "cuda" takes every visible card; "cuda:k" names one card
+    if (torch.device(args.device) == torch.device("cuda")
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
     renderer = Renderer(
         samples_per_pixel=args.spp,
         max_bounces=max_bounces,
         progressbar=args.progress,
         background_color=kw["background"],
         seed=args.seed,
-        device=args.device,
+        devices=devices,
+        sample_parallel=args.sample_parallel,
+        device=None if devices else args.device,
     )
     t0 = time.perf_counter()
     image = renderer.render(camera, world)   # ends in a host copy
@@ -71,6 +90,8 @@ def main(argv=None) -> int:
     dev = renderer.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (PyTorch twin)")
+    if devices:
+        name = f"{len(devices)} x {name} (mesh {renderer.mesh.shape})"
     rays = args.width * args.height * args.spp
     print(f"{args.preset}: {args.width}x{args.height} spp={args.spp} "
           f"bounces={max_bounces} on {name} — "

@@ -323,25 +323,48 @@ __device__ __forceinline__ void camera_ray(const float* cam, float px,
   normalize3(dx, dy, dz);
 }
 
-// What a forward launch renders: samples [spp_offset, +spp) of a
-// (height, width) image. With split == 1 each thread folds all samples of
-// its pixel and writes the mean to out[3 * pid .. +3). With split > 1 the
-// samples of a pixel are cut into `split` contiguous parts, one thread
-// each (blockIdx.z is the part), and each thread writes every sample's
-// colour to samples[(s * width * height + pid) * 3 .. +3), which
-// fold_kernel (megakernel.cu) adds up in sample order.
+// What a forward launch renders: samples [spp_offset, +spp) of the pixels
+// [pix0, pix0 + npix) of a (height, width) image, in row-major order (a
+// mesh shard's range; the whole image is pix0 = 0, npix = width * height).
+// Pixel ids, and so the RNG and the camera ray, are the image's own; the
+// outputs are indexed by the pixel's place in the range. The grid covers
+// the image rows the range spans, from row0, in 16x8 blocks, so a whole
+// image keeps its block map; a thread outside the range runs no sample.
+// With split == 1 each thread folds all samples of its pixel and writes
+// the mean to out[3 * i .. +3), i = pid - pix0. With split > 1 the samples
+// of a pixel are cut into `split` contiguous parts, one thread each
+// (blockIdx.z is the part), and each thread writes every sample's colour
+// to samples[(s * npix + i) * 3 .. +3), which fold_kernel (megakernel.cu)
+// adds up in sample order.
 struct Frame {
   float* out;
   float* samples;
   int width, height;
+  int pix0, npix, row0, rows;
   uint32_t seed, spp_offset;
   int spp, max_bounces, split;
   float inv_spp;
 };
 
+// A Frame for the range [pix0, pix0 + npix), or a Frame with npix 0 when
+// the range does not lie in the image (the launchers refuse it).
+inline Frame make_frame(float* out, float* samples, int width, int height,
+                        int pix0, int npix, uint32_t seed,
+                        uint32_t spp_offset, int spp, int max_bounces,
+                        int split, float inv_spp) {
+  const bool ok = width > 0 && height > 0 && pix0 >= 0 && npix > 0 &&
+                  (long long)pix0 + npix <= (long long)width * height;
+  if (!ok) npix = 0;
+  const int row0 = ok ? pix0 / width : 0;
+  const int rows = ok ? (pix0 + npix - 1) / width - row0 + 1 : 0;
+  return Frame{out,  samples, width,      height,      pix0,  npix, row0,
+               rows, seed,    spp_offset, spp,         max_bounces, split,
+               inv_spp};
+}
+
 // Renders part `part` of pixel (x, y)'s samples (see Frame), one bounce
 // per pass of a single loop. Every thread of the warp calls it, those
-// outside the image too (they run no pass): the loop's one back edge is
+// outside the range too (they run no pass): the loop's one back edge is
 // a vote of the whole warp. With the exit test on the thread's own
 // counters instead, the compiler threads the not-yet-ended path straight
 // back to the loop head, which makes a bounce loop inside a sample loop
@@ -354,14 +377,15 @@ __device__ __forceinline__ void render_pixel(const float* cam,
                                              const Scene& scene,
                                              const Frame& f, int x, int y,
                                              int part) {
-  const bool in_image = x < f.width && y < f.height;
   const uint32_t pid = (uint32_t)y * (uint32_t)f.width + (uint32_t)x;
+  const uint32_t i = pid - (uint32_t)f.pix0;  // place in the range
+  const bool in_image = x < f.width && i < (uint32_t)f.npix;
   const int s_end = (int)((long long)f.spp * (part + 1) / f.split);
   int s = (int)((long long)f.spp * part / f.split);
   bool active = in_image && s < s_end;  // more parts than samples: none
   const float px = (float)x;
   const float py = (float)y;
-  const size_t npix = (size_t)f.width * (size_t)f.height;
+  const size_t npix = (size_t)f.npix;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
@@ -391,7 +415,7 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       // kills it without a background add)
       if (!alive || b == f.max_bounces) {
         if (f.split > 1) {
-          float* c = f.samples + ((size_t)s * npix + pid) * 3;
+          float* c = f.samples + ((size_t)s * npix + i) * 3;
           c[0] = cr;
           c[1] = cg;
           c[2] = cb;
@@ -406,26 +430,28 @@ __device__ __forceinline__ void render_pixel(const float* cam,
     }
   }
   if (in_image && f.split == 1) {
-    float* o = f.out + 3 * (size_t)pid;
+    float* o = f.out + 3 * (size_t)i;
     o[0] = acc_r * f.inv_spp;
     o[1] = acc_g * f.inv_spp;
     o[2] = acc_b * f.inv_spp;
   }
 }
 
-// The grid of a forward launch: the image in blocks, times the parts.
+// The grid of a forward launch: the rows of the range in blocks, times
+// the parts.
 inline dim3 forward_grid(const Frame& f) {
   return dim3((f.width + kBlockX - 1) / kBlockX,
-              (f.height + kBlockY - 1) / kBlockY, f.split);
+              (f.rows + kBlockY - 1) / kBlockY, f.split);
 }
 
-// Sample parts per pixel (Frame::split) for a (height, width) image of
-// spp samples rendered by `kernel` with `smem` bytes of dynamic shared
-// memory: 1 when the grid fills one wave of the card, else enough parts
-// for kSplitWaves waves, at most spp. Under one wave the slowest pixels
-// set the kernel's time; their samples then run side by side.
+// Sample parts per pixel (Frame::split) for a launch over `rows` image
+// rows of `width` pixels (a range's rows, Frame::rows) of spp samples
+// rendered by `kernel` with `smem` bytes of dynamic shared memory: 1 when
+// the grid fills one wave of the card, else enough parts for kSplitWaves
+// waves, at most spp. Under one wave the slowest pixels set the kernel's
+// time; their samples then run side by side.
 template <class Kernel>
-cudaError_t sample_split(Kernel kernel, size_t smem, int width, int height,
+cudaError_t sample_split(Kernel kernel, size_t smem, int width, int rows,
                          int spp, int& split) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -439,7 +465,7 @@ cudaError_t sample_split(Kernel kernel, size_t smem, int width, int height,
   if (e != cudaSuccess) return e;
   const long long wave = (long long)per_sm * sms;
   const long long blocks = (long long)((width + kBlockX - 1) / kBlockX) *
-                           ((height + kBlockY - 1) / kBlockY);
+                           ((rows + kBlockY - 1) / kBlockY);
   split = blocks >= wave
               ? 1
               : (int)std::min<long long>(

@@ -1099,14 +1099,26 @@ __device__ __forceinline__ void bounce_adj(const Args& a, const Scope& sc, uint3
   c.tb = cT1b;
 }
 
-// What one launch computes (see diff_thread).
+// What one launch computes (see diff_thread): the pixels [pix0, pix0 +
+// npix) of an image `width` pixels wide, in row-major order (a mesh
+// shard's range, or the whole image). A pixel's id, and so its RNG and
+// camera ray, is the image's own; the image, target and sample scratch
+// are indexed by its place in the range. The loss scale (cam[23]) counts
+// the whole image's pixels.
 struct Launch {
-  int npix, width, spp, mb, na;
+  int pix0, npix, width, spp, mb, na;
   int slots;  // save slots per thread: k samples x mb bounces
   uint32_t spp_offset;
   float inv_spp;
 };
 
+
+// Whether [pix0, pix0 + npix) is a non-empty range of a (height, width)
+// image.
+inline bool range_in_image(int pix0, int npix, int width, int height) {
+  return width > 0 && height > 0 && pix0 >= 0 && npix > 0 &&
+         (long long)pix0 + npix <= (long long)width * height;
+}
 
 // A save slot: the 14 words a live bounce keeps for its adjoint (state,
 // winner t and index, shadow visibility), then the sample's live-bounce
@@ -1147,10 +1159,10 @@ __device__ __forceinline__ int sample_length(const float4* sl) {
 }
 
 // Phase 1, the forward NEE image, in the image kernel: pixel
-// blockIdx.x * blockDim.x + threadIdx.x, samples [s0, s1) of part
-// blockIdx.y of `split`. One bounce per pass of a loop whose only back
-// edge is a vote of the whole warp (every thread of the warp runs it,
-// those past the image too). A lane starts its next sample as soon as its
+// blockIdx.x * blockDim.x + threadIdx.x of the range, samples [s0, s1) of
+// part blockIdx.y of `split`. One bounce per pass of a loop whose only
+// back edge is a vote of the whole warp (every thread of the warp runs
+// it, those past the range too). A lane starts its next sample as soon as its
 // path ends and adds each sample's colour to the pixel's sum in sample
 // order from +0.0, so the image keeps the bits of a sample loop, and
 // writes the mean to img. With split > 1 it writes each sample's colour
@@ -1162,11 +1174,12 @@ __device__ __forceinline__ void image_thread(const Args& a, const Launch& L,
                                              float* __restrict__ samples,
                                              float* __restrict__ img) {
   const float* cam = a.cam;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;  // in the range
   const int s1 = (int)((long long)L.spp * (blockIdx.y + 1) / split);
-  const uint32_t pid = (uint32_t)pix;
-  const float px = (float)(pix % L.width);
-  const float py = (float)(pix / L.width);
+  const int gpix = L.pix0 + pix;
+  const uint32_t pid = (uint32_t)gpix;
+  const float px = (float)(gpix % L.width);
+  const float py = (float)(gpix / L.width);
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   State s;
@@ -1221,7 +1234,8 @@ __device__ __forceinline__ void image_thread(const Args& a, const Launch& L,
 }
 
 // The pixels of one thread's warp, one pixel per lane and round: pixel
-// base + lane, base = warp's first thread + r x (threads of the grid).
+// base + lane of the range, base = warp's first thread + r x (threads of
+// the grid).
 // Every thread of the grid runs it, those without a pixel too: every loop
 // below ends on a vote of the whole warp (__any_sync), and that vote is
 // the loop's only back edge. With the exit test on a thread's own
@@ -1255,11 +1269,12 @@ __device__ __forceinline__ void diff_thread(
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nt = gridDim.x * blockDim.x;
   for (int base = tid - lane; base < L.npix; base += nt) {
-    const int pix = base + lane;
+    const int pix = base + lane;  // in the range
     const bool in = pix < L.npix;
-    const uint32_t pid = (uint32_t)pix;
-    const float px = (float)(pix % L.width);
-    const float py = (float)(pix / L.width);
+    const int gpix = L.pix0 + pix;
+    const uint32_t pid = (uint32_t)gpix;
+    const float px = (float)(gpix % L.width);
+    const float py = (float)(gpix / L.width);
 
     // ---- phase 2: the loss cotangent and the pixel's squared error, from
     // the image kernel's image (phase 1)

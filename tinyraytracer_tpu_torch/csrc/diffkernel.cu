@@ -113,8 +113,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 // Sums the warp rows per block in warp order, then the blocks in block
-// order; the loss entry is then divided by npix * 3 (the mean over pixels
-// and channels).
+// order; the loss entry is then divided by the image's pixels x 3 (the
+// mean over pixels and channels; a mesh shard's share of it).
 __global__ void classic_reduce(const float* __restrict__ wpart, int blocks,
                                int na, int loss_idx, float loss_div,
                                float* __restrict__ out) {
@@ -183,9 +183,10 @@ int tinyrt_diff_classic_occupancy(int image, int nee, int sil, int has_met,
                              Occupancy{image != 0, per_sm, sms});
 }
 
-// Runs K4 on `stream` with `blocks` blocks (ops/diff_schedule.py): writes
-// the (height, width, 3) image into `img` and the summed gradient
-// accumulator (layout as K5's) into `acc`. `surr_s` / `surr_q` list the
+// Runs K4 on `stream` with `blocks` blocks (ops/diff_schedule.py) over the
+// pixels [pix0, pix0 + npix) of a (height, width) image, as K5 does
+// (tinyrt_diff_packed): writes their (npix, 3) image into `img` and the
+// summed gradient accumulator (layout as K5's) into `acc`. `surr_s` / `surr_q` list the
 // sphere / quad table rows whose surrogates run (n_s, n_q of them). Phase
 // 1 runs first in the image kernel, each pixel's samples in `split` parts
 // (`samples` then holds spp x npix x 3 floats when split > 1). Scratch:
@@ -201,13 +202,14 @@ int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
                         unsigned int seed, unsigned int spp_offset, int spp,
                         int max_bounces, float inv_spp, int nee, int sil,
                         int has_met, int has_die, int split, float* samples,
-                        void* stream) {
+                        int pix0, int npix, void* stream) {
   Args a{};
   const int na = set_layout(a, n_sph, n_quad, n_lights, nm, light_quad);
   a.tab = tab;
   a.seed = seed;
   Launch L;
-  L.npix = width * height;
+  L.pix0 = pix0;
+  L.npix = npix;
   L.width = width;
   L.spp = spp;
   L.mb = max_bounces;
@@ -215,7 +217,8 @@ int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
   L.slots = slots;
   L.spp_offset = spp_offset;
   L.inv_spp = inv_spp;
-  if (blocks < 1 || slots < max_bounces || split < 1) {
+  if (blocks < 1 || slots < max_bounces || split < 1 ||
+      !range_in_image(pix0, npix, width, height)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -129,7 +129,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 // Sums the per-block partial rows in block order; the loss entry is then
-// divided by npix * 3 (the mean over pixels and channels).
+// divided by the image's pixels x 3 (the mean over pixels and channels;
+// a mesh shard's share of it).
 __global__ void reduce_kernel(const float* __restrict__ part, int blocks,
                               int na, int loss_idx, float loss_div,
                               float* __restrict__ out) {
@@ -210,11 +211,15 @@ int tinyrt_diff_packed_occupancy(int nw, int na, int shared_acc, int image,
                              Occupancy{image != 0, smem, per_sm, sms});
 }
 
-// Runs K5 on `stream` with `blocks` blocks: writes the (height, width, 3)
-// image into `img` and the summed gradient accumulator (see the file
-// comment) into `acc`. Phase 1 runs first in the image kernel, each
-// pixel's samples in `split` parts (`samples` then holds spp x npix x 3
-// floats of per-sample colours when split > 1). `saves` holds blocks x
+// Runs K5 on `stream` with `blocks` blocks over the pixels [pix0, pix0 +
+// npix) of a (height, width) image (diff_common.cuh, Launch): writes their
+// (npix, 3) image into `img` and the summed gradient accumulator (see the
+// file comment) into `acc`; `target` is the range's (npix, 3) rows, and
+// the loss and its cotangent are scaled by the whole image's pixels
+// (cam[23]; the loss entry divided by width x height x 3). Phase 1 runs
+// first in the image kernel, each pixel's samples in `split` parts
+// (`samples` then holds spp x npix x 3 floats of per-sample colours when
+// split > 1). `saves` holds blocks x
 // 128 x slots x 16 floats of scratch (slots >= max_bounces), `part`
 // blocks x na. Returns the first failing launch's cudaError_t (0 on
 // success); does not synchronise.
@@ -226,12 +231,13 @@ int tinyrt_diff_packed(const float* cam, const float* tab, int nw, int n_sph,
                        int max_bounces, float inv_spp, int nee, int sil,
                        int has_met, int has_die, int surr_sph, int surr_quad,
                        int blocks, int slots, int shared_acc, int split,
-                       float* samples, void* stream) {
+                       float* samples, int pix0, int npix, void* stream) {
   Args a{};
   const int na = set_layout(a, n_sph, n_quad, n_lights, nm, light_quad);
   a.seed = seed;
   Launch L;
-  L.npix = width * height;
+  L.pix0 = pix0;
+  L.npix = npix;
   L.width = width;
   L.spp = spp;
   L.mb = max_bounces;
@@ -239,7 +245,8 @@ int tinyrt_diff_packed(const float* cam, const float* tab, int nw, int n_sph,
   L.slots = slots;
   L.spp_offset = spp_offset;
   L.inv_spp = inv_spp;
-  if (na > kMaxAcc || blocks < 1 || slots < max_bounces || split < 1) {
+  if (na > kMaxAcc || blocks < 1 || slots < max_bounces || split < 1 ||
+      !range_in_image(pix0, npix, width, height)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

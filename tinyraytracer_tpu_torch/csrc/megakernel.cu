@@ -7,10 +7,11 @@
 // in the scene layout and the closest-hit search. Its plain PyTorch twin
 // is `render_flat_reference` in ops/megakernel.py.
 //
-// Design: one thread per pixel in blocks of 16x8, the grid over (W, H)
-// and, for an image of less than one wave of the card, over parts of
-// each pixel's samples (common.cuh: the sampler, the block shape and the
-// split rule). The TPU kernel's dense (rows, rays) candidate matrix, its
+// Design: one thread per pixel in blocks of 16x8, the grid over the image
+// rows that the launch's pixel range spans (the whole image, or a mesh
+// shard's range: parallel/sharded.py) and, for a range of less than one
+// wave of the card, over parts of each pixel's samples (common.cuh: the
+// sampler, the range, the block shape and the split rule). The TPU kernel's dense (rows, rays) candidate matrix, its
 // row-streamed fold and its one-hot payload product become, per thread:
 // - a walk over the real sphere rows, then the real quad rows, read from
 //   device memory through the read-only path (`__ldg`), with the strict
@@ -157,7 +158,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int y = f.row0 + blockIdx.y * blockDim.y + threadIdx.y;
   render_pixel<HAS_MET, HAS_DIE, SKY>(cam, scene, f, x, y, blockIdx.z);
 }
 
@@ -193,7 +194,7 @@ struct FlatLaunch {
   cudaError_t run() const {
     auto kernel = flat_kernel<HAS_MET, HAS_DIE, SKY>;
     if (split != nullptr) {
-      return sample_split(kernel, 0, f.width, f.height, f.spp, *split);
+      return sample_split(kernel, 0, f.width, f.rows, f.spp, *split);
     }
     kernel<<<forward_grid(f), dim3(kBlockX, kBlockY), 0, stream>>>(
         cam, scene, f);
@@ -205,14 +206,16 @@ struct FlatLaunch {
 
 extern "C" {
 
-// Renders samples [spp_offset, +spp) of a (height, width) image on
-// `stream`: the mean radiance into `out` (H, W, 3) when split is 1; with
-// split > 1 each sample's colour into `samples` (spp, H * W, 3), for
-// tinyrt_fold_samples. `sph` (ns, 4), `quad` (nq, 12) and `pay` (NA, 16)
-// are 16-byte aligned f32 rows; n_sph / n_quad real rows are walked; quad
-// j's payload row is q_row0 + j. `aabb` (n_blocks, 8), or null with
-// n_blocks 0, turns on the cull over blocks of `chunk` sphere rows.
-// Returns the launch's cudaError_t (0 on success); does not synchronise.
+// Renders samples [spp_offset, +spp) of the pixels [pix0, pix0 + npix) of
+// a (height, width) image on `stream` (common.cuh, Frame): the mean
+// radiance into `out` (npix, 3) when split is 1; with split > 1 each
+// sample's colour into `samples` (spp, npix, 3), for tinyrt_fold_samples.
+// `sph` (ns, 4), `quad` (nq, 12) and `pay` (NA, 16) are 16-byte aligned
+// f32 rows; n_sph / n_quad real rows are walked; quad j's payload row is
+// q_row0 + j. `aabb` (n_blocks, 8), or null with n_blocks 0, turns on the
+// cull over blocks of `chunk` sphere rows. Returns the launch's
+// cudaError_t (0 on success; cudaErrorInvalidValue for a range outside
+// the image); does not synchronise.
 int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            int ns, const float* quad, int n_quad,
                            const float* pay, int q_row0, const float* aabb,
@@ -221,25 +224,29 @@ int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            unsigned int seed, unsigned int spp_offset,
                            int spp, int max_bounces, float inv_spp,
                            int split, int has_met, int has_die, int sky,
-                           void* stream) {
+                           int pix0, int npix, void* stream) {
   const FlatScene scene{reinterpret_cast<const float4*>(sph),
                         reinterpret_cast<const float4*>(quad),
                         reinterpret_cast<const float4*>(pay),
                         reinterpret_cast<const float4*>(aabb),
                         n_sph, ns, n_quad, q_row0, n_blocks, chunk};
-  const Frame f{out, samples, width, height, seed, spp_offset, spp,
-                max_bounces, split, inv_spp};
+  const Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
+                             spp_offset, spp, max_bounces, split, inv_spp);
+  if (f.npix == 0) return (int)cudaErrorInvalidValue;
   const FlatLaunch launch{cam, scene, f, static_cast<cudaStream_t>(stream),
                           nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);
 }
 
-// The sample split (parts per pixel) of a launch of this image on the
-// current device, or minus the cudaError_t of the query.
-int tinyrt_megakernel_flat_split(int width, int height, int spp,
-                                 int has_met, int has_die, int sky) {
+// The sample split (parts per pixel) of a launch over `rows` image rows of
+// `width` pixels (the rows a range spans) on the current device, or minus
+// the cudaError_t of the query.
+int tinyrt_megakernel_flat_split(int width, int rows, int spp, int has_met,
+                                 int has_die, int sky) {
   int split = 0;
-  const Frame f{nullptr, nullptr, width, height, 0u, 0u, spp, 0, 1, 0.0f};
+  const Frame f = make_frame(nullptr, nullptr, width, rows, 0, width * rows,
+                             0u, 0u, spp, 0, 1, 0.0f);
+  if (f.npix == 0) return -(int)cudaErrorInvalidValue;
   const FlatLaunch query{nullptr, FlatScene{}, f, nullptr, &split};
   const cudaError_t e =
       dispatch_kinds(has_met != 0, has_die != 0, sky != 0, query);

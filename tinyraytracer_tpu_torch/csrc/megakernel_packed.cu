@@ -8,10 +8,11 @@
 // ops/megakernel_packed.py. The sampler, shading and hit tests are
 // common.cuh's, shared with K2 (megakernel.cu).
 //
-// Design: one thread per pixel in blocks of 16x8, running the sampler of
-// common.cuh (render_pixel): one bounce per pass of a single loop, a lane
-// starting its next sample as soon as its path ends, and, for an image of
-// less than one wave of the card, each pixel's samples split over several
+// Design: one thread per pixel in blocks of 16x8 over the image rows that
+// the launch's pixel range spans (the whole image, or a mesh shard's
+// range), running the sampler of common.cuh (render_pixel): one bounce per
+// pass of a single loop, a lane starting its next sample as soon as its
+// path ends, and, for a range of less than one wave of the card, each pixel's samples split over several
 // threads and folded in sample order afterwards (fold_kernel in
 // megakernel.cu). The scene table (spheres of 13 floats, then quads of
 // 24: geometry, then kind, albedo, fuzz, ior, emission) and the 32-word
@@ -118,7 +119,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int y = f.row0 + blockIdx.y * blockDim.y + threadIdx.y;
   const PackedScene scene{smem + kCamWords, n_sph, n_quad};
   render_pixel<HAS_MET, HAS_DIE, SKY>(smem, scene, f, x, y, blockIdx.z);
 }
@@ -143,7 +144,7 @@ struct PackedLaunch {
       if (e != cudaSuccess) return e;
     }
     if (split != nullptr) {
-      return sample_split(kernel, smem, f.width, f.height, f.spp, *split);
+      return sample_split(kernel, smem, f.width, f.rows, f.spp, *split);
     }
     kernel<<<forward_grid(f), dim3(kBlockX, kBlockY), smem, stream>>>(
         cam, tab, nw, n_sph, n_quad, f);
@@ -155,31 +156,36 @@ struct PackedLaunch {
 
 extern "C" {
 
-// Renders samples [spp_offset, +spp) of a (height, width) image on
-// `stream`: the mean radiance into `out` (H, W, 3) when split is 1; with
-// split > 1 each sample's colour into `samples` (spp, H * W, 3), for
-// tinyrt_fold_samples. Returns the launch's cudaError_t (0 on success);
-// does not synchronise.
+// Renders samples [spp_offset, +spp) of the pixels [pix0, pix0 + npix) of
+// a (height, width) image on `stream` (common.cuh, Frame): the mean
+// radiance into `out` (npix, 3) when split is 1; with split > 1 each
+// sample's colour into `samples` (spp, npix, 3), for tinyrt_fold_samples.
+// Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue
+// for a range outside the image); does not synchronise.
 int tinyrt_megakernel_packed(const float* cam, const float* tab, int nw,
                              int n_sph, int n_quad, float* out,
                              float* samples, int width, int height,
                              unsigned int seed, unsigned int spp_offset,
                              int spp, int max_bounces, float inv_spp,
                              int split, int has_met, int has_die, int sky,
-                             void* stream) {
-  const Frame f{out, samples, width, height, seed, spp_offset, spp,
-                max_bounces, split, inv_spp};
+                             int pix0, int npix, void* stream) {
+  const Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
+                             spp_offset, spp, max_bounces, split, inv_spp);
+  if (f.npix == 0) return (int)cudaErrorInvalidValue;
   const PackedLaunch launch{cam, tab, nw, n_sph, n_quad, f,
                             static_cast<cudaStream_t>(stream), nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);
 }
 
-// The sample split (parts per pixel) of a launch of this image and table
-// size on the current device, or minus the cudaError_t of the query.
-int tinyrt_megakernel_packed_split(int nw, int width, int height, int spp,
+// The sample split (parts per pixel) of a launch over `rows` image rows of
+// `width` pixels (the rows a range spans) and this table size on the
+// current device, or minus the cudaError_t of the query.
+int tinyrt_megakernel_packed_split(int nw, int width, int rows, int spp,
                                    int has_met, int has_die, int sky) {
   int split = 0;
-  const Frame f{nullptr, nullptr, width, height, 0u, 0u, spp, 0, 1, 0.0f};
+  const Frame f = make_frame(nullptr, nullptr, width, rows, 0, width * rows,
+                             0u, 0u, spp, 0, 1, 0.0f);
+  if (f.npix == 0) return -(int)cudaErrorInvalidValue;
   const PackedLaunch query{nullptr, nullptr, nw, 0, 0, f, nullptr, &split};
   const cudaError_t e =
       dispatch_kinds(has_met != 0, has_die != 0, sky != 0, query);

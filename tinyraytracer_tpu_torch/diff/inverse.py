@@ -18,6 +18,9 @@ and backpropagates cotangent / spp into the parameters. The forward
 values of the replay are those of the first pass, so the gradient is the
 single-pass gradient up to summation order, and K3 runs twice per bounce
 per round, as in the JAX step that saves only the selections.
+`make_train_step` runs the same two passes through `mesh_value_and_grad`
+(over a device mesh, or the one-cell mesh of one device), which forms the
+cotangent itself; `render_loss` is the autograd form of the same loss.
 
 `make_fused_train_step` is the other engine: the loss and every gradient
 come out of one launch of a fused kernel per step, with the same
@@ -28,6 +31,7 @@ scenes, K4 (ops/diffkernel.classic_diff) for the rest and for
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 from typing import Callable, Optional, Tuple
@@ -100,33 +104,41 @@ def adaptive_clip(threshold: float = 4.0, decay: float = 0.9,
 
 
 class _LossRun:
-    """One render_loss call's settings, shared by its two passes."""
+    """One render_loss call's settings, shared by its two passes. With
+    `pixels` (begin, count), a mesh shard's range of flat pixel ids, the
+    run renders those pixels only, against those rows of the target."""
 
     def __init__(self, scene, camera, target, spp, max_bounces, background,
-                 seed, spp_offset, exact, nee, silhouette, compact):
+                 seed, spp_offset, exact, nee, silhouette, compact,
+                 pixels=None):
         self.dev = scene.sph_center.device
         self.scene, self.camera = scene, camera.to(self.dev)
+        w, h = self.camera.width, self.camera.height
+        begin, count = (0, w * h) if pixels is None else pixels
         self.target = torch.as_tensor(target, dtype=torch.float32,
-                                      device=self.dev).reshape(-1, 3)
+                                      device=self.dev).reshape(-1, 3)[
+                                          begin:begin + count]
         self.background = torch.as_tensor(background, dtype=torch.float32,
                                           device=self.dev)
         self.kw = dict(max_bounces=max_bounces, exact=exact, nee=nee,
                        silhouette=silhouette, compact=compact)
         self.spp, self.seed = spp, seed
         self.spp_offset = int(spp_offset) & _MASK
-        w, h = self.camera.width, self.camera.height
-        self.pixel_id = torch.arange(w * h, dtype=torch.int64,
+        self.pixel_id = torch.arange(begin, begin + count, dtype=torch.int64,
                                      device=self.dev)
         self.rows = (trace_ops.scene_rows(scene) if nee or silhouette
                      else None)
 
     def render(self, values, tapes):
+        """Pass 1: the image, with no graph (and so no per-bounce
+        checkpointing), recording each round's selections in `tapes`."""
         s = apply_params(self.scene, dict(zip(FLOAT_FIELDS, values)))
-        return trace_ops.render_pixels(
-            s, self.camera, self.pixel_id, spp=self.spp,
-            background=self.background, seed=self.seed,
-            spp_offset=self.spp_offset, fuse_spp=True, tapes=tapes,
-            rows=self.rows, **self.kw)
+        with torch.no_grad():
+            return trace_ops.render_pixels(
+                s, self.camera, self.pixel_id, spp=self.spp,
+                background=self.background, seed=self.seed,
+                spp_offset=self.spp_offset, fuse_spp=True, tapes=tapes,
+                rows=self.rows, **self.kw)
 
     def backprop(self, values, tapes, cot_pixel):
         """Rebuild each round's graph from its replayed selections and
@@ -161,6 +173,13 @@ class _LossRun:
                 for v in leaves]
 
 
+def _image_cotangent(img, target, n, spp, g=1.0):
+    """g x d mean((img - target)^2) / d img over an image of n elements,
+    then / spp for each sample's ray: the per-ray cotangent both passes
+    backpropagate (a mesh cell's rows take the whole image's n)."""
+    return (g / n) * (2.0 * (img - target)) / float(spp)
+
+
 class _RenderLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, run: _LossRun, *values):
@@ -174,9 +193,8 @@ class _RenderLoss(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         run = ctx.run
-        n = ctx.img.numel()
-        # d mean((img - t)^2) / d img, then / spp for each sample's ray
-        cot = (g / n) * (2.0 * (ctx.img - run.target)) / float(run.spp)
+        cot = _image_cotangent(ctx.img, run.target, ctx.img.numel(),
+                               run.spp, g)
         grads = run.backprop(ctx.saved_tensors, ctx.tapes, cot)
         ctx.tapes = ctx.img = None
         return (None, *grads)
@@ -195,6 +213,77 @@ def render_loss(params: Params, scene, camera: Camera, target, *, spp: int,
     run = _LossRun(scene, camera, target, spp, max_bounces, background,
                    seed, spp_offset, exact, nee, silhouette, compact)
     return _RenderLoss.apply(run, *(params[f] for f in FLOAT_FIELDS))
+
+
+def _compact_on(compact, dev):
+    """The compaction snapshot `compact` (or None) with its tensors on
+    `dev`."""
+    if compact is None or compact.sph.device == dev:
+        return compact
+    return dataclasses.replace(compact, sph=compact.sph.to(dev),
+                               quad=compact.quad.to(dev),
+                               index_map=compact.index_map.to(dev))
+
+
+def mesh_value_and_grad(mesh, params: Params, scene, camera: Camera,
+                        target, *, spp: int, max_bounces: int, background,
+                        seed, spp_offset=0, nee: bool = True,
+                        silhouette: bool = True, compact=None):
+    """(loss, grads) of the training MSE rendered over a (tile x sample)
+    mesh (parallel/sharded.Mesh), on `mesh.device`; the same bits on every
+    rank of a process group. The JAX package takes this gradient with
+    jax.grad through shard_map (inverse.py:217-270); here the explicit
+    cotangent does it, so no autograd passes through a collective:
+
+    1. each cell renders its tile's pixel range (its sample shard: spp /
+       n_sample samples from spp_offset + s * spp / n_sample) without a
+       graph and records its selections (render_loss's pass 1);
+    2. the cells' images are combined: each tile's sample shards summed
+       in mesh order and divided by n_sample, the tiles gathered. The loss
+       is the MSE of that image, Ī;
+    3. each cell backpropagates 2 (Ī - target) / (N 3 spp) over its own
+       rays (N the image's pixels: render_loss's cotangent with the whole
+       image's counts), replaying its selections (pass 2);
+    4. the cells' gradients are summed in mesh order.
+    """
+    from tinyraytracer_tpu_torch.parallel import sharded
+
+    w, h = camera.width, camera.height
+    n_sample = mesh.n_sample
+    if spp % n_sample:
+        raise ValueError(f"spp={spp} not divisible by sample axis "
+                         f"{n_sample}")
+    spp_local = spp // n_sample
+    ranges = sharded.split_pixels(w * h, mesh.n_tile)
+    runs, imgs = [], []
+    for c in mesh.cells:
+        dev = c.device
+        run = _LossRun(scene.to(dev), camera, target, spp_local,
+                       max_bounces, background, seed,
+                       spp_offset + c.sample * spp_local, False, nee,
+                       silhouette, _compact_on(compact, dev),
+                       pixels=ranges[c.tile])
+        values = [params[f].detach().to(dev) for f in FLOAT_FIELDS]
+        tapes: list = []
+        imgs.append(run.render(values, tapes))
+        runs.append((run, values, tapes))
+    img = mesh.image(imgs, ranges)
+    tgt = torch.as_tensor(target, dtype=torch.float32,
+                          device=img.device).reshape(-1, 3)
+    loss = image_mse(img, tgt)
+    n = img.numel()
+    flats = []
+    for c, (run, values, tapes) in zip(mesh.cells, runs):
+        b, count = ranges[c.tile]
+        rows = img[b:b + count].to(c.device)
+        cot = _image_cotangent(rows, run.target, n, spp)
+        grads = run.backprop(values, tapes, cot)
+        flats.append(torch.cat([g.reshape(-1) for g in grads]))
+    flat = mesh.sum(flats)
+    sizes = [params[f].numel() for f in FLOAT_FIELDS]
+    grads = {f: g.view(params[f].shape).to(params[f].device)
+             for f, g in zip(FLOAT_FIELDS, torch.split(flat, sizes))}
+    return loss.to(params[FLOAT_FIELDS[0]].device), grads
 
 
 def value_and_grad(loss_fn: Callable, params: Params, *args, wrt=None):
@@ -263,11 +352,24 @@ def make_train_step(
     the free fields; the others' gradients are zeroed. `grad_chunks` > 1
     splits spp into chunks and takes the elementwise median of the chunk
     gradients. Non-finite gradient entries are zeroed before the update.
-    `mesh` (sharded training) is not ported.
+
+    The loss and gradients come from `mesh_value_and_grad` over `mesh`
+    (parallel/sharded.Mesh): pixels shard over its tile axis and samples
+    over its sample axis; the params and optimizer state live on the
+    mesh's first device, which replaces `device`, and the gradients of
+    all cells are summed before the sanitising and the update run once.
+    Without a mesh the step runs on the one-cell mesh of `device`.
+    `grad_chunks` > 1 with a mesh raises, as in the JAX package.
     """
+    from tinyraytracer_tpu_torch.parallel import sharded
+
     if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+        if grad_chunks != 1:
+            raise ValueError("grad_chunks needs the single-device path")
+        device = mesh.device
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = sharded.one_cell(dev)
     optimizer = optimizer or optim.adam(learning_rate)
     scene = scene_template.to(dev)
     camera = camera.to(dev)
@@ -284,24 +386,23 @@ def make_train_step(
     stride = spp if advance_samples else 0
     trainset = None if trainable is None else frozenset(trainable)
 
-    def loss_fn(params, spp_eff, offset, compact):
-        return render_loss(params, scene, camera, target, spp=spp_eff,
-                           max_bounces=max_bounces, background=background,
-                           seed=seed, spp_offset=offset, nee=nee,
-                           silhouette=silhouette, compact=compact)
+    def loss_and_grads(params, spp_eff, offset, compact):
+        return mesh_value_and_grad(
+            mesh, params, scene, camera, target, spp=spp_eff,
+            max_bounces=max_bounces, background=background, seed=seed,
+            spp_offset=offset & _MASK, nee=nee, silhouette=silhouette,
+            compact=compact)
 
     def step(params, opt_state, step_idx, compact=compact0):
         base = int(step_idx) * stride
         if grad_chunks == 1:
-            loss, grads = value_and_grad(loss_fn, params, spp, base & _MASK,
-                                         compact, wrt=trainset)
+            loss, grads = loss_and_grads(params, spp, base, compact)
         else:
             cspp = spp // grad_chunks
             losses, gs = [], []
             for c in range(grad_chunks):
-                cl, cg = value_and_grad(loss_fn, params, cspp,
-                                        (base + c * cspp) & _MASK, compact,
-                                        wrt=trainset)
+                cl, cg = loss_and_grads(params, cspp, base + c * cspp,
+                                        compact)
                 losses.append(cl)
                 gs.append(cg)
             loss = sum(losses) / grad_chunks
@@ -319,9 +420,6 @@ def make_train_step(
 
     params0 = scene_params(scene)
     return step, (params0, optimizer.init(params0))
-
-
-_SHARDED = "sharded training (parallel/sharded.py) is not ported yet"
 
 
 def _surrogate_scope(trainset):
@@ -387,10 +485,14 @@ def make_fused_train_step(
     Non-finite gradient entries are zeroed, the background gradient
     dropped, and untrained fields' gradients zeroed before the update.
     `static` is a precomputed diffkernel.build_diff_static(scene_template);
-    `tile` is accepted and ignored. `mesh` is not ported.
+    `tile` is accepted and ignored. `mesh` (parallel/sharded.Mesh) splits
+    each launch's pixels over every cell of the mesh and sums the
+    gradient tables (diffkernel.render_value_and_grad); the params and
+    optimizer state live on the mesh's first device, which replaces
+    `device`.
     """
     if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+        device = mesh.device
     dev = resolve_device(device)
     optimizer = optimizer or optim.adam(learning_rate)
     scene = scene_template.to(dev)
@@ -414,7 +516,8 @@ def make_fused_train_step(
         loss, _img, grads = diffkernel.render_value_and_grad(
             s, camera, target, spp=chunk_spp, max_bounces=max_bounces,
             background=background, seed=seed, spp_offset=offset & _MASK,
-            silhouette=sil, static=static, tile=tile, surr_rows=surr_rows)
+            silhouette=sil, static=static, tile=tile, surr_rows=surr_rows,
+            mesh=mesh)
         return loss, grads
 
     def step(params, opt_state, step_idx):
@@ -546,11 +649,13 @@ def fit(
     trainable, the compacted selection snapshot is refreshed every
     `refresh_compact_every` steps. Resumes from `checkpoint_path` if it
     exists. `average_last` > 0 returns the mean of the last N iterates.
-    `mesh` is not ported."""
+    `mesh` (parallel/sharded.Mesh) shards either engine's step over it
+    (make_train_step, make_fused_train_step); the fit then runs on the
+    mesh's first device, which replaces `device`."""
     if engine not in ("auto", "fused", "modular"):
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+        device = mesh.device
     if trainable_rows is not None and engine == "modular":
         raise ValueError(
             "trainable_rows requires the fused engine (the modular path "
@@ -570,7 +675,7 @@ def fit(
             "modular for this scene and device")
     kw = dict(spp=spp, max_bounces=max_bounces, background=background,
               seed=seed, learning_rate=learning_rate, optimizer=optimizer,
-              trainable=trainable, device=dev)
+              trainable=trainable, mesh=mesh, device=dev)
     if engine == "fused":
         step_fn, (params, opt_state) = make_fused_train_step(
             scene_template, camera, target, static=fused_static,

@@ -176,6 +176,11 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
     listed rows only). `packed` None routes by `routes_packed`; an explicit
     subset always takes K4. `tile` is accepted and ignored (the CUDA
     kernels size their grids from the card, ops/diff_schedule.py).
+    `mesh` (parallel/sharded.Mesh) splits the pixels over every cell of
+    the mesh and sums the gradient tables in mesh order (data-parallel
+    training, diffkernel_packed.py:1810-1820); the image and grads land
+    on the scene's device, the same bits on every rank of a process
+    group.
     """
     if np.asarray(background, np.float32).ndim != 1:
         raise ValueError(
@@ -183,9 +188,6 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
             "gradient-sky ((2,3) [bottom, top]) scenes train through the "
             "modular path (make_train_step / render_loss), which "
             "differentiates the sky-lerped miss term via autodiff")
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded fused training (parallel/sharded.py) is not ported yet")
     st = static if static is not None else build_diff_static(scene)
     surr_s, surr_q, class_level = _surrogate_rows(st, surr_rows)
     if not class_level:
@@ -199,21 +201,23 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
             scene, camera, target, spp=spp, max_bounces=max_bounces,
             background=background, seed=seed, spp_offset=spp_offset,
             nee=nee, silhouette=silhouette, static=st, tile=tile,
-            surr_sph=bool(surr_s), surr_quad=bool(surr_q))
+            mesh=mesh, surr_sph=bool(surr_s), surr_quad=bool(surr_q))
     return dkp._value_and_grad(
         classic_diff, scene, camera, target, spp=spp,
         max_bounces=max_bounces, background=background, seed=seed,
         spp_offset=spp_offset, nee=nee, silhouette=silhouette, static=st,
-        mesh=None, surr_sph=surr_s, surr_quad=surr_q)
+        mesh=mesh, surr_sph=surr_s, surr_quad=surr_q)
 
 
 def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                  *, spec, width: int, height: int, spp: int,
-                 max_bounces: int, seed: int = 0, spp_offset: int = 0):
+                 max_bounces: int, seed: int = 0, spp_offset: int = 0,
+                 pixels: tuple | None = None):
     """K4 on the device of `tab`: (image (H, W, 3), dsph (ns, 8), dquad
     (nq, 16), dmat (nm, 8), dlight (nl, 16), dmisc (8, 128)), all f32, as
     diffkernel_packed.packed_diff returns them, for any surrogate scope
-    (`spec`, a diffkernel_packed.PackedSpec) and table width.
+    (`spec`, a diffkernel_packed.PackedSpec) and table width; with
+    `pixels` (begin, count), over that range, as packed_diff.
 
     On a CPU tensor it runs the plain twin
     diffkernel_packed.packed_diff_reference; on a CUDA tensor it launches
@@ -221,16 +225,17 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
     fails. `classic_diff.launches` counts launches."""
     from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
-    dkp._check(tab, cam, target, spec, width, height, spp, max_bounces)
+    begin, npix = dkp._check(tab, cam, target, spec, width, height, spp,
+                             max_bounces, pixels)
     kw = dict(spec=spec, width=width, height=height, spp=spp,
-              max_bounces=max_bounces, seed=seed, spp_offset=spp_offset)
+              max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
+              pixels=pixels)
     if tab.device.type == "cpu":
         return dkp.packed_diff_reference(tab, cam, target, **kw)
     if tab.device.type != "cuda":
         raise ValueError(f"no diff kernel for device {tab.device}")
     lib = _build.load()
     dev = tab.device
-    npix = width * height
     na = spec.acc_width
     flags = diff_schedule.variant_flags(spec)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -241,7 +246,7 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                                   cols_per_thread=na,
                                   max_cols=DIFF_CLASSIC_MAX_COLS)
         split = dkp.image_plan(lib, "classic", flags, 0, npix, spp)
-        img = torch.empty((height, width, 3), **f32)
+        img = torch.empty(target.shape, **f32)
         samples = torch.empty((spp * npix * 3 if split > 1 else 0,), **f32)
         saves = torch.empty((plan.saves_floats,), **f32)
         cols = torch.empty((na, plan.threads), **f32)
@@ -258,7 +263,8 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             cols.data_ptr(), wpart.data_ptr(), acc.data_ptr(), plan.blocks,
             plan.slots, width, height, seed & _MASK, spp_offset & _MASK,
             spp, max_bounces, float(np.float32(1.0 / spp)),
-            *map(int, flags), split, samples.data_ptr(), stream)
+            *map(int, flags), split, samples.data_ptr(), begin, npix,
+            stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel launch failed: CUDA error {err} "

@@ -71,6 +71,7 @@ from tinyraytracer_tpu_torch.ops.diffkernel import (
 from tinyraytracer_tpu_torch.ops.megakernel import (
     CANDIDATE_BUDGET,
     dense_closest_hit,
+    pixel_range,
 )
 
 _MASK = 0xFFFFFFFF
@@ -311,7 +312,10 @@ def _split_tables(flat: torch.Tensor, spec: PackedSpec):
                                            shapes))
 
 
-def _check(tab, cam, target, spec, width, height, spp, max_bounces):
+def _check(tab, cam, target, spec, width, height, spp, max_bounces,
+           pixels=None):
+    """Validates a launch's inputs; returns its pixel range (begin,
+    count), the whole image for `pixels` None."""
     for name, t in (("tab", tab), ("cam", cam), ("target", target)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got "
@@ -321,8 +325,10 @@ def _check(tab, cam, target, spec, width, height, spp, max_bounces):
     if tab.dim() != 1 or tuple(cam.shape) != (32,):
         raise ValueError(f"tab must be 1-d and cam (32,), got "
                          f"{tuple(tab.shape)} and {tuple(cam.shape)}")
-    if tuple(target.shape) != (height, width, 3):
-        raise ValueError(f"target must be ({height}, {width}, 3), got "
+    begin, count = pixel_range(width, height, pixels)
+    want = (height, width, 3) if pixels is None else (count, 3)
+    if tuple(target.shape) != want:
+        raise ValueError(f"target must be {want}, got "
                          f"{tuple(target.shape)}")
     if (spec.light_off + _LIGHT_F * spec.n_lights > tab.numel()
             or spec.light_off != _SPH_F * spec.n_sph
@@ -332,20 +338,28 @@ def _check(tab, cam, target, spec, width, height, spp, max_bounces):
         raise ValueError(f"need an image of at least 2x2 and spp, "
                          f"max_bounces >= 1; got {width}x{height}, "
                          f"spp={spp}, max_bounces={max_bounces}")
+    return begin, count
 
 
 def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                 *, spec: PackedSpec, width: int, height: int, spp: int,
-                max_bounces: int, seed: int = 0, spp_offset: int = 0):
+                max_bounces: int, seed: int = 0, spp_offset: int = 0,
+                pixels: tuple | None = None):
     """K5 on the device of `tab`: (image (H, W, 3), dsph (ns, 8), dquad
     (nq, 16), dmat (nm, 8), dlight (nl, 16), dmisc (8, 128)), all f32;
     dmisc[0, 0:3] is the background gradient and dmisc[0, 3] the loss.
 
     `tab` is packed_flat_table's row (flattened), `cam` the 32-word
-    camera vector with word 23 = width * height, `target` (H, W, 3)."""
-    _check(tab, cam, target, spec, width, height, spp, max_bounces)
+    camera vector with word 23 = width * height, `target` (H, W, 3).
+    With `pixels` (begin, count), a mesh shard's range of flat pixel ids,
+    `target` and the image are those pixels' (count, 3) rows, and the
+    tables and loss are their share of the whole image's: the loss and
+    its cotangent keep the whole image's scale (cam[23])."""
+    begin, npix = _check(tab, cam, target, spec, width, height, spp,
+                         max_bounces, pixels)
     kw = dict(spec=spec, width=width, height=height, spp=spp,
-              max_bounces=max_bounces, seed=seed, spp_offset=spp_offset)
+              max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
+              pixels=pixels)
     if tab.device.type == "cpu":
         return packed_diff_reference(tab, cam, target, **kw)
     if tab.device.type != "cuda":
@@ -359,7 +373,6 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                          "row subset runs on K4 (diffkernel.classic_diff)")
     lib = _build.load()
     dev = tab.device
-    npix = width * height
     na = spec.acc_width
     nee, sil, met, die = diff_schedule.variant_flags(spec)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -368,7 +381,7 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                                npix, max_bounces)
         split = image_plan(lib, "packed", (nee, sil, met, die), tab.numel(),
                            npix, spp)
-        img = torch.empty((height, width, 3), **f32)
+        img = torch.empty(target.shape, **f32)
         samples = torch.empty((spp * npix * 3 if split > 1 else 0,), **f32)
         saves = torch.empty((plan.saves_floats,), **f32)
         part = torch.empty((plan.blocks, na), **f32)
@@ -383,7 +396,7 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             float(np.float32(1.0 / spp)), int(nee), int(sil), int(met),
             int(die), int(bool(spec.surr_s)), int(bool(spec.surr_q)),
             plan.blocks, plan.slots, int(shared), split, samples.data_ptr(),
-            stream)
+            begin, npix, stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel_packed launch failed: CUDA error "
@@ -1230,18 +1243,18 @@ def packed_diff_reference(tab: torch.Tensor, cam: torch.Tensor,
                           width: int, height: int, spp: int,
                           max_bounces: int, seed: int = 0,
                           spp_offset: int = 0, replay_dead: bool = True,
-                          pixel_chunk: int = 0):
+                          pixel_chunk: int = 0, pixels: tuple | None = None):
     """Plain PyTorch twin of K5 and of K4, on the device of `tab`; the
     same arguments and outputs as `packed_diff` (any surrogate scope, as
-    K4 takes). The reverse sweep replays all `max_bounces` bounces of
-    every sample, as the TPU kernels do; `replay_dead=False` drops, as the
-    CUDA kernels do, the bounces after a path ended (their terms are exact
-    zeros, which the tests hold). Pixels go in chunks of `pixel_chunk` (0:
+    K4 takes; a pixel range with `pixels`). The reverse sweep replays all
+    `max_bounces` bounces of every sample, as the TPU kernels do;
+    `replay_dead=False` drops, as the CUDA kernels do, the bounces after a
+    path ended (their terms are exact zeros, which the tests hold). Pixels go in chunks of `pixel_chunk` (0:
     as many as keep a (rows, pixels) matrix within CANDIDATE_BUDGET
     elements); a chunk changes no pixel's bits, only the order in which
     the loss and the tables sum over pixels."""
-    _check(tab, cam, target, spec, width, height, spp, max_bounces)
-    npix = width * height
+    begin, npix = _check(tab, cam, target, spec, width, height, spp,
+                         max_bounces, pixels)
     dev = tab.device
     tw = _Twin(tab, cam, spec, seed)
     step = pixel_chunk or max(1, CANDIDATE_BUDGET // max(
@@ -1262,8 +1275,8 @@ def packed_diff_reference(tab: torch.Tensor, cam: torch.Tensor,
         return torch.stack([a.sum(1) for a in cols], 1)
 
     for p0 in range(0, npix, step):
-        pid = torch.arange(p0, min(p0 + step, npix), dtype=torch.int64,
-                           device=dev)
+        pid = torch.arange(begin + p0, begin + min(p0 + step, npix),
+                           dtype=torch.int64, device=dev)
         tw.set_pixels(pid, width)
         one = torch.ones(pid.shape[0], dtype=torch.float32, device=dev)
         zero = torch.zeros_like(one)
@@ -1342,7 +1355,7 @@ def packed_diff_reference(tab: torch.Tensor, cam: torch.Tensor,
     dmisc = torch.zeros((8, 128), dtype=torch.float32, device=dev)
     dmisc[0, 0:3] = bg_sum
     dmisc[0, 3] = lsum / (npixf * 3.0)
-    return image.view(height, width, 3), dsph, dquad, dmat, dlight, dmisc
+    return image.view(target.shape), dsph, dquad, dmat, dlight, dmisc
 
 
 def _map_terms(tm, fn):
@@ -1377,18 +1390,39 @@ def _inputs(scene, camera, target, background, static, nee, silhouette,
 def _value_and_grad(fn, scene, camera, target, *, spp, max_bounces,
                     background, seed, spp_offset, nee, silhouette, static,
                     mesh, surr_sph, surr_quad):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded fused training (parallel/sharded.py) is not ported yet")
+    """(loss, image, grads) through the launcher `fn` (a kernel's wrapper
+    or the twin), over `mesh` (parallel/sharded.Mesh; None: the one-cell
+    mesh on the scene's device, one launch over the whole image). The
+    pixels split over every cell of the mesh, both axes, with no sample
+    split (diffkernel_packed.py:1926-1950): each cell runs `fn` on its
+    range on its device, the images join in mesh order and the five
+    tables (the loss with them, in dmisc) sum in mesh order."""
+    from tinyraytracer_tpu_torch.parallel import sharded
+
     st, tab, cam, tgt, spec = _inputs(scene, camera, target, background,
                                       static, nee, silhouette, surr_sph,
                                       surr_quad)
-    img, dsph, dquad, dmat, dlight, dmisc = fn(
-        tab, cam, tgt, spec=spec, width=camera.width, height=camera.height,
-        spp=spp, max_bounces=max_bounces, seed=int(seed),
-        spp_offset=int(spp_offset))
-    grads = _grads_to_scene(scene, st, dsph, dquad, dmat, dlight, dmisc)
-    return dmisc[0, 3], img, grads
+    if mesh is None:
+        mesh = sharded.one_cell(tab.device)
+    w, h = camera.width, camera.height
+    kw = dict(spec=spec, width=w, height=h, spp=spp,
+              max_bounces=max_bounces, seed=int(seed),
+              spp_offset=int(spp_offset))
+    ranges = sharded.split_pixels(w * h, mesh.size)
+    rows = tgt.view(-1, 3)
+    imgs, flats = [], []
+    for c in mesh.cells:
+        b, n = ranges[c.index]
+        img, *tables = fn(tab.to(c.device), cam.to(c.device),
+                          rows[b:b + n].to(c.device), pixels=(b, n), **kw)
+        imgs.append(img)
+        flats.append(torch.cat([t.reshape(-1) for t in tables]))
+    img = mesh.concat(imgs, ranges).view(h, w, 3)
+    flat = mesh.sum(flats).to(tab.device)
+    tables = [part.view(t.shape) for part, t in zip(
+        torch.split(flat, [t.numel() for t in tables]), tables)]
+    grads = _grads_to_scene(scene, st, *tables)
+    return tables[4][0, 3], img, grads
 
 
 def render_value_and_grad_packed(scene, camera, target, *, spp: int,
@@ -1399,10 +1433,11 @@ def render_value_and_grad_packed(scene, camera, target, *, spp: int,
                                  tile=None, mesh=None, surr_sph: bool = True,
                                  surr_quad: bool = True):
     """(loss, image (H, W, 3), grads) of the fused objective through K5 on
-    the scene's device (the twin on the CPU). `surr_sph`/`surr_quad`
-    False drop that class's soft-shadow and silhouette surrogates (its
-    soft visibility counts as 1); K5 takes whole classes only. `tile` is
-    accepted and ignored."""
+    the scene's device (the twin on the CPU), or with `mesh` sharded over
+    its cells (`_value_and_grad`). `surr_sph`/`surr_quad` False drop that
+    class's soft-shadow and silhouette surrogates (its soft visibility
+    counts as 1); K5 takes whole classes only. `tile` is accepted and
+    ignored."""
     del tile
     return _value_and_grad(
         packed_diff, scene, camera, target, spp=spp,
@@ -1418,10 +1453,11 @@ def render_value_and_grad_packed_reference(scene, camera, target, *,
                                            silhouette: bool = True,
                                            static: DiffStatic | None = None,
                                            surr_sph: bool = True,
-                                           surr_quad: bool = True):
+                                           surr_quad: bool = True,
+                                           mesh=None):
     """`render_value_and_grad_packed` through the twin, on any device."""
     return _value_and_grad(
         packed_diff_reference, scene, camera, target, spp=spp,
         max_bounces=max_bounces, background=background, seed=seed,
         spp_offset=spp_offset, nee=nee, silhouette=silhouette,
-        static=static, mesh=None, surr_sph=surr_sph, surr_quad=surr_quad)
+        static=static, mesh=mesh, surr_sph=surr_sph, surr_quad=surr_quad)

@@ -259,12 +259,28 @@ def dense_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
     return closest_hit
 
 
+def pixel_range(width: int, height: int, pixels) -> tuple:
+    """(begin, count) of the flat pixel ids a forward render covers:
+    `pixels` (begin, count), a mesh shard's contiguous range, or None for
+    the whole image. Raises unless the range is non-empty and in the
+    image."""
+    if pixels is None:
+        return 0, width * height
+    begin, count = (int(v) for v in pixels)
+    if begin < 0 or count < 1 or begin + count > width * height:
+        raise ValueError(f"pixels {tuple(pixels)} is not a range of a "
+                         f"{width}x{height} image")
+    return begin, count
+
+
 def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
                     height: int, spp: int, max_bounces: int, seed: int,
                     spp_offset: int, has_met: bool, has_die: bool,
-                    sky: bool, pixel_chunk: int = 0) -> torch.Tensor:
+                    sky: bool, pixel_chunk: int = 0,
+                    pixels: tuple | None = None) -> torch.Tensor:
     """The twins' sampler: (H, W, 3) f32 mean radiance over samples
-    [spp_offset, spp_offset + spp).
+    [spp_offset, spp_offset + spp), or with `pixels` (begin, count) the
+    (count, 3) radiance of those flat pixel ids.
 
     Lockstep sample and bounce loops with every pixel of a chunk a lane.
     A pixel whose path ended adds +0.0 until its sample is folded, exactly
@@ -275,7 +291,7 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
     pixels at once.
     """
     dev = cam.device
-    n = width * height
+    begin, n = pixel_range(width, height, pixels)
     c = cam.unbind(0)     # 0-dim f32 tensors: scalar math stays in f32
     pos, ul, hor, ver = c[0:3], c[3:6], c[6:9], c[9:12]
     du, dv = c[12:15], c[15:18]
@@ -286,8 +302,8 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     step = pixel_chunk or n
     for p0 in range(0, n, step):
-        pid = torch.arange(p0, min(p0 + step, n), dtype=torch.int64,
-                           device=dev)
+        pid = torch.arange(begin + p0, begin + min(p0 + step, n),
+                           dtype=torch.int64, device=dev)
         px = (pid % width).to(torch.float32)
         py = (pid // width).to(torch.float32)
 
@@ -327,35 +343,40 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
                     break
             acc = [a + x for a, x in zip(acc, col)]
         out[p0:p0 + pid.shape[0]] = torch.stack([a * inv for a in acc], -1)
-    return out.view(height, width, 3)
+    return out if pixels is not None else out.view(height, width, 3)
 
 
-def launch_forward(lib, device, width: int, height: int, spp: int,
+def launch_forward(lib, device, width: int, height: int, spp: int, pixels,
                    split_query, launch):
-    """Runs one forward kernel (K1 or K2) and returns (out, CUDA error).
+    """Runs one forward kernel (K1 or K2) over the flat pixel ids `pixels`
+    (begin, count), or the whole image for None, and returns (out, CUDA
+    error): out is (count, 3), or (H, W, 3) for the whole image.
 
-    `split_query()` returns the kernel's sample split for this image (see
-    csrc/common.cuh, `sample_split`), or minus a CUDA error;
-    `launch(out, samples, split, inv_spp, stream)` makes the kernel's own
-    call with data pointers as ints. With more than one sample part per
-    pixel, the kernel writes each sample's colour to a (spp, H * W, 3)
-    scratch and a second kernel folds them in sample order, so the image
-    has the same bits."""
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    `split_query(rows)` returns the kernel's sample split for a grid over
+    that many image rows, the rows the range spans (see csrc/common.cuh,
+    `sample_split`), or minus a CUDA error; `launch(out, samples, split,
+    inv_spp, pix0, npix, stream)` makes the kernel's own call with data
+    pointers as ints. With more than one sample part per pixel, the kernel
+    writes each sample's colour to a (spp, count, 3) scratch and a second
+    kernel folds them in sample order, so the image has the same bits."""
+    begin, n = pixel_range(width, height, pixels)
+    shape = (n, 3) if pixels is not None else (height, width, 3)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
     inv = float(np.float32(1.0 / spp))
+    rows = (begin + n - 1) // width - begin // width + 1
     with torch.cuda.device(device):
-        split = split_query()
+        split = split_query(rows)
         if split < 1:
             return out, -split
-        samples = (torch.empty((spp, height * width, 3), dtype=torch.float32,
+        samples = (torch.empty((spp, n, 3), dtype=torch.float32,
                                device=device) if split > 1 else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(out.data_ptr(),
                      None if samples is None else samples.data_ptr(), split,
-                     inv, stream)
+                     inv, begin, n, stream)
         if err == 0 and samples is not None:
             err = lib.tinyrt_fold_samples(samples.data_ptr(), out.data_ptr(),
-                                          height * width, spp, inv, stream)
+                                          n, spp, inv, stream)
     return out, err
 
 
@@ -402,9 +423,12 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
                 n_sph: int, n_quad: int, width: int, height: int, spp: int,
                 max_bounces: int, seed: int = 0, spp_offset: int = 0,
                 has_met: bool = True, has_die: bool = True,
-                sky: bool = False, fmad: bool = False) -> torch.Tensor:
+                sky: bool = False, fmad: bool = False,
+                pixels: tuple | None = None) -> torch.Tensor:
     """(H, W, 3) f32 mean radiance over samples [spp_offset,
-    spp_offset + spp) on the device of `sph`.
+    spp_offset + spp) on the device of `sph`; with `pixels` (begin,
+    count), the (count, 3) radiance of those flat pixel ids (a mesh
+    shard's range).
 
     The inputs are `scene_table.FlatScene`'s arrays as tensors. With
     `aabbs` the kernel skips a block of ROW_CHUNK sphere rows when the
@@ -415,10 +439,11 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
     """
     _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
                 spp, max_bounces)
+    pixel_range(width, height, pixels)
     kw = dict(n_sph=n_sph, n_quad=n_quad, width=width, height=height,
               spp=spp, max_bounces=max_bounces, seed=seed,
               spp_offset=spp_offset, has_met=has_met, has_die=has_die,
-              sky=sky)
+              sky=sky, pixels=pixels)
     if sph.device.type == "cpu":
         return render_flat_reference(sph, quad, pay, cam, **kw)
     if sph.device.type != "cuda":
@@ -431,7 +456,7 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
     ns = sph.shape[0]
     flags = (int(has_met), int(has_die), int(sky))
 
-    def launch(out, samples, split, inv_spp, stream):
+    def launch(out, samples, split, inv_spp, pix0, npix, stream):
         return lib.tinyrt_megakernel_flat(
             cam.data_ptr(), sph.data_ptr(), n_sph, ns, quad.data_ptr(),
             n_quad, pay.data_ptr(), ns if n_sph else 0,
@@ -439,11 +464,12 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
             aabbs.shape[0] if aabbs is not None else 0,
             min(scene_table.ROW_CHUNK, ns), out, samples, width, height,
             seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
-            inv_spp, split, *flags, stream)
+            inv_spp, split, *flags, pix0, npix, stream)
 
     out, err = launch_forward(
-        lib, sph.device, width, height, spp,
-        lambda: lib.tinyrt_megakernel_flat_split(width, height, spp, *flags),
+        lib, sph.device, width, height, spp, pixels,
+        lambda rows: lib.tinyrt_megakernel_flat_split(width, rows, spp,
+                                                      *flags),
         launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
@@ -474,9 +500,11 @@ def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
                           spp: int, max_bounces: int, seed: int = 0,
                           spp_offset: int = 0, has_met: bool = True,
                           has_die: bool = True, sky: bool = False,
-                          pixel_chunk: int = 0) -> torch.Tensor:
+                          pixel_chunk: int = 0,
+                          pixels: tuple | None = None) -> torch.Tensor:
     """Plain PyTorch twin of K2 (no cull: the cull is exact, so this is
-    what the culled and the unculled kernel are both held to).
+    what the culled and the unculled kernel are both held to), over the
+    whole image or the flat pixel ids `pixels` (begin, count).
 
     The closest hit is `flat_closest_hit`. Pixels go in chunks of
     `pixel_chunk` (0: as many as keep the candidate matrix within
@@ -489,18 +517,20 @@ def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
         cam, flat_closest_hit(sph, quad, pay, n_sph, n_quad),
         width=width, height=height, spp=spp,
         max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
-        has_met=has_met, has_die=has_die, sky=sky, pixel_chunk=pixel_chunk)
+        has_met=has_met, has_die=has_die, sky=sky, pixel_chunk=pixel_chunk,
+        pixels=pixels)
 
 
 # --- the scene-bound renderer ---------------------------------------------
 
 class MegakernelRenderer:
-    """Scene-bound forward renderer: one kernel launch per image.
+    """Scene-bound forward renderer: one kernel launch per image, or per
+    mesh cell with `render(mesh=)`.
 
     `chunk_cull` (K2 only): None culls when the scene has more than
     AUTO_CULL_ROWS padded active rows and at least one sphere, as the JAX
     package does; True or False forces it. Host lowerings and their
-    device copies are made at first use and kept.
+    device copies are made at first use and kept, one copy per device.
     """
 
     def __init__(self, scene: SceneArrays, camera: Camera, background,
@@ -519,19 +549,12 @@ class MegakernelRenderer:
                     + (scene_table.pad8(self.n_quad) if self.n_quad else 0))
             chunk_cull = rows > AUTO_CULL_ROWS
         self.chunk_cull = bool(chunk_cull) and self.n_sph > 0
+        self._copies: dict = {}
 
     @functools.cached_property
     def lowered(self) -> scene_table.LoweredScene:
         """The packed kernel's host lowering."""
         return scene_table.lower(self.scene, self.camera, self.background)
-
-    @functools.cached_property
-    def table(self) -> torch.Tensor:
-        return torch.from_numpy(self.lowered.table).to(self.device)
-
-    @functools.cached_property
-    def cam(self) -> torch.Tensor:
-        return torch.from_numpy(self.lowered.cam).to(self.device)
 
     @functools.cached_property
     def flat(self) -> scene_table.FlatScene:
@@ -540,56 +563,110 @@ class MegakernelRenderer:
                                       self.background,
                                       chunk_cull=self.chunk_cull)
 
-    @functools.cached_property
-    def flat_tensors(self) -> dict:
-        """K2's inputs on the renderer's device, keyed as `render_flat`
-        takes them."""
+    def _on(self, name: str, device, make):
+        key = (name, torch.device(device))
+        if key not in self._copies:
+            self._copies[key] = make(torch.device(device))
+        return self._copies[key]
+
+    def packed_tensors(self, device) -> tuple:
+        """(table, cam) of the packed kernel on `device`."""
+        low = self.lowered
+        return self._on("packed", device, lambda d: (
+            torch.from_numpy(low.table).to(d),
+            torch.from_numpy(low.cam).to(d)))
+
+    @property
+    def table(self) -> torch.Tensor:
+        return self.packed_tensors(self.device)[0]
+
+    @property
+    def cam(self) -> torch.Tensor:
+        return self.packed_tensors(self.device)[1]
+
+    def flat_tensors_on(self, device) -> dict:
+        """K2's inputs on `device`, keyed as `render_flat` takes them."""
         f = self.flat
-        dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        return dict(sph=dev(f.sph), quad=dev(f.quad), pay=dev(f.pay),
-                    cam=dev(f.cam),
-                    aabbs=None if f.aabbs is None else dev(f.aabbs))
+
+        def make(d):
+            dev = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+            return dict(sph=dev(f.sph), quad=dev(f.quad), pay=dev(f.pay),
+                        cam=dev(f.cam),
+                        aabbs=None if f.aabbs is None else dev(f.aabbs))
+
+        return self._on("flat", device, make)
+
+    @property
+    def flat_tensors(self) -> dict:
+        """K2's inputs on the renderer's device."""
+        return self.flat_tensors_on(self.device)
 
     def flat_args(self, *, spp: int, max_bounces: int, seed: int = 0,
-                  spp_offset: int = 0) -> dict:
-        """Keyword arguments of `render_flat` for this scene."""
+                  spp_offset: int = 0, device=None,
+                  pixels: tuple | None = None) -> dict:
+        """Keyword arguments of `render_flat` for this scene, on `device`
+        (default: the renderer's)."""
         f = self.flat
-        return dict(self.flat_tensors, n_sph=f.n_sph, n_quad=f.n_quad,
+        return dict(self.flat_tensors_on(device or self.device),
+                    n_sph=f.n_sph, n_quad=f.n_quad,
                     width=self.camera.width, height=self.camera.height,
                     spp=spp, max_bounces=max_bounces, seed=seed,
                     spp_offset=spp_offset, has_met=f.has_met,
-                    has_die=f.has_die, sky=f.sky)
+                    has_die=f.has_die, sky=f.sky, pixels=pixels)
 
     def render(self, *, spp: int, max_bounces: int, seed: int = 0,
-               spp_offset: int = 0, packed: bool | None = None
-               ) -> torch.Tensor:
+               spp_offset: int = 0, packed: bool | None = None,
+               mesh=None) -> torch.Tensor:
         """(H, W, 3) f32 mean radiance over samples [spp_offset,
         spp_offset + spp), on the renderer's device. `packed` None takes
         the packed kernel for at most PACKED_MAX_PRIMS real primitives and
-        K2 above (megakernel.py:1455-1466); True or False forces one."""
+        K2 above (megakernel.py:1455-1466); True or False forces one.
+
+        `mesh` (parallel/sharded.Mesh) renders cell by cell, one launch
+        per cell on the cell's device, each over its tile's pixel range
+        and its sample shard (megakernel.py:1298-1365); the image lands on
+        `mesh.device`. Without one, the render is the one-cell mesh on the
+        renderer's device: one launch over the whole image."""
         from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+        from tinyraytracer_tpu_torch.parallel import sharded
 
         if packed is None:
             packed = self.n_sph + self.n_quad <= mkp.PACKED_MAX_PRIMS
-        if not packed:
-            return render_flat(**self.flat_args(
-                spp=spp, max_bounces=max_bounces, seed=seed,
-                spp_offset=spp_offset))
-        low = self.lowered
-        return mkp.render_packed(
-            self.table, self.cam,
-            n_sph=low.n_sph, n_quad=low.n_quad,
-            width=self.camera.width, height=self.camera.height,
-            spp=spp, max_bounces=max_bounces,
-            seed=seed, spp_offset=spp_offset,
-            has_met=low.has_met, has_die=low.has_die, sky=low.sky)
+        if mesh is None:
+            mesh = sharded.one_cell(self.device)
+        w, h = self.camera.width, self.camera.height
+
+        def part(device, begin, count, spp_part, offset):
+            if not packed:
+                return render_flat(**self.flat_args(
+                    spp=spp_part, max_bounces=max_bounces, seed=seed,
+                    spp_offset=offset, device=device,
+                    pixels=(begin, count)))
+            low = self.lowered
+            table, cam = self.packed_tensors(device)
+            return mkp.render_packed(
+                table, cam, n_sph=low.n_sph, n_quad=low.n_quad, width=w,
+                height=h, spp=spp_part, max_bounces=max_bounces, seed=seed,
+                spp_offset=offset, has_met=low.has_met, has_die=low.has_die,
+                sky=low.sky, pixels=(begin, count))
+
+        img = sharded.render_sharded(mesh, part, npix=w * h, spp=spp,
+                                     spp_offset=spp_offset)
+        return img.view(h, w, 3)
 
 
 def render_image_megakernel(scene: SceneArrays, camera: Camera, *, spp: int,
-                            max_bounces: int, background, device,
-                            seed: int = 0,
-                            packed: bool | None = None) -> torch.Tensor:
-    """One-shot megakernel render. Returns (H, W, 3) linear radiance."""
+                            max_bounces: int, background, device=None,
+                            seed: int = 0, packed: bool | None = None,
+                            mesh=None) -> torch.Tensor:
+    """One-shot megakernel render. Returns (H, W, 3) linear radiance, on
+    `device`, or with `mesh` sharded over it (megakernel.py:1475-1481);
+    `device` then defaults to the mesh's."""
+    if device is None:
+        if mesh is None:
+            raise ValueError("render_image_megakernel needs a device or a "
+                             "mesh")
+        device = mesh.device
     r = MegakernelRenderer(scene, camera, background, device)
     return r.render(spp=spp, max_bounces=max_bounces, seed=seed,
-                    packed=packed)
+                    packed=packed, mesh=mesh)

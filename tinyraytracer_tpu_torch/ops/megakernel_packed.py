@@ -17,7 +17,8 @@ counts kernel launches.
 
 The RNG keys off the pixel id alone, so how pixels map to threads or
 lanes never changes the image: the TPU's (S, L) tiling is not carried
-over, and both the twin and the kernel write (H, W, 3) directly.
+over, and both the twin and the kernel write (H, W, 3) directly, or
+(count, 3) for a range of flat pixel ids (`pixels`, a mesh shard's).
 """
 
 from __future__ import annotations
@@ -62,9 +63,12 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
                   n_quad: int, width: int, height: int, spp: int,
                   max_bounces: int, seed: int = 0, spp_offset: int = 0,
                   has_met: bool = True, has_die: bool = True,
-                  sky: bool = False, fmad: bool = False) -> torch.Tensor:
+                  sky: bool = False, fmad: bool = False,
+                  pixels: tuple | None = None) -> torch.Tensor:
     """(H, W, 3) f32 mean radiance over samples [spp_offset,
-    spp_offset + spp) on the device of `table`.
+    spp_offset + spp) on the device of `table`; with `pixels` (begin,
+    count), the (count, 3) radiance of those flat pixel ids (a mesh
+    shard's range).
 
     `table` is the scene table (scene_table.scene_table, flattened), `cam`
     the 32-word camera vector. `has_met`/`has_die`/`sky` specialise the
@@ -72,10 +76,11 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
     contraction, for numerics comparisons only; the CPU twin ignores it.
     """
     _check(table, cam, n_sph, n_quad, width, height, spp, max_bounces)
+    mk.pixel_range(width, height, pixels)
     kw = dict(n_sph=n_sph, n_quad=n_quad, width=width, height=height,
               spp=spp, max_bounces=max_bounces, seed=seed,
               spp_offset=spp_offset, has_met=has_met, has_die=has_die,
-              sky=sky)
+              sky=sky, pixels=pixels)
     if table.device.type == "cpu":
         return render_packed_reference(table, cam, **kw)
     if table.device.type != "cuda":
@@ -83,17 +88,17 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
     lib = _build.load(fmad=fmad)
     flags = (int(has_met), int(has_die), int(sky))
 
-    def launch(out, samples, split, inv_spp, stream):
+    def launch(out, samples, split, inv_spp, pix0, npix, stream):
         return lib.tinyrt_megakernel_packed(
             cam.data_ptr(), table.data_ptr(), table.numel(), n_sph, n_quad,
             out, samples, width, height, seed & 0xFFFFFFFF,
             spp_offset & 0xFFFFFFFF, spp, max_bounces, inv_spp, split,
-            *flags, stream)
+            *flags, pix0, npix, stream)
 
     out, err = mk.launch_forward(
-        lib, table.device, width, height, spp,
-        lambda: lib.tinyrt_megakernel_packed_split(table.numel(), width,
-                                                   height, spp, *flags),
+        lib, table.device, width, height, spp, pixels,
+        lambda rows: lib.tinyrt_megakernel_packed_split(
+            table.numel(), width, rows, spp, *flags),
         launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
@@ -111,10 +116,12 @@ def render_packed_reference(table: torch.Tensor, cam: torch.Tensor, *,
                             height: int, spp: int, max_bounces: int,
                             seed: int = 0, spp_offset: int = 0,
                             has_met: bool = True, has_die: bool = True,
-                            sky: bool = False) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel, vectorised over all pixels: the
-    shared sampler (`megakernel.lockstep_render`) with the dense closest
-    hit over the table's primitives (`megakernel.dense_closest_hit`)."""
+                            sky: bool = False,
+                            pixels: tuple | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel, vectorised over all pixels (or
+    the flat pixel ids `pixels`, (begin, count)): the shared sampler
+    (`megakernel.lockstep_render`) with the dense closest hit over the
+    table's primitives (`megakernel.dense_closest_hit`)."""
     _check(table, cam, n_sph, n_quad, width, height, spp, max_bounces)
     sph = table[: n_sph * SPH_STRIDE].view(n_sph, SPH_STRIDE)
     quad = table[n_sph * SPH_STRIDE:
@@ -130,4 +137,4 @@ def render_packed_reference(table: torch.Tensor, cam: torch.Tensor, *,
         cam, mk.dense_closest_hit(sph[:, :4], quad[:, :12], pay),
         width=width, height=height, spp=spp, max_bounces=max_bounces,
         seed=seed, spp_offset=spp_offset, has_met=has_met, has_die=has_die,
-        sky=sky)
+        sky=sky, pixels=pixels)

@@ -10,7 +10,8 @@ instead, as the JAX package's does.
 The device is named, never guessed: `device="cuda"` (the default) renders
 with the CUDA kernel and raises where there is no CUDA device; a CPU
 render runs the kernel's plain PyTorch twin and is asked for with
-`device="cpu"`.
+`device="cpu"`. `devices=[...]` with more than one entry renders over a
+device mesh (parallel/sharded.py), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import torch
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays, World
 from tinyraytracer_tpu_torch.ops import tonemap
-from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.ops.megakernel import MegakernelRenderer
+from tinyraytracer_tpu_torch.parallel import sharded
 from tinyraytracer_tpu_torch.utils.image import Image
 from tinyraytracer_tpu_torch.utils.progress import ProgressBar
 
@@ -74,8 +75,15 @@ class Renderer:
         spp_per_round: int = 0,
         accelerator: str = "auto",
         sample_parallel: int = 1,
-        device="cuda",
+        device=None,
     ):
+        """`device` (default "cuda") is where a render runs. `devices`, a
+        list of more than one device (it may repeat one), renders over a
+        (tile x sample) mesh of them (parallel/sharded.py), with
+        `sample_parallel` of them splitting each pixel's samples; the
+        image lands on the first, and `device` may only name that one.
+        samples_per_pixel must divide by sample_parallel, with or without
+        a mesh (the JAX package's check)."""
         self.samples_per_pixel = int(samples_per_pixel)
         self.max_bounces = int(max_bounces)
         self.progressbar = bool(progressbar)
@@ -94,42 +102,42 @@ class Renderer:
                 "accelerator='bvh' needs ops/bvh.py, which is not ported "
                 "yet")
         self.accelerator = accelerator
+        self.sample_parallel = int(sample_parallel) if sample_parallel else 1
+        if self.samples_per_pixel % self.sample_parallel:
+            raise ValueError(
+                f"samples_per_pixel={self.samples_per_pixel} not divisible "
+                f"by sample_parallel={self.sample_parallel}")
+        self.mesh = None
         if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "multi-device rendering (parallel/sharded.py) is not "
-                "ported yet")
-        if sample_parallel and int(sample_parallel) > 1:
-            raise NotImplementedError(
-                "sample_parallel > 1 needs multi-device rendering, which "
-                "is not ported yet")
-        self.device = resolve_device(device)
+            self.mesh = sharded.make_mesh(
+                devices, sample_parallel=self.sample_parallel)
+            if (device is not None
+                    and resolve_device(device) != self.mesh.device):
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"first device {self.mesh.device}")
+            self.device = self.mesh.device
+        else:
+            if device is None:
+                device = devices[0] if devices else "cuda"
+            self.device = resolve_device(device)
 
     def _sampler(self, camera: Camera, scene: SceneArrays):
         """f(spp, seed, spp_offset) -> (H, W, 3) mean radiance over samples
-        [spp_offset, spp_offset + spp) on the device: the megakernels, or
-        with `accelerator="none"` the modular tracer (ops/trace.py) with
-        dense closest-hit selection."""
+        [spp_offset, spp_offset + spp) on the device, over the renderer's
+        mesh (the one-cell mesh of its device when it has none): the
+        megakernels, or with `accelerator="none"` the modular tracer
+        (ops/trace.py) with dense closest-hit selection."""
+        mesh = self.mesh or sharded.one_cell(self.device)
         if self.accelerator != "none":
             mk = MegakernelRenderer(scene, camera, self.background_color,
                                     self.device)
             return lambda spp, seed, spp_offset=0: mk.render(
                 spp=spp, max_bounces=self.max_bounces, seed=seed,
-                spp_offset=spp_offset)
-        scene = scene.to(self.device)
-        camera = camera.to(self.device)
-        pixel_id = torch.arange(camera.width * camera.height,
-                                device=self.device)
-
-        def modular(spp, seed, spp_offset=0):
-            with torch.no_grad():
-                img = trace_ops.render_pixels(
-                    scene, camera, pixel_id, spp=spp,
-                    max_bounces=self.max_bounces,
-                    background=self.background_color, seed=seed,
-                    spp_offset=spp_offset)
-            return img.reshape(camera.height, camera.width, 3)
-
-        return modular
+                spp_offset=spp_offset, mesh=mesh)
+        return lambda spp, seed, spp_offset=0: sharded.render_image_sharded(
+            scene, camera, spp=spp, max_bounces=self.max_bounces,
+            background=self.background_color, seed=seed, mesh=mesh,
+            spp_offset=spp_offset)
 
     def render_array(self, camera: Camera, scene: SceneArrays) -> torch.Tensor:
         """Linear-radiance (H, W, 3) f32 framebuffer on the device."""
@@ -172,9 +180,14 @@ class Renderer:
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
         """Chunk samples into rounds (global sample ids [off, off + n)) so
-        the host can tick a progress bar between launches."""
+        the host can tick a progress bar between launches. Over a mesh a
+        round's samples stay divisible by the sample axis (and so, since
+        spp is, does the last round's)."""
         spp = self.samples_per_pixel
         chunk = self.spp_per_round or max(1, spp // 20)
+        if self.mesh is not None:
+            n_sample = self.mesh.shape[sharded.SAMPLE_AXIS]
+            chunk = max(n_sample, (chunk // n_sample) * n_sample)
         render = self._sampler(camera, scene)
         bar = ProgressBar(total=spp, label="spp")
         acc = torch.zeros((camera.height, camera.width, 3),
