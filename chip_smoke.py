@@ -39,8 +39,8 @@ Phases, each printed on its own lines:
    csrc/common.cuh they give each kernel's bound. From the same counts,
    the share of warp lanes on a path under the kernels' per-lane
    regeneration loop and under a lockstep sample loop.
-7. `render_batch` / `render_async` on the card: frames bitwise equal to
-   single renders.
+7. `render_batch_array`, `render_batch` and `render_async` on the card:
+   frames bitwise equal to single renders.
 8. The closest-hit kernel (K3) against its twin, bit for bit on t and on
    j where it is returned, through both routes (the rows in the kernel's
    parameter bank, when the scene has at most 48 real rows, and the rows
@@ -132,15 +132,35 @@ Phases, each printed on its own lines:
    one-device run, in alternating pairs (median and range); with more
    than one card, a mesh of all of them.
 
+19. The BVH accelerator (ops/bvh.py: a host build, a plain PyTorch walk
+   launched op by op): build_bvh at config 4b's 8 000
+   spheres on the host (time, threaded layout); traverse on the card
+   against the CPU, bit for bit on (t, j), on config 4b's primary rays
+   and one bounce's scattered rays (64x48 spp=4) and on Cornell's
+   primary rays (the light/ceiling tie), and against K3's global route
+   on the same rays (hit masks equal, winners within BVH_K3_MAX_FLIP);
+   one walk of config 4b's full-size primary rays timed (median and
+   range of BVH_TIME_REPS); config 4b through Renderer(accelerator="bvh") at
+   400x225 spp=16 mb=50 (cut below STEP_LIMIT_S if need be): a warm-up
+   with three walks profiled for the device's busy share, then
+   BVH_TIME_REPS renders alternating with K2's (median and range, camera
+   Mrays/s, walk iterations per bounce), every kernel counter zeroed
+   before each BVH render and read after it (all must stay 0), the image
+   against K2's; cornell_box at 600x600 spp=16 mb=20 against K1 and the
+   dense modular route; config 4b over a (2, 1) mesh of the card, bit
+   for bit with one device; the CLI's --accelerator bvh --profile DIR on
+   the card (a PNG and a Chrome trace with CUDA kernel events).
+
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17), mesh (18).
+(16-17), mesh (18), bvh (19).
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero without that line.
 """
 
+import glob
 import json
 import math
 import os
@@ -1016,19 +1036,23 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
     return worst
 
 
-def api_phase(np, presets, Renderer):
-    """render_batch and render_async on the card, one K1 and one K2
-    scene: every frame bitwise equal to a single render."""
+def api_phase(torch, np, presets, Renderer):
+    """render_batch_array, render_batch and render_async on the card, one
+    K1 and one K2 scene: every frame bitwise equal to a single render."""
     for name, pkw in (("sphere_ground", {}), ("random_spheres", dict(n=500))):
         world, camera, kw = presets.PRESETS[name](width=64, height=48, **pkw)
         r = Renderer(4, max_bounces=6, background_color=kw["background"],
                      seed=0, device="cuda")
         seeds = [0, 5, 11]
         frames = r.render_batch(camera, world, seeds)
-        for s, img in zip(seeds, frames):
+        arrays = r.render_batch_array(camera, world.build(), seeds)
+        for s, img, arr in zip(seeds, frames, arrays):
             r.seed = s
             if not np.array_equal(img.data, r.render(camera, world).data):
                 raise RuntimeError(f"{name}: render_batch seed {s} differs")
+            if not torch.equal(arr, r.render_array(camera, world.build())):
+                raise RuntimeError(f"{name}: render_batch_array seed {s} "
+                                   "differs")
         r.seed = 5
         handle = r.render_async(camera, world)
         polled = handle.done()
@@ -1037,7 +1061,8 @@ def api_phase(np, presets, Renderer):
             raise RuntimeError("render_async: done() false after result()")
         if not np.array_equal(img.data, frames[1].data):
             raise RuntimeError(f"{name}: render_async differs from render")
-        log(f"[api] {name}: render_batch {len(seeds)} frames == render; "
+        log(f"[api] {name}: render_batch_array and render_batch "
+            f"{len(seeds)} frames == render_array, render; "
             f"render_async == render (done() before result(): {polled})")
 
 
@@ -3192,8 +3217,352 @@ def multi_card_times(torch, presets, mk, dk, sharded, template, camera,
     return out
 
 
+# The BVH route (phase 19, ops/bvh.py): config 4b (bench.py's 8 000
+# spheres at 400x225, mb=50) through Renderer(accelerator="bvh"), spp=16
+# unless a render passes STEP_LIMIT_S (then the largest divisor of 16 that
+# keeps it under), and cornell_box (the coplanar-tie scene) at
+# BVH_CORNELL. The walk is plain PyTorch, launched op by op, so
+# images are held to the kernels' images by the modular tracer's
+# tolerances, measured on the H100: cfg4b against K2 7.2 % of pixels over
+# PARITY_ATOL, image mean 2.5e-4 apart; Cornell against K1 15.2 %, 4.8e-3
+# (the light/ceiling z-fight over 20 bounces; the dense modular route
+# differs from K1 the same way), and against the dense modular route 3
+# pixels of 360 000.
+BVH_CFG4B = dict(width=400, height=225, n=8000, spp=16, max_bounces=50)
+BVH_CORNELL = dict(width=600, height=600, spp=16, max_bounces=20)
+BVH_K2_MAX_FRAC = 0.10
+BVH_K1_MAX_FRAC = 0.20
+BVH_DENSE_MAX_FRAC = 1e-3
+# traverse against K3's global route on the same rays: winners may differ
+# only at near-tangent contacts (the two leaf formulas round apart)
+BVH_K3_MAX_FLIP = 0.01
+# traverse on the card against the CPU: the rays of config 4b's camera at
+# 64x48 spp=4 (primary, then one bounce's scattered rays)
+BVH_RAYS = dict(width=64, height=48, spp=4)
+BVH_TIME_REPS = 3
+# the walks of the render profiled for the device's busy share: a profiled
+# whole render would record some 2.3 million kernels, whose processing
+# takes minutes
+BVH_PROFILED_WALKS = (10, 30, 60)
+
+
+def _image_check(np, label, got, want, max_frac, mean_rtol):
+    """Share of pixels over PARITY_ATOL and the image means' relative
+    gap; raises beyond (max_frac, mean_rtol)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    d = np.abs(got - want).max(-1)
+    frac = float((d > PARITY_ATOL).mean())
+    mean_rel = float(abs(got.mean() - want.mean()) / want.mean())
+    log(f"[bvh] {label}: max|d| {d.max():.3g}, pixels > {PARITY_ATOL:g}: "
+        f"{frac:.4%} (allowed {max_frac:.2%}), mean rel {mean_rel:.3g} "
+        f"(allowed {mean_rtol:g})")
+    if not np.isfinite(got).all() or frac > max_frac or mean_rel > mean_rtol:
+        raise RuntimeError(f"{label}: the BVH image disagrees")
+    return dict(max_abs=float(d.max()), frac=frac, mean_rel=mean_rel)
+
+
+def _walk_counts(bvh_ops):
+    c = bvh_ops.walk_counts
+    return dict(walks=c.walks, iterations=c.iterations,
+                max_iterations=c.max_iterations, ray_steps=c.ray_steps,
+                iterations_mean=c.iterations / max(c.walks, 1))
+
+
+def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
+              generate_rays, Renderer, card):
+    """The BVH accelerator on the card: the builder, the walk against the
+    CPU and K3, config 4b and Cornell through Renderer(accelerator="bvh")
+    with K1-K5 idle, the (2, 1) mesh and the CLI's --accelerator bvh
+    --profile."""
+    import dataclasses
+    from tinyraytracer_tpu_torch.__main__ import main as cli_main
+    from tinyraytracer_tpu_torch.ops import intersect as isect
+    from tinyraytracer_tpu_torch.ops.scatter import scatter
+    res = {}
+    c4 = BVH_CFG4B
+    world, camera, kw = presets.random_spheres(width=c4["width"],
+                                               height=c4["height"], n=c4["n"])
+    scene = world.build()
+    build_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_bvh = bvh_ops.build_bvh(scene)
+        build_s.append(time.perf_counter() - t0)
+    a = host_bvh.numpy()
+    lp, hl, ml = a["leaf_prim"], a["hit_link"], a["miss_link"]
+    m = lp.shape[0]
+    inner = lp < 0
+    left = (np.arange(m) + 1)[inner]
+    ok = (m == 2 * int((lp >= 0).sum()) - 1
+          and (hl > np.arange(m)).all() and (ml > np.arange(m)).all()
+          and (hl <= m).all() and (ml <= m).all()
+          and (a["node_min"] <= a["node_max"]).all()
+          and (a["node_min"][inner] <= a["node_min"][left] + 1e-6).all()
+          and (a["node_max"][inner] >= a["node_max"][left] - 1e-6).all())
+    med, lo, hi = _spread(build_s)
+    res["build"] = dict(primitives=int((lp >= 0).sum()), nodes=m,
+                        build_s=build_s, median_s=med)
+    log(f"[bvh] build_bvh at {int((lp >= 0).sum())} primitives ({m} nodes) "
+        f"on the host: {med * 1e3:.1f} ms [{lo * 1e3:.1f}, {hi * 1e3:.1f}] "
+        f"(median [min, max] of 3); layout well-formed: {ok}")
+    if not ok:
+        raise RuntimeError("the BVH's threaded layout is malformed")
+
+    # the walk on the card against the CPU, and against K3's global route
+    rw, rh, rspp = BVH_RAYS["width"], BVH_RAYS["height"], BVH_RAYS["spp"]
+    cam_r = presets.random_spheres(width=rw, height=rh, n=c4["n"])[1]
+    pid, sid = trace_ops.round_ids(torch.arange(rw * rh), rspp, 0)
+    o, d = generate_rays(cam_r, pid, sid, 0)
+    t, j = bvh_ops.traverse(scene, host_bvh, o, d)
+    rec = isect.select_to_record(scene, o, d,
+                                 torch.where(j >= 0, t, isect.MISS_T), j)
+    new_d, _, absorbed = scatter(d, rec, 0, pid, sid, 0)
+    keep = rec.hit & ~absorbed
+    cw, cc, _ = presets.cornell_box(width=rw, height=rh)
+    cscene = cw.build()
+    co, cd = generate_rays(cc, torch.arange(rw * rh), 0, 0)
+    waves = {"cfg4b primary": (scene, host_bvh, o, d),
+             "cfg4b scattered": (scene, host_bvh, rec.point[keep].contiguous(),
+                                 new_d[keep].contiguous()),
+             "Cornell primary (light/ceiling tie)":
+                 (cscene, bvh_ops.build_bvh(cscene), co, cd)}
+    res["walk"] = {}
+    for label, (sc, bv, oo, dd) in waves.items():
+        t_c, j_c = bvh_ops.traverse(sc, bv, oo, dd)
+        t_g, j_g = bvh_ops.traverse(sc.to("cuda"), bv.to("cuda"), oo.cuda(),
+                                    dd.cuda())
+        same = (torch.equal(t_g.cpu(), t_c) and torch.equal(j_g.cpu(), j_c))
+        cs = dataclasses.replace(ik.compact_rows(sc, "cuda"), bank=None)
+        _, j_k = ik.closest_hit(cs, oo.cuda(), dd.cuda())
+        j_k = j_k.long().cpu()
+        hit = j_c >= 0
+        masks = torch.equal(hit, j_k >= 0)
+        flip = float((hit & (j_c != j_k)).sum()) / max(int(hit.sum()), 1)
+        res["walk"][label] = dict(rays=oo.shape[0], card_equals_cpu=same,
+                                  hit_masks_equal=masks, k3_flip=flip)
+        log(f"[bvh] traverse, {label} rays ({oo.shape[0]}): card == CPU "
+            f"bit for bit on (t, j): {same}; against K3's global route: "
+            f"hit masks equal {masks}, winners differ on {flip:.4%} of hits "
+            f"(allowed {BVH_K3_MAX_FLIP:.0%})")
+        if not same or not masks or flip > BVH_K3_MAX_FLIP:
+            raise RuntimeError(f"traverse on {label} rays disagrees")
+
+    # one walk of config 4b's primary rays at full size
+    o4, d4 = generate_rays(camera, torch.arange(c4["width"] * c4["height"]),
+                           0, 0)
+    o4, d4 = o4.cuda(), d4.cuda()
+    gscene, gbvh = scene.to("cuda"), host_bvh.to("cuda")
+    bvh_ops.traverse(gscene, gbvh, o4, d4)              # warm-up
+    walk_ms = []
+    for _ in range(BVH_TIME_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bvh_ops.traverse(gscene, gbvh, o4, d4)
+        torch.cuda.synchronize()
+        walk_ms.append((time.perf_counter() - t0) * 1e3)
+    wmed, wlo, whi = _spread(walk_ms)
+    res["primary_walk"] = dict(rays=o4.shape[0], ms=walk_ms, median_ms=wmed)
+    log(f"[bvh] one walk of cfg4b's {o4.shape[0]} primary rays: "
+        f"{wmed:.2f} ms [{wlo:.2f}, {whi:.2f}] (median [min, max] of "
+        f"{BVH_TIME_REPS})")
+
+    # config 4b through the BVH route, alternating with K2
+    counters = lambda: _counters(ik, mk, mkp, dk, dkp)   # noqa: E731
+    spp = c4["spp"]
+
+    def bvh_renderer(n):
+        return Renderer(n, max_bounces=c4["max_bounces"],
+                        background_color=kw["background"], seed=0,
+                        accelerator="bvh", device="cuda")
+
+    # warm-up, with a few walks profiled and every walk's wall time summed
+    walk_wall = [0.0]
+    profiled = []
+    real = bvh_ops.traverse
+    from torch.profiler import ProfilerActivity, profile
+
+    def watched(*args, **kwargs):
+        k = watched.calls
+        watched.calls += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k not in BVH_PROFILED_WALKS:
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            walk_wall[0] += time.perf_counter() - t0
+            return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        dev_ms = sum(e.self_device_time_total
+                     for e in prof.key_averages()) / 1e3
+        profiled.append(dict(walk=k, wall_ms=wall * 1e3, device_ms=dev_ms,
+                             busy=dev_ms / (wall * 1e3),
+                             held_s=time.perf_counter() - t0))
+        return out
+
+    watched.calls = 0
+    bvh_ops.traverse = watched
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bvh_renderer(spp).render_array(camera, scene)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        bvh_ops.traverse = real
+    # the unprofiled walks' share of the render without the profiled ones
+    walk_share = walk_wall[0] / (warm_s - sum(p["held_s"] for p in profiled))
+    if warm_s > STEP_LIMIT_S:
+        spp = max(s for s in range(1, spp + 1) if spp % s == 0
+                  and warm_s * s / c4["spp"] < STEP_LIMIT_S)
+        log(f"[bvh] cfg4b warm-up {warm_s:.1f} s passes {STEP_LIMIT_S:.0f} s:"
+            f" spp cut to {spp}")
+    k2 = Renderer(spp, max_bounces=c4["max_bounces"],
+                  background_color=kw["background"], seed=0, device="cuda")
+    times = {"bvh": [], "k2": []}
+    img = img_k2 = None
+    for _ in range(BVH_TIME_REPS):
+        _zero_counters(ik, mk, mkp, dk, dkp)
+        bvh_ops.walk_counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = bvh_renderer(spp).render_array(camera, scene)
+        torch.cuda.synchronize()
+        times["bvh"].append(time.perf_counter() - t0)
+        idle = counters()
+        walks = _walk_counts(bvh_ops)
+        if any(idle.values()):
+            raise RuntimeError(f"a kernel ran on the BVH route: {idle}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_k2 = k2.render_array(camera, scene)
+        torch.cuda.synchronize()
+        times["k2"].append(time.perf_counter() - t0)
+    if tuple(img.shape) != (c4["height"], c4["width"], 3) or \
+            not bool(torch.isfinite(img).all()) or bool((img < 0).any()):
+        raise RuntimeError("cfg4b BVH image not finite / negative")
+    mb_, lo_b, hi_b = _spread(times["bvh"])
+    mk_, lo_k, hi_k = _spread(times["k2"])
+    rays = c4["width"] * c4["height"] * spp
+    busy = [p["busy"] for p in profiled]
+    res["cfg4b"] = dict(
+        spp=spp, max_bounces=c4["max_bounces"], render_s=times["bvh"],
+        median_s=mb_, mrays_s=rays / mb_ / 1e6, k2_render_s=times["k2"],
+        k2_median_s=mk_, warmup_s=warm_s, walks=walks,
+        iterations_per_bounce_mean=walks["iterations_mean"],
+        iterations_per_bounce_max=walks["max_iterations"],
+        ray_steps_per_ray_walk=walks["ray_steps"] / (rays * c4[
+            "max_bounces"]),
+        profiled_walks=profiled, walk_share=walk_share, kernels_idle=True,
+        vs_k2=_image_check(np, "cfg4b BVH image vs K2", img, img_k2,
+                           BVH_K2_MAX_FRAC, PARITY_MEAN_RTOL))
+    log(f"[bvh] cfg4b {c4['width']}x{c4['height']} spp={spp} "
+        f"mb={c4['max_bounces']}, Renderer(accelerator=\"bvh\").render_array"
+        f" {mb_ * 1e3:.1f} ms [{lo_b * 1e3:.1f}, {hi_b * 1e3:.1f}], "
+        f"{rays / mb_ / 1e6:.3f} camera Mrays/s; K2 {mk_ * 1e3:.2f} ms "
+        f"[{lo_k * 1e3:.2f}, {hi_k * 1e3:.2f}] (median [min, max] of "
+        f"{BVH_TIME_REPS}, alternating) on {card}; K1-K5 launches during "
+        f"the BVH renders: 0")
+    groups = walks["walks"] // c4["max_bounces"]
+    log(f"[bvh] cfg4b walks: {walks['walks']} ({groups} lockstep groups x "
+        f"{c4['max_bounces']} bounces), walk iterations per bounce mean "
+        f"{walks['iterations_mean']:.1f}, max {walks['max_iterations']}; "
+        f"{res['cfg4b']['ray_steps_per_ray_walk']:.1f} node steps per ray "
+        f"and bounce; the walks take "
+        f"{walk_share:.1%} of the render's wall time (warm-up)")
+    log(f"[bvh] cfg4b device busy under torch.profiler, walks "
+        f"{[p['walk'] for p in profiled]}: "
+        + ", ".join(f"{p['busy']:.1%} ({p['device_ms']:.1f} of "
+                    f"{p['wall_ms']:.1f} ms)" for p in profiled))
+    if len(profiled) != len(BVH_PROFILED_WALKS) or not all(
+            b > 0 for b in busy):
+        raise RuntimeError("the profiler saw no device time in the walks")
+
+    # Cornell, the coplanar-tie scene: against K1 and the dense route
+    cb = BVH_CORNELL
+    cw, cc, ckw = presets.cornell_box(width=cb["width"], height=cb["height"])
+    cscene = cw.build()
+    args = dict(max_bounces=cb["max_bounces"],
+                background_color=ckw["background"], seed=0, device="cuda")
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    bvh_ops.walk_counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cimg = Renderer(cb["spp"], accelerator="bvh", **args).render_array(
+        cc, cscene)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    idle = counters()
+    cwalks = _walk_counts(bvh_ops)
+    if any(idle.values()):
+        raise RuntimeError(f"a kernel ran on the BVH route: {idle}")
+    ck1 = Renderer(cb["spp"], **args).render_array(cc, cscene)
+    cdense = Renderer(cb["spp"], accelerator="none", **args).render_array(
+        cc, cscene)
+    crays = cb["width"] * cb["height"] * cb["spp"]
+    res["cornell"] = dict(
+        spp=cb["spp"], render_s=c_s, mrays_s=crays / c_s / 1e6,
+        walks=cwalks,
+        vs_k1=_image_check(np, "Cornell BVH image vs K1", cimg, ck1,
+                           BVH_K1_MAX_FRAC, ZFIGHT_MEAN_RTOL),
+        vs_dense=_image_check(np, "Cornell BVH image vs the dense route",
+                              cimg, cdense, BVH_DENSE_MAX_FRAC,
+                              PARITY_MEAN_RTOL))
+    log(f"[bvh] cornell_box {cb['width']}x{cb['height']} spp={cb['spp']} "
+        f"mb={cb['max_bounces']}: {c_s * 1e3:.1f} ms (one run), "
+        f"{crays / c_s / 1e6:.3f} camera Mrays/s; walk iterations per "
+        f"bounce mean {cwalks['iterations_mean']:.1f}, max "
+        f"{cwalks['max_iterations']}; K1-K5 idle")
+
+    # the (2, 1) mesh of the one card, bit for bit with one device
+    mesh_r = Renderer(spp, max_bounces=c4["max_bounces"],
+                      background_color=kw["background"], seed=0,
+                      accelerator="bvh", devices=["cuda:0", "cuda:0"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mimg = mesh_r.render_array(camera, scene)
+    torch.cuda.synchronize()
+    m_s = time.perf_counter() - t0
+    equal = torch.equal(mimg, img)
+    res["mesh"] = dict(shape=dict(mesh_r.mesh.shape), render_s=m_s,
+                       equal=equal)
+    log(f"[bvh] cfg4b over a {mesh_r.mesh.shape} mesh of the card: "
+        f"{m_s * 1e3:.1f} ms, bit for bit with one device: {equal}")
+    if not equal:
+        raise RuntimeError("the BVH route over a mesh differs")
+
+    # the CLI: --accelerator bvh --profile DIR on the card
+    out_dir = os.path.join(ROOT, "output", "chip_smoke_bvh_profile")
+    png = os.path.join(ROOT, "output", "chip_smoke_cli_bvh.png")
+    for f in (glob.glob(os.path.join(out_dir, "*.json"))
+              if os.path.isdir(out_dir) else []):
+        os.remove(f)
+    rc = cli_main(["--preset", "cornell_box", "--width", "64", "--height",
+                   "48", "--spp", "4", "--max-bounces", "8", "--device",
+                   "cuda", "--accelerator", "bvh", "--profile", out_dir,
+                   "--out", png])
+    traces = glob.glob(os.path.join(out_dir, "*.pt.trace.json"))
+    n_kernels = 0
+    for path in traces:
+        with open(path) as f:
+            n_kernels += sum(1 for e in json.load(f)["traceEvents"]
+                             if e.get("cat") == "kernel")
+    res["cli"] = dict(rc=rc, traces=len(traces), kernel_events=n_kernels,
+                      png=os.path.exists(png))
+    log(f"[bvh] CLI --accelerator bvh --profile: rc {rc}, PNG "
+        f"{os.path.exists(png)}, {len(traces)} trace(s) with {n_kernels} "
+        f"CUDA kernel events")
+    if rc != 0 or not os.path.exists(png) or len(traces) != 1 \
+            or n_kernels == 0:
+        raise RuntimeError("the CLI's BVH profile run failed")
+    return res
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f", "mesh")
+          "cfg5f", "k4", "cfg4f", "mesh", "bvh")
 
 
 def main(argv=None) -> int:
@@ -3204,8 +3573,8 @@ def main(argv=None) -> int:
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
-                    "cfg4f (16-17), mesh (18); the result lines need the "
-                    "default set")
+                    "cfg4f (16-17), mesh (18), bvh (19); the result lines "
+                    "need the default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
@@ -3222,6 +3591,7 @@ def main(argv=None) -> int:
     from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
     from tinyraytracer_tpu_torch.ops import megakernel as mk
     from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+    from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
     from tinyraytracer_tpu_torch.ops import trace as trace_ops
     from tinyraytracer_tpu_torch.parallel import sharded
 
@@ -3239,7 +3609,7 @@ def main(argv=None) -> int:
                                          results, _build.load()).items():
             worst[k] = max(worst[k], v)
         results["sass"] = sass
-        api_phase(np, presets, Renderer)
+        api_phase(torch, np, presets, Renderer)
     if "k3" in only:
         results["k3"] = k3_phase(torch, presets, ik, trace_ops,
                                  generate_rays, card)
@@ -3268,6 +3638,10 @@ def main(argv=None) -> int:
         mesh_twin_checks(torch, presets, mk, mkp, sharded, _build.load())
         results["mesh"] = mesh_phase(torch, presets, ik, mk, mkp, dk, dkp,
                                      inverse, sharded, Renderer, card)
+    if "bvh" in only:
+        results["bvh"] = bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp,
+                                   bvh_ops, trace_ops, generate_rays,
+                                   Renderer, card)
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)

@@ -854,3 +854,73 @@ def test_mesh_routes_on_one_card(cuda):
             device=cuda, **common)
         losses.append(float(step(p, o, 0)[2]))
     assert abs(losses[1] - losses[0]) <= 1e-6 * losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, kw", [("cornell_box", {}),
+                                      ("random_spheres", dict(n=500))])
+def test_bvh_walk_on_the_card_equals_the_cpu(cuda, name, kw):
+    """ops/bvh.py's walk gives the CPU walk's (t, j) bit for bit, twice
+    in a row over the same BVH, on primary rays."""
+    from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
+
+    world, camera, _ = presets.PRESETS[name](width=64, height=48, **kw)
+    scene = world.build()
+    bvh = bvh_ops.build_bvh(scene)
+    o, d = generate_rays(camera, torch.arange(64 * 48), 0, 3)
+    t_c, j_c = bvh_ops.traverse(scene, bvh, o, d)
+    g_scene, g_bvh = scene.to(cuda), bvh.to(cuda)
+    for _ in range(2):
+        t_g, j_g = bvh_ops.traverse(g_scene, g_bvh, o.to(cuda), d.to(cuda))
+        assert torch.equal(t_g.cpu(), t_c) and torch.equal(j_g.cpu(), j_c)
+
+
+@pytest.mark.cuda
+def test_bvh_renderer_runs_no_kernel(cuda):
+    """Renderer(accelerator="bvh") on the card renders the dense modular
+    route's image (selection rounds apart: MAX_FRAC of pixels may differ)
+    and launches none of K1-K5."""
+    from tinyraytracer_tpu_torch import Renderer
+    from tinyraytracer_tpu_torch.ops import diffkernel as dk
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    def counts():
+        return (mkp.render_packed.launches, mk.render_flat.launches,
+                ik.closest_hit.launches, dk.classic_diff.launches,
+                dkp.packed_diff.launches)
+
+    world, camera, kw = presets.random_spheres(width=32, height=24, n=200)
+    args = dict(max_bounces=6, background_color=kw["background"], seed=1,
+                device=cuda)
+    before = counts()
+    got = Renderer(4, accelerator="bvh", **args).render_array(
+        camera, world.build())
+    assert counts() == before
+    want = Renderer(4, accelerator="none", **args).render_array(
+        camera, world.build())
+    assert torch.isfinite(got).all()
+    frac = float(((got - want).abs() > ATOL).any(-1).float().mean())
+    assert frac <= MAX_FRAC
+
+
+@pytest.mark.cuda
+def test_ray_and_transform_on_the_card(cuda):
+    """Ray and Transform build on the card by default and keep a card
+    tensor there, also when the value was built on the CPU."""
+    from tinyraytracer_tpu_torch import Ray, Transform
+
+    args = ((1.0, 2.0, 3.0), (2.0, 2.0, 2.0), (0.0, 0.0, 90.0))
+    t = Transform.new(*args)
+    assert t.matrix.device.type == "cuda"
+    pts = torch.randn((5, 3), generator=torch.Generator().manual_seed(0))
+    want = Transform.new(*args, device="cpu").apply(pts)
+    for tr in (t, Transform.new(*args, device="cpu")):
+        got = tr.apply(pts.to(cuda))
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+        assert tr.apply_vector(pts.to(cuda)).device.type == "cuda"
+    r = Ray.new([0.0, 0.0, 0.0], [0.0, 2.0, 0.0])
+    assert r.origin.device.type == "cuda"
+    cpu_ray = Ray.new([0.0, 0.0, 0.0], [0.0, 2.0, 0.0], device="cpu")
+    at = cpu_ray.at(torch.ones(3, device=cuda))
+    assert at.device.type == "cuda" and float(at[0, 1]) == 1.0

@@ -134,16 +134,21 @@ def test_cli_mesh_only_for_bare_cuda(monkeypatch, device, want):
     dict(devices=["cpu", "cpu"]), dict(sample_parallel=2),
 ])
 def test_unported_options_raise(kw):
-    """ops/bvh.py is not ported: accelerator="bvh" raises. Multi-device
-    rendering is (parallel/sharded.py): a mesh of two CPU cells renders
-    the one-device image bit for bit on the modular route
+    """Every option is ported now. accelerator="bvh" (ops/bvh.py) renders
+    the dense modular image (accelerator="none") bit for bit on the CPU.
+    Multi-device rendering (parallel/sharded.py): a mesh of two CPU cells
+    renders the one-device image bit for bit on the modular route
     (accelerator="none") and on the megakernel's, and sample_parallel=2
     on one device only checks that spp divides, as in the JAX package."""
-    if kw.get("accelerator") == "bvh":
-        with pytest.raises(NotImplementedError):
-            Renderer(4, device="cpu", **kw)
-        return
     world, camera, pkw = presets.cornell_box(width=12, height=10)
+    if kw.get("accelerator") == "bvh":
+        common = dict(max_bounces=3, background_color=pkw["background"],
+                      seed=2, device="cpu")
+        got = Renderer(4, **common, **kw).render_array(camera, world.build())
+        want = Renderer(4, accelerator="none", **common).render_array(
+            camera, world.build())
+        assert torch.equal(got, want)
+        return
     common = dict(max_bounces=3, background_color=pkw["background"], seed=2,
                   accelerator=kw.get("accelerator", "auto"))
     want = Renderer(4, device="cpu", **common).render_array(camera,
@@ -165,17 +170,28 @@ def test_unported_entry_points_raise():
 
 
 def test_port_imports_no_jax():
-    """With `jax` made unimportable, the port imports and renders 8x6 on
-    the CPU, and neither JAX nor the JAX package gets loaded."""
+    """With `jax` made unimportable, the port imports (Ray, Transform,
+    ops/bvh.py and the profiler too) and renders 8x6 on the CPU, with the
+    megakernel's twin and with the BVH, and neither JAX nor the JAX
+    package gets loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import tinyraytracer_tpu_torch as t\n"
+        "from tinyraytracer_tpu_torch import Ray, Transform\n"
+        "from tinyraytracer_tpu_torch.ops import bvh\n"
+        "from tinyraytracer_tpu_torch.utils import profiling\n"
         "from tinyraytracer_tpu_torch.models import presets\n"
         "w, c, kw = presets.cornell_box(width=8, height=6)\n"
         "img = t.Renderer(2, max_bounces=3, background_color=kw['background'],"
         " device='cpu').render(c, w)\n"
         "assert img.data.shape == (6, 8, 3)\n"
+        "img = t.Renderer(2, max_bounces=3, background_color=kw['background'],"
+        " device='cpu', accelerator='bvh').render(c, w)\n"
+        "assert img.data.shape == (6, 8, 3)\n"
+        "assert Transform.translate((1, 2, 3), 'cpu').apply([0.0, 0, 0])"
+        ".shape == (3,)\n"
+        "assert Ray.new([0.0, 0, 0], [0.0, 2, 0], 'cpu').at(1.0)[1] == 1.0\n"
         "bad = [m for m in sys.modules if m == 'tinyraytracer_tpu' or "
         "m.startswith(('tinyraytracer_tpu.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n"

@@ -6,12 +6,16 @@ it is tested against. This package imports neither JAX nor the JAX
 package. It has:
 
 - the scene API: cameras, spheres, quads, groups, materials, worlds,
-  presets;
+  presets; the `Ray` and `Transform` value types;
 - the forward render path: `Renderer.render` -> scene lowering -> the
   packed megakernel (K1) for scenes of up to 48 primitives, the
   classic-layout megakernel (K2) above -> gamma-2.2 `Image` -> PNG;
-  `Renderer.render_batch` and `Renderer.render_async`; the CLI
-  (`python -m tinyraytracer_tpu_torch`);
+  `Renderer.render_batch_array`, `render_batch` and `render_async`; the
+  CLI (`python -m tinyraytracer_tpu_torch`, with `--accelerator` and
+  `--profile DIR`: a torch.profiler trace, utils/profiling.py);
+- the BVH accelerator (`ops/bvh.py`: a numpy build, a plain PyTorch walk):
+  `Renderer(accelerator="bvh")` and `bvh=` on the modular tracer's
+  `trace`/`render_pixels`/`render_image` and on `render_image_sharded`;
 - the modular differentiable path (`ops/trace.py`, `diff/`: the training
   loss, `make_train_step`, `fit(engine="modular")`), its closest-hit
   selection on kernel K3;
@@ -36,6 +40,8 @@ from tinyraytracer_tpu_torch.models.materials import (
     Light,
     Metal,
 )
+from tinyraytracer_tpu_torch.models.ray import Ray
+from tinyraytracer_tpu_torch.models.transform import Transform
 from tinyraytracer_tpu_torch.models.world import (
     SceneArrays,
     World,
@@ -56,6 +62,8 @@ __all__ = [
     "Metal",
     "Dielectric",
     "Light",
+    "Ray",
+    "Transform",
     "World",
     "SceneArrays",
     "scene_from_numpy",

@@ -6,6 +6,8 @@
         --out output/cornell600.png --progress
     python -m tinyraytracer_tpu_torch --device cpu --width 64 --height 48
     python -m tinyraytracer_tpu_torch --sample-parallel 2   # over all cards
+    python -m tinyraytracer_tpu_torch --preset random_spheres --accelerator bvh
+    python -m tinyraytracer_tpu_torch --profile output/profile  # Chrome trace
 
 Defaults reproduce the reference binary: Cornell box, 300x300, spp=300,
 max_bounces=20, background (0.001, 0.001, 0.001) (src/main.rs:6-21). The
@@ -14,7 +16,11 @@ device defaults to CUDA and is never guessed: without CUDA, pass
 cuda` and more than one visible CUDA device the render runs over a (tile
 x sample) mesh of all of them, `--sample-parallel` of them splitting each
 pixel's samples (parallel/sharded.py); `--device cuda:k` renders on that
-card alone.
+card alone. `--accelerator` picks the render path as the JAX CLI's does:
+the megakernels (`auto`, `megakernel`), the modular tracer with BVH
+selection (`bvh`) or with dense selection (`none`). `--profile DIR`
+writes a torch.profiler Chrome trace of the render into DIR
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -50,6 +56,15 @@ def main(argv=None) -> int:
                          "--device cuda and more than one visible CUDA "
                          "device the render runs over a mesh of all of "
                          "them")
+    ap.add_argument("--accelerator", default="auto",
+                    choices=("auto", "megakernel", "bvh", "none"),
+                    help="auto/megakernel: the CUDA megakernels (their "
+                         "twins on the CPU); bvh: the modular tracer with "
+                         "BVH selection; none: the modular tracer with "
+                         "dense selection")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the "
+                         "render into DIR (open it in Perfetto)")
     args = ap.parse_args(argv)
 
     import torch
@@ -81,20 +96,29 @@ def main(argv=None) -> int:
         background_color=kw["background"],
         seed=args.seed,
         devices=devices,
+        accelerator=args.accelerator,
         sample_parallel=args.sample_parallel,
         device=None if devices else args.device,
     )
     t0 = time.perf_counter()
-    image = renderer.render(camera, world)   # ends in a host copy
+    if args.profile:
+        from tinyraytracer_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            image = renderer.render(camera, world)
+    else:
+        image = renderer.render(camera, world)   # ends in a host copy
     dt = time.perf_counter() - t0
     dev = renderer.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu (PyTorch twin)")
+            else "cpu (PyTorch twin)" if args.accelerator in (
+                "auto", "megakernel") else "cpu")
     if devices:
         name = f"{len(devices)} x {name} (mesh {renderer.mesh.shape})"
     rays = args.width * args.height * args.spp
     print(f"{args.preset}: {args.width}x{args.height} spp={args.spp} "
-          f"bounces={max_bounces} on {name} — "
+          f"bounces={max_bounces} accelerator={args.accelerator} on "
+          f"{name} — "
           f"{dt:.2f}s (one call: scene lowering and, on a first CUDA "
           f"run, the kernel build included), "
           f"{rays / dt / 1e6:.2f} Mrays/s")

@@ -75,6 +75,15 @@ def _matmul_full_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.set_float32_matmul_precision(prec)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 root on every device. The card's f32
+    torch.sqrt is; the CPU's vectorised one is not always, so on the CPU
+    the root is taken in f64 and rounded once."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 class _RootSqrt(torch.autograd.Function):
     """sqrt whose derivative at exactly 0 is 0 instead of infinite.
 
@@ -88,7 +97,7 @@ class _RootSqrt(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.sqrt(x)
+        y = sqrt_rn(x)
         ctx.save_for_backward(y)
         return y
 
@@ -147,6 +156,13 @@ class HitRecord:
 
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def _dot3(a, b):
+    """a . b over the last axis of (..., 3) rows, added left to right: the
+    CPU's torch.sum order, which the card's reduction does not keep."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 def cross(a, b):
@@ -225,22 +241,14 @@ def quad_ts(scene, o, d, t_min=T_MIN, t_max=MISS_T):
     return _where_miss(valid, t)
 
 
-def prim_t(scene, o, d, j, t_min=T_MIN, t_max=MISS_T):
-    """t of each ray against its single global primitive j (spheres then
-    quads), in [t_min, t_max). The one differentiable t formula: whichever
-    path selected the winner, its t and every gradient through it come
-    from here."""
-    ns = scene.sph_center.shape[0]
-    nq = scene.quad_corner.shape[0]
-    is_quad = j >= ns
-    sj = torch.clamp(j, 0, ns - 1)
-    qj = torch.clamp(j - ns, 0, nq - 1)
-
-    c = take_rows(scene.sph_center, sj)
-    r = take_rows(scene.sph_radius, sj)
+def sphere_t(c, r, o, d, t_min=T_MIN, t_max=MISS_T):
+    """t of each ray against its own sphere (center c (R, 3), radius r
+    (R,)): the near root, else the far one, in [t_min, t_max); MISS_T
+    where neither. Every dot adds left to right and the root is correctly
+    rounded, so the card and the CPU give the same bits."""
     oc = o - c
-    half_b = torch.sum(oc * d, dim=-1)
-    c_term = torch.sum(oc * oc, dim=-1) - r * r
+    half_b = _dot3(oc, d)
+    c_term = _dot3(oc, oc) - r * r
     disc = half_b * half_b - c_term
     has_root = disc >= 0.0
     sqrtd = _RootSqrt.apply(torch.where(has_root, maximum(disc, 0.0),
@@ -250,25 +258,44 @@ def prim_t(scene, o, d, j, t_min=T_MIN, t_max=MISS_T):
     in0 = (t0 >= t_min) & (t0 < t_max)
     in1 = (t1 >= t_min) & (t1 < t_max)
     ts = torch.where(in0, t0, _where_miss(in1, t1))
-    ts = _where_miss(has_root, ts)
+    return _where_miss(has_root, ts)
 
-    corner = take_rows(scene.quad_corner, qj)
-    qu = take_rows(scene.quad_u, qj)
-    qv = take_rows(scene.quad_v, qj)
-    n = cross(qu, qv)
-    nn = maximum(torch.sum(n * n, dim=-1), 1e-30)
-    denom = torch.sum(d * n, dim=-1)
+
+def quad_t(corner, u, v, o, d, t_min=T_MIN, t_max=MISS_T):
+    """t of each ray against its own quad (rows (R, 3)): the plane t in
+    [t_min, t_max) with planar coordinates in [0, 1); MISS_T elsewhere.
+    Dots as in `sphere_t`."""
+    n = cross(u, v)
+    nn = maximum(_dot3(n, n), 1e-30)
+    denom = _dot3(d, n)
     denom_safe = torch.where(torch.abs(denom) < 1e-12, const(1e-12, denom),
                              denom)
-    tq = (torch.sum(n * corner, dim=-1) - torch.sum(o * n, dim=-1)) / denom_safe
+    tq = (_dot3(n, corner) - _dot3(o, n)) / denom_safe
     p = o + tq[:, None] * d - corner
-    alpha = torch.sum(p * cross(qv, n), dim=-1) / nn
-    beta = torch.sum(p * cross(n, qu), dim=-1) / nn
+    alpha = _dot3(p, cross(v, n)) / nn
+    beta = _dot3(p, cross(n, u)) / nn
     ok = ((tq >= t_min) & (tq < t_max) & (alpha >= 0.0) & (alpha < 1.0)
           & (beta >= 0.0) & (beta < 1.0) & (torch.abs(denom) >= 1e-12)
           & torch.isfinite(tq))
-    tq = _where_miss(ok, tq)
-    return torch.where(is_quad, tq, ts)
+    return _where_miss(ok, tq)
+
+
+def prim_t(scene, o, d, j, t_min=T_MIN, t_max=MISS_T):
+    """t of each ray against its single global primitive j (spheres then
+    quads), in [t_min, t_max). The one differentiable t formula: whichever
+    path selected the winner, its t and every gradient through it come
+    from here (`sphere_t` and `quad_t`, which the BVH walk's leaf test
+    calls too)."""
+    ns = scene.sph_center.shape[0]
+    nq = scene.quad_corner.shape[0]
+    sj = torch.clamp(j, 0, ns - 1)
+    qj = torch.clamp(j - ns, 0, nq - 1)
+    ts = sphere_t(take_rows(scene.sph_center, sj),
+                  take_rows(scene.sph_radius, sj), o, d, t_min, t_max)
+    tq = quad_t(take_rows(scene.quad_corner, qj),
+                take_rows(scene.quad_u, qj), take_rows(scene.quad_v, qj),
+                o, d, t_min, t_max)
+    return torch.where(j >= ns, tq, ts)
 
 
 def _gather_materials(scene, mat_id):

@@ -7,8 +7,9 @@ throughput *= attenuation on scatter; a light absorbs; a miss adds
 throughput * background and the ray dies; exhausting the budget adds no
 background. Every step is PyTorch autograd code, so the radiance is
 differentiable in the scene; the closest-hit *selections* (dense argmin,
-or kernel K3 through `compact`) are detached, and gradients flow through
-the winner's recomputed t (ops/intersect.py).
+kernel K3 through `compact`, or the BVH walk through `bvh`) are
+detached, and gradients flow through the winner's recomputed t
+(ops/intersect.py).
 
 `nee=True` samples quad lights explicitly (next-event estimation), which
 makes direct light a smooth function of geometry; `silhouette=True`
@@ -36,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.models.camera import Camera, generate_rays
+from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
 from tinyraytracer_tpu_torch.ops import intersect as isect
 from tinyraytracer_tpu_torch.ops import rng
 from tinyraytracer_tpu_torch.ops.intersect import (
@@ -134,6 +136,7 @@ def trace(
     count_alive: bool = False,
     tape: Optional[SelectionTape] = None,
     rows: Optional[SceneRows] = None,
+    bvh=None,
 ):
     """Path-trace a ray wavefront. Returns (R, 3) linear radiance, and
     with `count_alive=True` also the per-bounce alive ray counts
@@ -141,9 +144,10 @@ def trace(
 
     origins/directions: (R, 3) with unit directions; pixel_id: (R,) ints;
     sample_id: an int or (R,) ints; background: (3,) or a (2, 3) gradient
-    sky [bottom, top]. Selection: dense over every primitive by default
-    (`exact` picks the oracle form), or K3 over `compact`
-    (intersect_kernel.CompactRows; its `plain` flag runs the twin).
+    sky [bottom, top]. Selection: K3 over `compact`
+    (intersect_kernel.CompactRows; its `plain` flag runs the twin), else
+    the BVH walk over `bvh` (ops/bvh.BVHArrays), else dense over every
+    primitive (`exact` picks the oracle form).
     `remat` (with autograd on) recomputes each bounce in the backward
     pass from its saved selections instead of keeping its graph.
     `rows` is `scene_rows(scene)`, computed when not given.
@@ -162,6 +166,8 @@ def trace(
             if compact.plain:
                 return closest_hit_reference(compact, o, d, need_j)
             return closest_hit(compact, o, d, need_j)
+        if bvh is not None:
+            return bvh_ops.traverse(scene, bvh, o, d)
         return isect.closest_select(scene, o, d, exact=exact)
 
     if tape is not None:
@@ -463,15 +469,26 @@ def render_pixels(scene, camera: Camera, pixel_id, *, spp: int,
                   spp_offset: int = 0, compact=None, nee: bool = False,
                   silhouette: bool = False, fuse_spp: bool = False,
                   tapes: Optional[list] = None,
-                  rows: Optional[SceneRows] = None) -> torch.Tensor:
+                  rows: Optional[SceneRows] = None,
+                  bvh=None) -> torch.Tensor:
     """Mean radiance (npix, 3) over `spp` jittered samples of the given
-    flat pixel ids (any subset of the image), on their device. With `tapes` (a list) each round's selections are
-    recorded into a new SelectionTape appended to it."""
+    flat pixel ids (any subset of the image), on their device. With
+    `tapes` (a list) each round's selections are recorded into a new
+    SelectionTape appended to it.
+
+    `fuse_spp` traces several samples of every pixel in one wavefront and
+    sums them (`sample_rounds`). With a `bvh`, autograd off and no
+    `tapes`, the samples are traced together too, since the walk's time
+    goes by its steps, not its rays; unless `fuse_spp` is set, each
+    sample's radiance is then added in sample order, which gives the bits
+    of one sample at a time."""
     dev = pixel_id.device
     background = torch.as_tensor(background, dtype=torch.float32, device=dev)
     camera = camera.to(dev)
     npix = pixel_id.shape[0]
-    chunk, rounds = sample_rounds(npix, spp, fuse_spp)
+    group = (bvh is not None and tapes is None
+             and not torch.is_grad_enabled())
+    chunk, rounds = sample_rounds(npix, spp, fuse_spp or group)
     if rows is None and (nee or silhouette):
         rows = scene_rows(scene)
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
@@ -484,16 +501,20 @@ def render_pixels(scene, camera: Camera, pixel_id, *, spp: int,
             tapes.append(tape)
         c = trace(scene, o, d, pid, sid, seed, max_bounces, background,
                   exact=exact, compact=compact, nee=nee,
-                  silhouette=silhouette, tape=tape, rows=rows)
-        if chunk > 1:
-            c = c.reshape(chunk, npix, 3).sum(dim=0)
-        acc = acc + c
+                  silhouette=silhouette, tape=tape, rows=rows, bvh=bvh)
+        if chunk == 1:
+            acc = acc + c
+        elif fuse_spp:
+            acc = acc + c.reshape(chunk, npix, 3).sum(dim=0)
+        else:
+            for c_s in c.reshape(chunk, npix, 3):
+                acc = acc + c_s
     return acc / float(spp)
 
 
 def render_image(scene, camera: Camera, *, spp: int, max_bounces: int,
                  background, seed=0, exact: bool = False, compact=None,
-                 nee: bool = False, silhouette: bool = False
+                 nee: bool = False, silhouette: bool = False, bvh=None
                  ) -> torch.Tensor:
     """Render the full image, (height, width, 3) linear radiance, on the
     device of the scene's tensors."""
@@ -503,5 +524,5 @@ def render_image(scene, camera: Camera, *, spp: int, max_bounces: int,
     img = render_pixels(scene, camera, pixel_id, spp=spp,
                         max_bounces=max_bounces, background=background,
                         seed=seed, exact=exact, compact=compact, nee=nee,
-                        silhouette=silhouette)
+                        silhouette=silhouette, bvh=bvh)
     return img.reshape(h, w, 3)

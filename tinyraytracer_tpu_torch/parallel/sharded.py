@@ -264,12 +264,14 @@ def render_image_sharded(scene, camera: Camera, *, spp: int,
                          devices: Optional[Sequence] = None,
                          mesh: Optional[Mesh] = None,
                          sample_parallel: int = 1, exact: bool = False,
-                         spp_offset: int = 0) -> torch.Tensor:
+                         spp_offset: int = 0, bvh=None) -> torch.Tensor:
     """Full-image render with the modular tracer (ops/trace.py) sharded
     over a mesh (`make_mesh(devices, sample_parallel=)` unless `mesh` is
     given). Returns (H, W, 3) linear radiance on `mesh.device`: the
     one-device `trace.render_image` bit for bit on a tile-only mesh,
-    within f32 summation rounding when spp is split."""
+    within f32 summation rounding when spp is split. `bvh` (an
+    ops/bvh.BVHArrays, or None for dense selection) is moved to each
+    cell's device, as the scene is."""
     if mesh is None:
         mesh = make_mesh(devices, sample_parallel=sample_parallel)
     w, h = camera.width, camera.height
@@ -281,7 +283,8 @@ def render_image_sharded(scene, camera: Camera, *, spp: int,
             return trace_ops.render_pixels(
                 scene.to(dev), camera.to(dev), pixel_id, spp=spp_local,
                 max_bounces=max_bounces, background=background, seed=seed,
-                exact=exact, spp_offset=offset)
+                exact=exact, spp_offset=offset,
+                bvh=None if bvh is None else bvh.to(dev))
 
     img = render_sharded(mesh, part, npix=w * h, spp=spp,
                          spp_offset=spp_offset)

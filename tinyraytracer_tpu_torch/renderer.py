@@ -5,7 +5,8 @@ max_bounces, progressbar, background_color)` + `render(camera, world) ->
 Image` (renderer/renderer.rs:21-79). Generation, tracing and accumulation
 run in one megakernel launch per image (ops/megakernel.py);
 `accelerator="none"` renders with the modular tracer (ops/trace.py)
-instead, as the JAX package's does.
+instead, and `accelerator="bvh"` with the modular tracer selecting hits
+by a BVH walk (ops/bvh.py), as the JAX package's do.
 
 The device is named, never guessed: `device="cuda"` (the default) renders
 with the CUDA kernel and raises where there is no CUDA device; a CPU
@@ -23,23 +24,12 @@ import torch
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays, World
 from tinyraytracer_tpu_torch.ops import tonemap
+from tinyraytracer_tpu_torch.ops.bvh import build_bvh
 from tinyraytracer_tpu_torch.ops.megakernel import MegakernelRenderer
 from tinyraytracer_tpu_torch.parallel import sharded
+from tinyraytracer_tpu_torch.utils.device import resolve_device
 from tinyraytracer_tpu_torch.utils.image import Image
 from tinyraytracer_tpu_torch.utils.progress import ProgressBar
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device that this machine does
-    not have raises instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available on this "
-            "machine; pass device='cpu' to render with the PyTorch twin")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class RenderHandle:
@@ -95,12 +85,11 @@ class Renderer:
         )
         self.seed = int(seed)
         self.spp_per_round = int(spp_per_round) if spp_per_round else 0
+        # "auto" and "megakernel": the megakernels (their twins on the
+        # CPU); "bvh": the modular tracer with BVH selection; "none": the
+        # modular tracer with dense selection (the oracle)
         if accelerator not in ("auto", "megakernel", "bvh", "none"):
             raise ValueError(f"unknown accelerator {accelerator!r}")
-        if accelerator == "bvh":
-            raise NotImplementedError(
-                "accelerator='bvh' needs ops/bvh.py, which is not ported "
-                "yet")
         self.accelerator = accelerator
         self.sample_parallel = int(sample_parallel) if sample_parallel else 1
         if self.samples_per_pixel % self.sample_parallel:
@@ -125,19 +114,23 @@ class Renderer:
         """f(spp, seed, spp_offset) -> (H, W, 3) mean radiance over samples
         [spp_offset, spp_offset + spp) on the device, over the renderer's
         mesh (the one-cell mesh of its device when it has none): the
-        megakernels, or with `accelerator="none"` the modular tracer
-        (ops/trace.py) with dense closest-hit selection."""
+        megakernels, or the modular tracer (ops/trace.py) with dense
+        closest-hit selection (`accelerator="none"`) or with a BVH walk
+        (`"bvh"`; the BVH is built here, once per sampler)."""
         mesh = self.mesh or sharded.one_cell(self.device)
-        if self.accelerator != "none":
+        if self.accelerator not in ("none", "bvh"):
             mk = MegakernelRenderer(scene, camera, self.background_color,
                                     self.device)
             return lambda spp, seed, spp_offset=0: mk.render(
                 spp=spp, max_bounces=self.max_bounces, seed=seed,
                 spp_offset=spp_offset, mesh=mesh)
+        bvh = None
+        if self.accelerator == "bvh":
+            bvh = build_bvh(scene).to(self.device)
         return lambda spp, seed, spp_offset=0: sharded.render_image_sharded(
             scene, camera, spp=spp, max_bounces=self.max_bounces,
             background=self.background_color, seed=seed, mesh=mesh,
-            spp_offset=spp_offset)
+            spp_offset=spp_offset, bvh=bvh)
 
     def render_array(self, camera: Camera, scene: SceneArrays) -> torch.Tensor:
         """Linear-radiance (H, W, 3) f32 framebuffer on the device."""
@@ -165,17 +158,26 @@ class Renderer:
             event.record(torch.cuda.current_stream(fb.device))
         return RenderHandle(fb, event)
 
+    def render_batch_array(self, camera: Camera, scene: SceneArrays,
+                           seeds) -> torch.Tensor:
+        """len(seeds) linear-radiance frames, (n, H, W, 3) f32 on the
+        device, frame k bitwise equal to `render_array` with seed
+        seeds[k]: the frames render one after another from one scene
+        lowering (one BVH build on the BVH route)."""
+        seeds = [int(s) for s in seeds]
+        scene = scene.build() if isinstance(scene, World) else scene
+        if not seeds:
+            return torch.zeros((0, camera.height, camera.width, 3),
+                               dtype=torch.float32, device=self.device)
+        render = self._sampler(camera, scene)
+        return torch.stack([render(self.samples_per_pixel, s)
+                            for s in seeds])
+
     def render_batch(self, camera: Camera, world: World, seeds) -> list:
         """One gamma-2.2 Image per seed, each bitwise equal to `render`
-        with that seed: the frames render one after another on the device
-        from one scene lowering and come back in one host copy."""
-        seeds = [int(s) for s in seeds]
-        if not seeds:
-            return []
-        scene = world.build() if isinstance(world, World) else world
-        render = self._sampler(camera, scene)
-        frames = torch.stack([render(self.samples_per_pixel, s)
-                              for s in seeds]).cpu().numpy()
+        with that seed: `render_batch_array`'s frames, brought back in one
+        host copy."""
+        frames = self.render_batch_array(camera, world, seeds).cpu().numpy()
         return [Image.from_linear(f, gamma=tonemap.GAMMA) for f in frames]
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
