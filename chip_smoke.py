@@ -109,10 +109,10 @@ Phases, each printed on its own lines:
    zeroed before and read after: K4 must run, K1-K3 and K5 must not;
    untrained rows exactly unmoved, trained ones moved, all finite.
 17. Routing on the card: fit(engine="auto") on a 17-sphere scene, with and
-   without trainable_rows, runs on K4; the many-sphere recipe of
-   examples/manysphere_fit.py (n=128 + lamp, 128x128 spp=16 mb=4, the big
-   diffuse sphere's row, Adam 0.08, 20 steps): loss and position error
-   every 5 steps, the untrained rows' drift exactly 0.
+   without trainable_rows, runs on K4; examples/torch_manysphere_fit.py
+   for 20 steps (n=128 + lamp, 128x128 spp=16 mb=4, the big diffuse
+   sphere's row): K4 once a step, K5 never, finite losses, the untrained
+   rows' drift exactly 0.
 
 18. The mesh routes (parallel/sharded.py) on meshes of the one card
    repeated (cells on one device run one after another). First, outside
@@ -151,9 +151,31 @@ Phases, each printed on its own lines:
    for bit with one device; the CLI's --accelerator bvh --profile DIR on
    the card (a PNG and a Chrome trace with CUDA kernel events).
 
+20. The last public names and the examples. With every counter zeroed,
+   one `MegakernelRenderer.render_burst` of config 1 (K1, seeds 0-7) and
+   of config 4b (K2, culled, 2 seeds): K1 must rise by exactly 8 and K2
+   by 2, and every frame must equal its single `render` bit for bit;
+   then config 1 per image in a burst of 8 against single synchronised
+   renders, in alternating pairs (median, [min, max]). `intersect_scene`
+   on cornell_box's primary rays (64x48), the card against the CPU.
+   Outside the counted runs, each fused kernel against the twin at the
+   examples' own inputs (image bit for bit, tables within TABLE_RTOL,
+   two launches bit for bit): K5 at the inverse example's first step
+   (spp=32) and its refine phase's first (spp=128), K4 at the many-sphere
+   example's first step (its one surrogate row).
+   examples/torch_inverse_render.py at its defaults (96x96 spp=32, the
+   last 20 % at 128, mb=6, 400 steps): K5 once a step, K4 never, finite
+   losses, max center error below INVERSE_MAX_ERROR; then a 60-step run
+   with a checkpoint, resumed at step 50 by a second run that must equal
+   it bit for bit. examples/torch_manysphere_fit.py at its defaults (128
+   spheres + lamp, 128x128 spp=16 mb=4, 80 steps): K4 once a step, K5
+   never, the untrained rows' drift exactly 0, the position error below
+   MANYSPHERE_MAX_ERROR. Each gate asks for half the recovery of the
+   example's first full run on the card.
+
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17), mesh (18), bvh (19).
+(16-17), mesh (18), bvh (19), examples (20).
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -2279,35 +2301,47 @@ def _k4_inputs(torch, np, dkp, scene, camera, bg, surr_sph, surr_quad):
     return tab, cvec, tgt, spec
 
 
+def diff_twin_check(torch, dkp, tag, kernel, label, args, tab, cvec, tgt,
+                    twin_args=None):
+    """A fused kernel's wrapper (`kernel`: packed_diff or classic_diff)
+    launched twice on the card against the twin on the same inputs: the
+    image bit for bit, every gradient table within TABLE_RTOL of its
+    largest entry, the two launches bit for bit, all finite. Returns the
+    kernel's outputs, whether all held, the message, the largest table
+    ratio and the largest |d|."""
+    before = kernel.launches
+    got = kernel(tab, cvec, tgt, **args)
+    again = kernel(tab, cvec, tgt, **args)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 2:
+        raise RuntimeError(f"{label}: the launch counter did not rise")
+    want = dkp.packed_diff_reference(tab, cvec, tgt, **(twin_args or args))
+    det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(got, again))
+    img_eq = torch.equal(got[0], want[0])
+    rels, d = _tables_rel(torch, got, want)
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    msg = (f"[{tag}] {label}: image bitwise {img_eq}; tables max|d| / "
+           "max|table| " + ", ".join(f"{n} {r:.3g}" for n, r in
+                                     rels.items())
+           + f" (allowed {dkp.TABLE_RTOL:g}; max|d| {d:.3g}); loss "
+           f"{float(got[5][0, 3]):.9g} twin {float(want[5][0, 3]):.9g}; "
+           f"two launches bit for bit {det}; finite {finite}")
+    ok = img_eq and det and finite and max(rels.values()) <= dkp.TABLE_RTOL
+    return got, ok, msg, max(rels.values()), d
+
+
 def k4_phase(torch, np, presets, dk, dkp, card):
     """K4 against its twin on the card (and against K5 where both run);
     returns the K4 record."""
     worst = dict(abs=0.0, rel=0.0)
 
     def check(label, args, tab, cvec, tgt, twin_args=None, k5=False):
-        before = dk.classic_diff.launches
-        got = dk.classic_diff(tab, cvec, tgt, **args)
-        again = dk.classic_diff(tab, cvec, tgt, **args)
-        torch.cuda.synchronize()
-        if dk.classic_diff.launches != before + 2:
-            raise RuntimeError("K4 launch counter did not rise")
-        want = dkp.packed_diff_reference(tab, cvec, tgt,
-                                         **(twin_args or args))
-        det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                  for a, b in zip(got, again))
-        img_eq = torch.equal(got[0], want[0])
-        rels, d = _tables_rel(torch, got, want)
+        got, ok, msg, rel, d = diff_twin_check(
+            torch, dkp, "k4", dk.classic_diff, label, args, tab, cvec, tgt,
+            twin_args)
         worst["abs"] = max(worst["abs"], d)
-        worst["rel"] = max(worst["rel"], max(rels.values()))
-        finite = all(bool(torch.isfinite(x).all()) for x in got)
-        msg = (f"[k4] {label}: image bitwise {img_eq}; tables max|d| / "
-               "max|table| " + ", ".join(f"{n} {r:.3g}" for n, r in
-                                         rels.items())
-               + f" (allowed {dkp.TABLE_RTOL:g}; max|d| {d:.3g}); loss "
-               f"{float(got[5][0, 3]):.9g} twin {float(want[5][0, 3]):.9g}; "
-               f"two launches bit for bit {det}; finite {finite}")
-        ok = img_eq and det and finite and max(
-            rels.values()) <= dkp.TABLE_RTOL
+        worst["rel"] = max(worst["rel"], rel)
         if k5:
             five = dkp.packed_diff(tab, cvec, tgt, **args)
             k5_img = torch.equal(got[0], five[0])
@@ -2660,10 +2694,12 @@ def cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card):
     return out
 
 
-def routing_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, optim,
-                  card):
+ROUTE_MANYSPHERE_STEPS = 20
+
+
+def routing_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card):
     """fit(engine="auto") routes many-sphere scenes to K4 on the card, and
-    the many-sphere recipe (examples/manysphere_fit.py) trains one row."""
+    the many-sphere example trains one row."""
     world, camera, kw = presets.random_spheres(width=32, height=32, n=17)
     scene = world.build()
     st = dk.build_diff_static(scene)
@@ -2683,55 +2719,26 @@ def routing_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, optim,
                 math.isfinite(x) for x in losses):
             raise RuntimeError("fit(engine='auto') did not run on K4")
 
-    # examples/manysphere_fit.py: move the big diffuse sphere along z and
-    # fit it back, every other row pinned
-    size, spp, mb, steps = 128, 16, 4, 20
-    world, camera = lit_spheres(presets, 128, size, size)
-    true = world.build().to("cuda")
-    rows = torch.nonzero(true.sph_valid).flatten()
-    row = int(rows[torch.argmin(torch.linalg.vector_norm(
-        true.sph_center[rows] - torch.tensor([-4.0, 1.0, 0.0],
-                                             device="cuda"), dim=-1))])
-    target = dk.render_value_and_grad(
-        true, camera, torch.zeros(size, size, 3), spp=48, max_bounces=mb,
-        background=LIT_BG, seed=1)[1]
-    start = true.sph_center.clone()
-    start[row, 2] += 1.5
-    from tinyraytracer_tpu_torch.diff.params import apply_params
-    scene0 = apply_params(true, {"sph_center": start})
-    step, state = inverse.make_fused_train_step(
-        scene0, camera, target, spp=spp, max_bounces=mb, background=LIT_BG,
-        seed=0, optimizer=optim.adam(0.08), trainable=("sph_center",),
-        trainable_rows={"sph": (row,)}, device="cuda")
+    # the many-sphere example (examples/torch_manysphere_fit.py) for
+    # ROUTE_MANYSPHERE_STEPS steps: the big diffuse sphere moved along z
+    # and fitted back, every other row pinned
+    steps = ROUTE_MANYSPHERE_STEPS
+    manysphere = _example("torch_manysphere_fit")["main"]
     _zero_counters(ik, mk, mkp, dk, dkp)
-    t0 = time.perf_counter()
-    curve = []
-    for i in range(steps):
-        p, o, loss = step(*state, i)
-        state = (p, o)
-        if i % 5 == 0 or i == steps - 1:
-            err = float(torch.linalg.vector_norm(
-                p["sph_center"][row] - true.sph_center[row]))
-            curve.append((i, float(loss), err))
-            log(f"[route] manysphere step {i:2d}: loss {float(loss):.6f}, "
-                f"position error {err:.4f}")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    others = torch.ones(start.shape[0], dtype=torch.bool, device="cuda")
-    others[row] = False
-    drift = float((state[0]["sph_center"][others] - start[others]).abs()
-                  .max())
+    ms = manysphere(["--steps", str(steps)])
     n = _counters(ik, mk, mkp, dk, dkp)
-    log(f"[route] manysphere fit: {len(rows)} spheres + lamp {size}x{size} "
-        f"spp={spp} mb={mb}, row {row} trained (start offset 1.5), Adam "
-        f"0.08: {steps} steps in {dt:.2f} s; position error "
-        f"{curve[0][2]:.4f} -> {curve[-1][2]:.4f}; drift of untrained rows "
-        f"{drift}; launches {n}; on {card}")
-    if drift != 0.0 or n["K4"] != steps or n["K5"] or not math.isfinite(
-            curve[-1][1]):
+    curve = ms["curve"]
+    log(f"[route] manysphere fit: {ms['spheres']} spheres + lamp 128x128 "
+        f"spp=16 mb=4, row {ms['row']} trained (start offset 1.5): "
+        f"{steps} steps in {ms['seconds']:.2f} s; position error "
+        f"{curve[0][2]:.4f} -> {ms['final_error']:.4f}; drift of untrained "
+        f"rows {ms['drift']}; launches {n}; on {card}")
+    if (ms["drift"] != 0.0 or n["K4"] != steps or n["K5"]
+            or not all(math.isfinite(c[1]) for c in curve)):
         raise RuntimeError("manysphere fit: untrained rows moved, wrong "
                            "launch count or a non-finite loss")
-    return dict(curve=curve, seconds=dt, drift=drift, launches=n)
+    return dict(curve=curve, seconds=ms["seconds"], drift=ms["drift"],
+                launches=n)
 
 
 # Phase 18, the mesh route (parallel/sharded.py) on the one card: meshes
@@ -3561,8 +3568,294 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
     return res
 
 
+# Phase 20, the examples group: the last public names on the card and the
+# port's two examples at their defaults. render_burst on cfg1 (K1, 8
+# seeds, timed per image against single renders in BURST_REPS alternating
+# pairs) and cfg4b (K2, culled, 2 seeds); intersect_scene on cfg3's
+# primary rays (INTERSECT_RAYS), card against CPU.
+BURST_SEEDS = 8
+BURST_SEEDS_K2 = 2
+BURST_REPS = 7
+INTERSECT_RAYS = dict(width=64, height=48)
+INTERSECT_T_ULP = 4          # ROADMAP's few-ulp tier for hit t
+INVERSE_START_ERROR = 3.0    # the perturbation's largest offset per axis
+MANYSPHERE_START_ERROR = 1.5
+# Recovery gates: each example must make at least half the recovery it
+# made in its first full run on the card (NVIDIA H100 80GB HBM3, PERF.md
+# §6: max center error 3.0 -> 1.0999, position error 1.5 -> 1.2490).
+# The runs repeat bit for bit on one card; half leaves room for another
+# build's last bits to move the noisy fit.
+INVERSE_MAX_ERROR = INVERSE_START_ERROR - (INVERSE_START_ERROR
+                                           - 1.0999) / 2
+MANYSPHERE_MAX_ERROR = MANYSPHERE_START_ERROR - (MANYSPHERE_START_ERROR
+                                                 - 1.2490) / 2
+
+
+def _example(name):
+    """The `main` and helpers of examples/<name>.py."""
+    import runpy
+
+    return runpy.run_path(os.path.join(ROOT, "examples", f"{name}.py"))
+
+
+def burst_checks(torch, presets, ik, mk, mkp, dk, dkp, card):
+    """render_burst: one counted burst of each kernel, every frame bit for
+    bit its single render, then cfg1 timed per image. Returns the record
+    and the counted launches."""
+    renderers = {}
+    for label in ("cfg1", "cfg4b"):
+        _, name, pkw, w, h, spp, mb, _ = next(c for c in CONFIGS
+                                              if c[0] == label)
+        world, camera, kw = presets.PRESETS[name](width=w, height=h, **pkw)
+        renderers[label] = (mk.MegakernelRenderer(
+            world.build(), camera, kw["background"], "cuda"), spp, mb)
+    seeds = {"cfg1": list(range(BURST_SEEDS)),
+             "cfg4b": list(range(BURST_SEEDS_K2))}
+    for r, spp, mb in renderers.values():          # lowerings and build
+        r.render(spp=1, max_bounces=1)
+    torch.cuda.synchronize()
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    bursts = {label: r.render_burst(spp=spp, max_bounces=mb,
+                                    seeds=seeds[label])
+              for label, (r, spp, mb) in renderers.items()}
+    torch.cuda.synchronize()
+    launches = _counters(ik, mk, mkp, dk, dkp)
+    want = dict(K1=BURST_SEEDS, K2=BURST_SEEDS_K2, K3=0, K4=0, K5=0)
+    log(f"[burst] render_burst cfg1 x{BURST_SEEDS} (K1), cfg4b "
+        f"x{BURST_SEEDS_K2} (K2, culled): launches {launches}")
+    if launches != want:
+        raise RuntimeError(f"render_burst launched {launches}, expected "
+                           f"{want}")
+    for label, (r, spp, mb) in renderers.items():
+        for i, s in enumerate(seeds[label]):
+            if not torch.equal(bursts[label][i],
+                               r.render(spp=spp, max_bounces=mb, seed=s)):
+                raise RuntimeError(f"render_burst {label} frame {i} differs "
+                                   "from its single render")
+        if not bool(torch.isfinite(bursts[label]).all()):
+            raise RuntimeError(f"render_burst {label}: non-finite frame")
+    log("[burst] every frame == render(seed=) bit for bit")
+
+    r, spp, mb = renderers["cfg1"]
+    n = BURST_SEEDS
+
+    def burst():
+        t0 = time.perf_counter()
+        r.render_burst(spp=spp, max_bounces=mb, seeds=range(n))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    def singles():
+        t0 = time.perf_counter()
+        for s in range(n):
+            r.render(spp=spp, max_bounces=mb, seed=s)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    burst(), singles()
+    _, span = time_once(torch, lambda: r.render_burst(
+        spp=spp, max_bounces=mb, seeds=range(n)))
+    b_s, s_s = [], []
+    for k in range(BURST_REPS):
+        pair = [(burst, b_s), (singles, s_s)]
+        for fn, acc in (pair if k % 2 == 0 else pair[::-1]):
+            acc.append(fn())
+    bm, s = _spread(b_s), _spread(s_s)
+    w, h = r.camera.width, r.camera.height
+    log(f"[burst] cfg1 {w}x{h} spp={spp} mb={mb}, ms per image over "
+        f"{BURST_REPS} alternating pairs: burst of {n} {bm[0] * 1e3:.4f} "
+        f"[{bm[1] * 1e3:.4f}, {bm[2] * 1e3:.4f}], single synchronised "
+        f"render {s[0] * 1e3:.4f} [{s[1] * 1e3:.4f}, {s[2] * 1e3:.4f}]; "
+        f"a burst's device span (CUDA events) {span / n:.4f} per image; "
+        f"burst {w * h * spp / bm[0] / 1e6:.1f} camera Mrays/s; on {card}")
+    return dict(burst_ms=[x * 1e3 for x in bm],
+                single_ms=[x * 1e3 for x in s], span_ms=span / n,
+                mrays_s=w * h * spp / bm[0] / 1e6), launches
+
+
+def intersect_check(torch, presets, generate_rays):
+    """intersect_scene on cfg3's primary rays: the card against the CPU.
+    Hit masks equal; winners equal but at ties, where the CPU's own
+    candidate t of the two winners are within INTERSECT_T_ULP (the light
+    is coplanar with the ceiling); hit t within INTERSECT_T_ULP."""
+    from tinyraytracer_tpu_torch.ops import intersect as isect
+
+    w, h = INTERSECT_RAYS["width"], INTERSECT_RAYS["height"]
+    world, camera, _ = presets.cornell_box(width=w, height=h)
+    scene, gpu = world.build(), world.build().to("cuda")
+    o, d = generate_rays(camera, torch.arange(w * h), 0, 0)
+    cpu_rec = isect.intersect_scene(scene, o, d)
+    card_rec = isect.intersect_scene(gpu, o.cuda(), d.cuda())
+    j_cpu = isect.closest_select(scene, o, d)[1]
+    j_card = isect.closest_select(gpu, o.cuda(), d.cuda())[1].cpu()
+    hit = cpu_rec.hit
+    if not torch.equal(card_rec.hit.cpu(), hit):
+        raise RuntimeError("intersect_scene: hit masks differ card vs CPU")
+    rows = torch.nonzero(hit & (j_card != j_cpu)).flatten()
+    t_all = torch.cat([isect.sphere_ts(scene, o, d),
+                       isect.quad_ts(scene, o, d)], 1)
+    t_a, t_b = t_all[rows, j_card[rows]], t_all[rows, j_cpu[rows]]
+    tie_ulps = _ulps(torch, t_a, t_b) if len(rows) else 0
+    exact = int((t_a == t_b).sum())
+    ulps = _ulps(torch, card_rec.t.cpu()[hit], cpu_rec.t[hit])
+    log(f"[intersect] intersect_scene on cornell_box's primary rays "
+        f"{w}x{h}: {int(hit.sum())} hits, masks equal; winners differ on "
+        f"{len(rows)} ({exact} exact ties, the CPU's candidate t within "
+        f"{tie_ulps} ulp); hit t within {ulps} ulp")
+    if tie_ulps > INTERSECT_T_ULP or ulps > INTERSECT_T_ULP:
+        raise RuntimeError("intersect_scene: the card differs from the CPU")
+    return dict(hits=int(hit.sum()), winner_flips=len(rows),
+                exact_ties=exact, t_ulps=ulps)
+
+
+def example_twin_checks(torch, presets, dk, dkp, inverse, trace_ops):
+    """K5 and K4 against the twin at the examples' own inputs, outside
+    the counted runs: the inverse example's first step at its spp and its
+    refine phase's first step at --refine-spp (K5, the perturbed
+    cornell_spheres at 96x96, mb=6), and the many-sphere example's first
+    step (K4, one surrogate row). Returns the largest |d| per kernel."""
+    worst = dict(K5=0.0, K4=0.0)
+
+    def check(kid, label, scene, camera, target, bg, trainable, rows, runs):
+        st = dk.build_diff_static(scene)
+        sil, surr = inverse._surrogate_scope(frozenset(trainable))
+        if rows is not None:
+            surr = {k: tuple(rows.get(k, ())) for k in ("sph", "quad")}
+        surr_s, surr_q, class_level = dk._surrogate_rows(st, surr)
+        packed = class_level and dk.routes_packed(st, bg)
+        if packed != (kid == "K5"):
+            raise RuntimeError(f"{label}: the step would not route to {kid}")
+        if packed:
+            surr_s, surr_q = bool(surr_s), bool(surr_q)
+        _, tab, cvec, tgt, spec = dkp._inputs(scene, camera, target, bg, st,
+                                              True, sil, surr_s, surr_q)
+        kernel = dkp.packed_diff if packed else dk.classic_diff
+        for spp, mb, seed, offset in runs:
+            _, ok, msg, _, d = diff_twin_check(
+                torch, dkp, "examples", kernel, f"{kid} at {label} {spp=} "
+                f"mb={mb} spp_offset={offset}",
+                dict(spec=spec, width=camera.width, height=camera.height,
+                     spp=spp, max_bounces=mb, seed=seed, spp_offset=offset),
+                tab, cvec, tgt)
+            log(msg)
+            worst[kid] = max(worst[kid], d)
+            if not ok:
+                raise RuntimeError(f"{label}: {kid} disagrees with its twin "
+                                   "or is not deterministic")
+
+    ex = _example("torch_inverse_render")
+    size, spp, refine, mb, steps = 96, 32, 128, 6, 400
+    world, camera, kw = presets.cornell_spheres(width=size, height=size)
+    scene, camera = world.build().to("cuda"), camera.to("cuda")
+    target = trace_ops.render_image(scene, camera, spp=64, max_bounces=mb,
+                                    background=kw["background"], seed=7,
+                                    nee=True)
+    refine_from = max(40, steps * 4 // 5)
+    check("K5", f"the inverse example's cornell_spheres {size}x{size}",
+          ex["perturb"](scene), camera, target, kw["background"],
+          ("sph_center", "mat_albedo"), None,
+          [(spp, mb, 13, 0), (refine, mb, 13, refine_from * refine)])
+
+    build = _example("torch_manysphere_fit")["build"]
+    bg = (0.01, 0.01, 0.015)
+    true, camera, _, row = build(0.0)
+    camera = camera.to("cuda")
+    target = trace_ops.render_image(true.to("cuda"), camera, spp=48,
+                                    max_bounces=4, background=bg, seed=1,
+                                    nee=True)
+    check("K4", "the many-sphere example's 128 spheres + lamp 128x128",
+          build(1.5)[0].to("cuda"), camera, target, bg, ("sph_center",),
+          {"sph": (row,)}, [(16, 4, 0, 0)])
+    return worst
+
+
+def examples_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, trace_ops,
+                   generate_rays, card):
+    """Phase 20: render_burst, intersect_scene, K5 and K4 against the twin
+    at the examples' inputs, and both examples at their defaults, every
+    counter zeroed before each counted run."""
+    res, launches = burst_checks(torch, presets, ik, mk, mkp, dk, dkp, card)
+    res["intersect"] = intersect_check(torch, presets, generate_rays)
+    res["max_abs_err"] = example_twin_checks(torch, presets, dk, dkp,
+                                             inverse, trace_ops)
+    out = os.path.join(ROOT, "output")
+
+    inverse = _example("torch_inverse_render")["main"]
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    t0 = time.perf_counter()
+    inv = inverse(["--out", os.path.join(out, "torch_inverse")])
+    total = time.perf_counter() - t0
+    n = _counters(ik, mk, mkp, dk, dkp)
+    losses = inv["losses"]
+    log(f"[examples] torch_inverse_render at its defaults (96x96 spp=32, "
+        f"refine 128, mb=6, 400 steps, engine {inv['engine']}): "
+        f"{inv['seconds'] / inv['steps'] * 1e3:.3f} ms a step, "
+        f"{total:.2f} s in all; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"max center error {inv['max_center_error']:.4f} (start "
+        f"{INVERSE_START_ERROR}, allowed {INVERSE_MAX_ERROR:.4f}); albedos "
+        f"{inv['albedos'].tolist()}; launches {n}; on {card}")
+    if (n["K5"] != inv["steps"] or n["K4"]
+            or not all(math.isfinite(x) for x in losses)
+            or not inv["max_center_error"] < INVERSE_MAX_ERROR):
+        raise RuntimeError("torch_inverse_render: not on K5, a non-finite "
+                           "loss, or no recovery")
+    for k in launches:
+        launches[k] += n[k]
+
+    ckpt = os.path.join(out, "torch_inverse_resume.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    argv = ["--steps", "60", "--checkpoint", ckpt,
+            "--out", os.path.join(out, "torch_inverse_resume")]
+    whole, resumed = inverse(argv), inverse(argv)
+    same = (resumed["start"] == 50
+            and resumed["losses"] == whole["losses"][50:]
+            and all(torch.equal(v, resumed["last_params"][k])
+                    for k, v in whole["last_params"].items()))
+    log(f"[examples] resume: 60 steps, checkpoint at 50, resumed steps "
+        f"{resumed['start']}-59 == the uninterrupted run bit for bit "
+        f"(losses and params): {same}")
+    if not same:
+        raise RuntimeError("torch_inverse_render: resume is not bit for bit")
+
+    manysphere = _example("torch_manysphere_fit")["main"]
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    t0 = time.perf_counter()
+    ms = manysphere([])
+    total_ms = time.perf_counter() - t0
+    n = _counters(ik, mk, mkp, dk, dkp)
+    log(f"[examples] torch_manysphere_fit at its defaults ({ms['spheres']} "
+        f"spheres + lamp, 128x128 spp=16 mb=4, {ms['steps']} steps, row "
+        f"{ms['row']}): {ms['seconds'] / ms['steps'] * 1e3:.3f} ms a step, "
+        f"{total_ms:.2f} s in all; loss {ms['curve'][0][1]:.6f} -> "
+        f"{ms['curve'][-1][1]:.6f}; position error {ms['curve'][0][2]:.4f} "
+        f"-> {ms['final_error']:.4f} (start {MANYSPHERE_START_ERROR}, "
+        f"allowed {MANYSPHERE_MAX_ERROR:.4f}); drift {ms['drift']}; "
+        f"launches {n}; on {card}")
+    if (n["K4"] != ms["steps"] or n["K5"] or ms["drift"] != 0.0
+            or not ms["final_error"] < MANYSPHERE_MAX_ERROR
+            or not all(math.isfinite(c[1]) for c in ms["curve"])):
+        raise RuntimeError("torch_manysphere_fit: not on K4, rows drifted, "
+                           "a non-finite loss or no recovery")
+    for k in launches:
+        launches[k] += n[k]
+    res["inverse"] = dict(
+        {k: inv[k] for k in ("engine", "seconds", "steps",
+                             "max_center_error")},
+        ms_per_step=inv["seconds"] / inv["steps"] * 1e3, total_s=total,
+        first_loss=losses[0], last_loss=losses[-1],
+        albedos=inv["albedos"].tolist(), resume_bitwise=same)
+    res["manysphere"] = dict(
+        {k: ms[k] for k in ("seconds", "steps", "final_error", "drift",
+                            "curve")},
+        ms_per_step=ms["seconds"] / ms["steps"] * 1e3, total_s=total_ms)
+    res["launches"] = launches
+    log(f"[examples] launches in the phase's counted runs: {launches}")
+    return res
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f", "mesh", "bvh")
+          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples")
 
 
 def main(argv=None) -> int:
@@ -3573,8 +3866,8 @@ def main(argv=None) -> int:
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
-                    "cfg4f (16-17), mesh (18), bvh (19); the result lines "
-                    "need the default set")
+                    "cfg4f (16-17), mesh (18), bvh (19), examples (20); "
+                    "the result lines need the default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
@@ -3583,7 +3876,7 @@ def main(argv=None) -> int:
     card = env_phase(torch)
     sys.path.insert(0, ROOT)
     from tinyraytracer_tpu_torch import Image, Renderer, _build
-    from tinyraytracer_tpu_torch.diff import inverse, optim
+    from tinyraytracer_tpu_torch.diff import inverse
     from tinyraytracer_tpu_torch.models import presets
     from tinyraytracer_tpu_torch.ops import diffkernel as dk
     from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
@@ -3633,7 +3926,7 @@ def main(argv=None) -> int:
         results["cfg4f"] = cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp,
                                        inverse, card)
         results["route"] = routing_phase(torch, presets, ik, mk, mkp, dk,
-                                         dkp, inverse, optim, card)
+                                         dkp, inverse, card)
     if "mesh" in only:
         mesh_twin_checks(torch, presets, mk, mkp, sharded, _build.load())
         results["mesh"] = mesh_phase(torch, presets, ik, mk, mkp, dk, dkp,
@@ -3642,6 +3935,10 @@ def main(argv=None) -> int:
         results["bvh"] = bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp,
                                    bvh_ops, trace_ops, generate_rays,
                                    Renderer, card)
+    if "examples" in only:
+        results["examples"] = examples_phase(torch, presets, ik, mk, mkp, dk,
+                                             dkp, inverse, trace_ops,
+                                             generate_rays, card)
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -3651,13 +3948,16 @@ def main(argv=None) -> int:
         return 0
 
     mesh = results["mesh"]["launches"]
+    ex = results["examples"]["launches"]
+    ex_err = results["examples"]["max_abs_err"]
 
     def entry(kid, name, source, replaces, cfg):
         res = results[cfg]
         return {
             "name": name, "route": "cuda",
             "source": f"tinyraytracer_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches[kid] + mesh[kid],
+            "replaces": replaces,
+            "launches": launches[kid] + mesh[kid] + ex[kid],
             "max_abs_err": worst[kid], "ms": res["kernel_ms"],
             "plain_ms": res["twin_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
@@ -3674,7 +3974,8 @@ def main(argv=None) -> int:
         {"name": "closest_hit", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/closest_hit.cu",
          "replaces": "tinyraytracer_tpu/ops/intersect_pallas.py:166",
-         "launches": results["cfg5"]["launches"]["K3"] + mesh["K3"],
+         "launches": results["cfg5"]["launches"]["K3"] + mesh["K3"]
+         + ex["K3"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
@@ -3684,8 +3985,10 @@ def main(argv=None) -> int:
         {"name": "diffkernel_packed", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel_packed.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel_packed.py:240",
-         "launches": results["cfg5f"]["launches"]["K5"] + mesh["K5"],
-         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "launches": results["cfg5f"]["launches"]["K5"] + mesh["K5"]
+         + ex["K5"],
+         "max_abs_err": max(k5["max_abs_err"], ex_err["K5"]),
+         "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None, "config": "cfg5f",
          "plain_shape": k5["plain_shape"],
@@ -3694,8 +3997,9 @@ def main(argv=None) -> int:
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel.py:357",
          "launches": results["cfg4f"]["cfg4class"]["launches"]["K4"]
-         + mesh["K4"],
-         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         + mesh["K4"] + ex["K4"],
+         "max_abs_err": max(k4["max_abs_err"], ex_err["K4"]),
+         "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
          "config": "cfg4class", "plain_shape": k4["plain_shape"],

@@ -924,3 +924,28 @@ def test_ray_and_transform_on_the_card(cuda):
     cpu_ray = Ray.new([0.0, 0.0, 0.0], [0.0, 2.0, 0.0], device="cpu")
     at = cpu_ray.at(torch.ones(3, device=cuda))
     assert at.device.type == "cuda" and float(at[0, 1]) == 1.0
+
+
+@pytest.mark.cuda
+def test_fused_step_takes_a_background_on_the_card(cuda):
+    """A background tensor on the card (as the JAX examples pass a device
+    array): the fused step routes to K5 and gives the tuple's bits."""
+    from tinyraytracer_tpu_torch.diff import inverse
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
+    world, camera, kw = presets.cornell_spheres(width=32, height=32)
+    scene = world.build()
+    target = torch.zeros((32, 32, 3))
+    runs = []
+    for bg in (kw["background"], torch.tensor(kw["background"],
+                                              device=cuda)):
+        step, (p0, o0) = inverse.make_fused_train_step(
+            scene, camera, target, spp=2, max_bounces=4, background=bg,
+            trainable=("sph_center", "mat_albedo"), device=cuda)
+        before = dkp.packed_diff.launches
+        runs.append(step(p0, o0, 0))
+        torch.cuda.synchronize()
+        assert dkp.packed_diff.launches == before + 1
+    assert torch.equal(runs[0][2], runs[1][2])
+    for k, v in runs[0][0].items():
+        assert torch.equal(v, runs[1][0][k]), k

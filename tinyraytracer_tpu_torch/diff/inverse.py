@@ -50,6 +50,7 @@ from tinyraytracer_tpu_torch.models.camera import Camera, generate_rays
 from tinyraytracer_tpu_torch.ops import diffkernel
 from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.ops.intersect_kernel import compact_rows
+from tinyraytracer_tpu_torch.ops.scene_table import host_background
 from tinyraytracer_tpu_torch.renderer import resolve_device
 
 _MASK = 0xFFFFFFFF
@@ -498,6 +499,7 @@ def make_fused_train_step(
     scene = scene_template.to(dev)
     camera = camera.to(dev)
     target = torch.as_tensor(target, dtype=torch.float32).to(dev)
+    background = host_background(background)    # read once, not per step
     if static is None:
         static = diffkernel.build_diff_static(scene)
     if grad_chunks < 1 or spp % grad_chunks:
@@ -576,13 +578,23 @@ def refresh_compact(scene_template, params: Params):
 # --- checkpoint / resume --------------------------------------------------
 
 def _tree_map(fn, tree):
+    """fn over the leaves of a tree of dicts, tuples and lists, called in
+    jax.tree's leaf order (dict keys sorted); each dict keeps its key
+    order."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        mapped = {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: mapped[k] for k in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_tree_map(fn, v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
 
 
 def save_checkpoint(path: str, params: Params, opt_state, step: int) -> None:
@@ -597,15 +609,39 @@ def save_checkpoint(path: str, params: Params, opt_state, step: int) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device="cuda"):
-    """(params, opt_state, step) with every array as a tensor on
-    `device`."""
+def load_checkpoint(path: str, opt_state_template=None, *, device=None):
+    """(params, opt_state, step) from a `save_checkpoint` file.
+
+    With `opt_state_template` (`optimizer.init(params)`), the optimizer
+    state is rebuilt in the template's structure from the saved leaves in
+    leaf order, each on its template leaf's device, as the JAX package
+    does with `tree.unflatten`; a different leaf count raises ValueError.
+    Without one, the saved tree comes back as tensors on `device`. The
+    params go to `device`, which defaults to the template's device, or to
+    the card when there is no template."""
     with open(path, "rb") as f:
         state = pickle.load(f)
+    slots = ([] if opt_state_template is None
+             else _leaves(opt_state_template))
+    if device is None:
+        device = slots[0].device if slots else "cuda"
     dev = resolve_device(device)
-    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (_tree_map(put, state["params"]),
-            _tree_map(put, state["opt_state"]), state["step"])
+
+    def put(a, d=dev):
+        return torch.from_numpy(np.asarray(a)).to(d)
+
+    opt_state = state["opt_state"]
+    if opt_state_template is None:
+        opt_state = _tree_map(put, opt_state)
+    else:
+        saved = _leaves(opt_state)
+        if len(saved) != len(slots):
+            raise ValueError(
+                f"checkpoint holds {len(saved)} optimizer leaves, the "
+                f"template {len(slots)}: not the same optimizer")
+        it = iter(put(a, t.device) for a, t in zip(saved, slots))
+        opt_state = _tree_map(lambda _: next(it), opt_state_template)
+    return _tree_map(put, state["params"]), opt_state, state["step"]
 
 
 _GEOMETRY_FIELDS = frozenset(
@@ -665,7 +701,7 @@ def fit(
     fused_static = None
     if engine == "auto":
         use_fused = (dev.type == "cuda"
-                     and np.asarray(background, np.float32).ndim == 1)
+                     and host_background(background).ndim == 1)
         engine = "fused" if use_fused else "modular"
         if use_fused:
             fused_static = diffkernel.build_diff_static(scene_template)
@@ -685,7 +721,8 @@ def fit(
             scene_template, camera, target, **kw)
     start = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
-        params, opt_state, start = load_checkpoint(checkpoint_path, dev)
+        params, opt_state, start = load_checkpoint(
+            checkpoint_path, opt_state, device=dev)
     fits_geometry = trainable is None or bool(
         _GEOMETRY_FIELDS & set(trainable))
     use_kernel = engine == "modular" and dev.type == "cuda"

@@ -57,6 +57,21 @@ class SceneArrays:
     mat_ior: torch.Tensor     # (M,)   f32
     mat_emit: torch.Tensor    # (M, 3) f32
 
+    @property
+    def num_spheres(self) -> int:
+        """Sphere rows, padding included (not the valid count)."""
+        return int(self.sph_center.shape[0])
+
+    @property
+    def num_quads(self) -> int:
+        """Quad rows, padding included (not the valid count)."""
+        return int(self.quad_corner.shape[0])
+
+    def replace(self, **kw) -> "SceneArrays":
+        """The scene with the fields in `kw` swapped in; no tensor is
+        copied."""
+        return dataclasses.replace(self, **kw)
+
     def numpy(self) -> Dict[str, np.ndarray]:
         """Host copies of every field, keyed by field name."""
         return {f.name: getattr(self, f.name).detach().cpu().numpy()

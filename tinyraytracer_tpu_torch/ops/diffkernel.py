@@ -39,6 +39,7 @@ import torch
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.ops import diff_schedule
+from tinyraytracer_tpu_torch.ops.scene_table import host_background
 
 _T_MIN = 1.0e-3
 _MISS = 3.0e38
@@ -127,7 +128,7 @@ def routes_packed(st: DiffStatic, background) -> bool:
     DIFF_PACKED_MAX_PRIMS real primitives and DIFF_PACKED_MAX_SPHERES real
     spheres, and gradients within DIFF_PACKED_MAX_ACC accumulators."""
     n_sph, n_quad = len(st.sph_rows), len(st.quad_rows)
-    return (np.asarray(background, np.float32).ndim == 1
+    return (host_background(background).ndim == 1
             and n_sph + n_quad <= DIFF_PACKED_MAX_PRIMS
             and n_sph <= DIFF_PACKED_MAX_SPHERES
             and packed_acc_width(n_sph, n_quad, st.nm, st.n_lights)
@@ -182,7 +183,7 @@ def render_value_and_grad(scene, camera, target, *, spp: int,
     on the scene's device, the same bits on every rank of a process
     group.
     """
-    if np.asarray(background, np.float32).ndim != 1:
+    if host_background(background).ndim != 1:
         raise ValueError(
             "the fused diff kernels support constant backgrounds only; "
             "gradient-sky ((2,3) [bottom, top]) scenes train through the "

@@ -339,6 +339,15 @@ def select_to_record(scene, o, d, t_sel, j, t_min=T_MIN,
     return hit_record_from(scene, o, d, t, j)
 
 
+def intersect_scene(scene, o, d, t_min=T_MIN, t_max=MISS_T,
+                    exact: bool = False) -> HitRecord:
+    """Closest hit of each ray in (o, d) against the whole scene: the
+    detached selection (`closest_select`), then the differentiable record
+    (`select_to_record`)."""
+    t_sel, j = closest_select(scene, o, d, t_min, t_max, exact=exact)
+    return select_to_record(scene, o, d, t_sel, j, t_min, t_max)
+
+
 def hit_record_from(scene, o, d, t, j) -> HitRecord:
     """A HitRecord from the winning t and global primitive index j (j >= Ns
     is quad j - Ns; t == MISS_T is no hit)."""

@@ -614,6 +614,23 @@ class MegakernelRenderer:
                     spp_offset=spp_offset, has_met=f.has_met,
                     has_die=f.has_die, sky=f.sky, pixels=pixels)
 
+    def render_burst(self, *, spp: int, max_bounces: int, seeds,
+                     **kw) -> torch.Tensor:
+        """len(seeds) frames, (n, H, W, 3) f32 on the renderer's device;
+        frame i is bit for bit `render(seed=seeds[i], **kw)`.
+
+        The frames share this renderer's one lowering and launch back to
+        back, one K1 or K2 launch per frame (per mesh cell with `mesh=`),
+        with no host sync between them (megakernel.py:1434-1452, where
+        JAX bakes the seeds into one program)."""
+        frames = [self.render(spp=spp, max_bounces=max_bounces,
+                              seed=int(s), **kw).to(self.device)
+                  for s in seeds]
+        if not frames:
+            return torch.zeros((0, self.camera.height, self.camera.width,
+                                3), dtype=torch.float32, device=self.device)
+        return torch.stack(frames)
+
     def render(self, *, spp: int, max_bounces: int, seed: int = 0,
                spp_offset: int = 0, packed: bool | None = None,
                mesh=None) -> torch.Tensor:

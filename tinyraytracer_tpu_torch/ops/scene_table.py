@@ -26,6 +26,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.models.camera import Camera
@@ -221,6 +222,14 @@ def scene_table(cs: CompactScene, pay: np.ndarray) -> tuple:
     return tab, tuple(prims)
 
 
+def host_background(background) -> np.ndarray:
+    """`background` (a tuple, an array, or a tensor on any device) as a
+    host f32 array: (3,) constant or (2, 3) [bottom, top] sky."""
+    if isinstance(background, torch.Tensor):
+        background = background.detach().cpu()
+    return np.asarray(background, np.float32)
+
+
 def camera_vector(camera: Camera, background) -> np.ndarray:
     """(1, 32) f32 camera/background row: 0:3 position, 3:6 viewport
     upper-left, 6:9 horizontal, 9:12 vertical, 12:15 / 15:18 defocus
@@ -235,7 +244,7 @@ def camera_vector(camera: Camera, background) -> np.ndarray:
     cam[0, 15:18] = camera.defocus_disk_v.cpu().numpy()
     cam[0, 18] = 1.0 / (camera.width - 1)
     cam[0, 19] = 1.0 / (camera.height - 1)
-    bg = np.asarray(background, np.float32)
+    bg = host_background(background)
     if bg.shape == (2, 3):
         cam[0, 20:23] = bg[0]
         cam[0, 24:27] = bg[1]
@@ -259,7 +268,7 @@ class LoweredScene:
 
 
 def _is_sky(background) -> bool:
-    return np.asarray(background, np.float32).shape == (2, 3)
+    return host_background(background).shape == (2, 3)
 
 
 def lower(scene: SceneArrays, camera: Camera, background) -> LoweredScene:

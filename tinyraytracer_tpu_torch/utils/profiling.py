@@ -28,7 +28,8 @@ from typing import Iterator
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """Capture a torch.profiler trace of the enclosed region into
-    log_dir (created if missing)."""
+    log_dir (created if missing). The trace is written even when the
+    region raises; the exception goes on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -36,13 +37,19 @@ def trace(log_dir: str) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"tinyraytracer_{os.getpid()}_{time.time_ns()}"
-                 ".pt.trace.json"))
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            try:
+                yield
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+    finally:
+        # a region that raises still leaves its trace
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"tinyraytracer_{os.getpid()}_{time.time_ns()}"
+                     ".pt.trace.json"))
 
 
 def annotate(name: str):
