@@ -61,11 +61,11 @@ Phases, each printed on its own lines:
    and with the twin's selection: loss, gradients and updated params bit
    for bit, the step deterministic, K3 launched 2 x bounces x rounds
    times; `fit(engine="modular")` refreshes its compaction on schedule.
-10. Config 5 at full size (cornell_spheres 600x600 mb=20, spp=200 unless
-   a step would pass STEP_LIMIT_S, then the largest divisor of 200 that
-   keeps it under): 1 warm-up and 2 timed steps, each ended by a host
-   read of the loss; fwd+bwd camera Mrays/s, peak memory, K3 launches and
-   share of the step. K3's counter is zeroed before and read after.
+10. Config 5 at full size (cornell_spheres 600x600 mb=20, spp cut from
+   200 to CFG5_SPP, a cut of depth): where a step at spp=4 goes, then 1
+   warm-up and 2 timed steps, each ended by a host read of the loss;
+   fwd+bwd camera Mrays/s, peak memory, K3 launches and share of the
+   step. K3's counter is zeroed before and read after.
 11. `Renderer(accelerator="none")` (the modular tracer) against K1.
 12. The fused differentiable kernel (K5) against its twin: a mixed-material
    scene (32x24 spp=2 mb=5) and cornell_spheres (64x64 spp=4 mb=4), each
@@ -143,13 +143,14 @@ Phases, each printed on its own lines:
    range of BVH_TIME_REPS); config 4b through Renderer(accelerator="bvh") at
    400x225 spp=16 mb=50 (cut below STEP_LIMIT_S if need be): a warm-up
    with three walks profiled for the device's busy share, then
-   BVH_TIME_REPS renders alternating with K2's (median and range, camera
-   Mrays/s, walk iterations per bounce), every kernel counter zeroed
-   before each BVH render and read after it (all must stay 0), the image
-   against K2's; cornell_box at 600x600 spp=16 mb=20 against K1 and the
-   dense modular route; config 4b over a (2, 1) mesh of the card, bit
-   for bit with one device; the CLI's --accelerator bvh --profile DIR on
-   the card (a PNG and a Chrome trace with CUDA kernel events).
+   BVH_RENDER_REPS renders alternating with K2's (the mean and each
+   reading, camera Mrays/s, walk iterations per bounce), every kernel
+   counter zeroed before each BVH render and read after it (all must
+   stay 0), the image against K2's; cornell_box at 600x600 spp=16
+   mb=20 against K1 and the dense modular route; config 4b over a (2, 1)
+   mesh of the card, bit for bit with one device; the CLI's
+   --accelerator bvh --profile DIR on the card (a PNG and a Chrome
+   trace with CUDA kernel events).
 
 20. The last public names and the examples. With every counter zeroed,
    one `MegakernelRenderer.render_burst` of config 1 (K1, seeds 0-7) and
@@ -173,9 +174,23 @@ Phases, each printed on its own lines:
    MANYSPHERE_MAX_ERROR. Each gate asks for half the recovery of the
    example's first full run on the card.
 
+21. bench_torch.py, the port of bench.py. First, outside the counted
+   run, K5 with every field trainable (all 18 quads' boundary
+   surrogates) against its twin at the first input of the bench's
+   cornell_box 300x300 mb=8 step (spp cut from 16 to 2) and of its
+   all-fields north star, 600x600 mb=20 (spp cut from 200 to 2): the
+   image bit for bit, the tables within TABLE_RTOL, two launches bit for
+   bit; each step's route and accumulator width, and the registers,
+   spills and save slots of its launch at its own spp. Then, with every
+   counter zeroed, bench_torch.main on the card: it prints its JSON
+   line, which must hold every key with no `_error`, positive rates and
+   shares in (0, 1]; each kernel must have launched BENCH_LAUNCHES
+   times. The config-5 shaped step is printed beside phase 14's.
+
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17), mesh (18), bvh (19), examples (20).
+(16-17), mesh (18), bvh (19), examples (20), bench (21). Each group's
+time is printed after it ("[lap]").
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -191,6 +206,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# The roofline model (FP32 operations per unit of work, the card's peaks,
+# the kernels' bounds) is defined once, in the package.
+from tinyraytracer_tpu_torch.utils import sol  # noqa: E402
 
 # Kernel vs twin on one card (phase 3): see tests/test_torch_cuda.py.
 PARITY_ATOL = 1e-5
@@ -230,30 +250,6 @@ CONFIGS = [
 # Elements of one twin candidate matrix on the card (rows x pixels).
 TWIN_CANDIDATES = 1 << 26
 
-# FP32 operations per unit of work, read off csrc/common.cuh and
-# csrc/megakernel.cu: each add, subtract, multiply, divide, compare,
-# min/max, sqrt and libm call counts one (--fmad=false fuses none; an IEEE
-# divide, sqrt or libm call takes several instructions, so the bound is
-# optimistic).
-OPS_SPHERE_ROW = 24      # sphere_hit_t + the running-minimum compare
-OPS_QUAD_ROW = 45        # quad_hit_t + the running-minimum compare
-OPS_AABB = 25            # one block's slab test (megakernel.cu)
-OPS_CULL_SEGMENT = 6     # the slab test's three guarded reciprocals
-OPS_SHADE_BASE = 108     # shade_bounce without metal or dielectric lobes
-OPS_REFLECT = 14         # the shared reflection (metal or dielectric)
-OPS_METAL = 7            # fuzz and the kind select
-OPS_DIELECTRIC = 49      # Schlick, refraction and the kind select
-OPS_CAMERA = 62          # camera_ray and the per-sample fold
-FP32_PEAK = 67e12        # H100 SXM, FP32 outside the tensor cores
-HBM_BYTES_S = 3.35e12
-
-
-# K3 (csrc/closest_hit.cu): FP32 operations per real row, counted as
-# above (sphere_t / quad_t plus the running-minimum compare), and bytes
-# per ray (origin and direction in, t and j out).
-OPS_K3_SPHERE_ROW = 29
-OPS_K3_QUAD_ROW = 49
-K3_BYTES_PER_RAY = 32
 K3_SCENES = [("cornell_spheres", {}), ("cornell_box", {}),
              ("three_spheres", {}), ("random_spheres", dict(n=500))]
 # K3's edge scenes (label, preset, random_spheres' n, extra spheres in the
@@ -278,6 +274,10 @@ K3_GLOBAL = dict(n=500, width=200, height=200, spp=8)
 CFG5 = dict(width=600, height=600, spp=200, max_bounces=20)
 TRAINABLE = ("sph_center", "mat_albedo")
 STEP_LIMIT_S = 60.0
+# Phase 10's depth: config 5's modular step runs at this spp, cut from
+# 200 to keep the script's time: on the H100 a step at spp=50 takes 30 s,
+# at spp=100 61-65 s, and the phase 120 s at 50 against 215 s at 100.
+CFG5_SPP = 50
 # Renderer(accelerator="none") against K1 (phase 11): cornell_box's
 # light is coplanar with its ceiling, and ulp differences between the two
 # paths' hit points and camera rays decide that tie differently: the JAX
@@ -298,22 +298,6 @@ ZFIGHT_MEAN_RTOL = 0.15
 # differently in the two tracers' formulas), 5e-3 elsewhere.
 FUSED_LOSS_RTOL = 1e-4
 FUSED_GRAD_RTOL = 0.1
-# FP32 operations per live bounce of K5, read off csrc/diffkernel_packed.cu
-# and counted as above (closest-hit rows as K1's: the same common.cuh
-# tests): `shade` 235 without metal or dielectric (the intersection math,
-# 113; the light sample, 67; the scatter, 55), color 40, state update 29,
-# the shadow test 2 besides its closest hit; the adjoint besides its own
-# `shade` 262; per surrogate sphere 155 (soft shadow both passes and the
-# silhouette), per surrogate quad 350. Phase 1 and the replay each trace
-# the bounce and its shadow ray; the adjoint re-shades it.
-OPS_K5_SHADE = 235
-OPS_K5_COLOR = 40
-OPS_K5_ADVANCE = 29
-OPS_K5_SHADOW = 2
-OPS_K5_ADJ = 262
-OPS_K5_SPH_SURR = 155
-OPS_K5_QUAD_SURR = 350
-K5_BYTES_PER_PIXEL = 24          # target in, image out
 # Edge shapes of the fused kernels' loops (phases 12 and 15): label,
 # image size (a window of the cell's camera), launch arguments (spp = the
 # shipped k + 1 where left out), and the chunk's k for the launch (None:
@@ -352,13 +336,6 @@ PLAIN_BACK_EDGES_SIL = {"K5": 2, "K4": 2}
 # The K5 lane model at cfg5f reads every K5_LANE_EVERY-th warp of the
 # image (the twin's phase 1 at spp=200).
 K5_LANE_EVERY = 16
-# K4 (csrc/diffkernel.cu) runs K5's estimator (csrc/diff_common.cuh), so
-# the same counts hold, with two more read off the source: the light
-# sample inside OPS_K5_SHADE (skipped in a scene without lights, as is
-# the shadow ray), and a surrogate sphere's silhouette alone (bounce_adj's
-# A1 loop: all a sphere costs when no light makes soft shadows).
-OPS_K5_LIGHT = 67
-OPS_K4_SPH_SIL = 88
 # bench.py's cfg4-class fused step (bench.py:313-348): random_spheres
 # n=512 at 200x200, spp=8, mb=8, trainable sph_center + mat_albedo, the
 # first 8 sphere rows listed in trainable_rows (cell cfg4class) or none
@@ -912,26 +889,6 @@ def count_work(torch, mk, fn, width, height, blocks=None, device="cuda"):
     return out, tot
 
 
-def shade_ops(has_met, has_die):
-    ops = OPS_SHADE_BASE
-    if has_met or has_die:
-        ops += OPS_REFLECT
-    if has_met:
-        ops += OPS_METAL
-    if has_die:
-        ops += OPS_DIELECTRIC
-    return ops
-
-
-def bound(camera_rays, segments, per_segment, out_bytes, in_bytes):
-    """Least time (ms) for the work: the larger of operations over the
-    FP32 peak and bytes (inputs once, output once) over HBM's rate."""
-    ops = camera_rays * OPS_CAMERA + segments * per_segment
-    t_ops, t_bytes = ops / FP32_PEAK, (out_bytes + in_bytes) / HBM_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops)
-
-
 def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
     worst = {"K1": 0.0, "K2": 0.0}
     for label, name, pkw, w, h, spp, mb, twin_spp in CONFIGS:
@@ -944,7 +901,8 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
             twin = lambda **o: mkp.render_packed_reference(  # noqa: E731
                 r.table, r.cam, **{**args, **o})
             low = r.lowered
-            rows = low.n_sph * OPS_SPHERE_ROW + low.n_quad * OPS_QUAD_ROW
+            per_seg = sol.segment_ops(low.n_sph, low.n_quad, low.has_met,
+                                      low.has_die)
             in_bytes = 4 * (low.table.size + low.cam.size)
             flags = (low.has_met, low.has_die)
             split = lib.tinyrt_megakernel_packed_split(
@@ -960,7 +918,8 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
             twin = lambda **o: mk.render_flat_reference(  # noqa: E731
                 **{**twin_args, **o})
             f = r.flat
-            rows = f.n_sph * OPS_SPHERE_ROW + f.n_quad * OPS_QUAD_ROW
+            per_seg = sol.segment_ops(f.n_sph, f.n_quad, f.has_met,
+                                      f.has_die)
             in_bytes = sum(4 * a.size for a in (f.sph, f.quad, f.pay, f.cam))
             flags = (f.has_met, f.has_die)
             split = lib.tinyrt_megakernel_flat_split(
@@ -1014,8 +973,7 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
         simt = n["seg"] / (32 * n["warp_steps"])
         regen = n["seg"] / (32 * n["regen_passes"])
         segments = seg_per_ray * w * h * spp
-        per_seg = rows + shade_ops(*flags)
-        b_ms, b_by, ops = bound(w * h * spp, segments, per_seg, 12 * w * h,
+        b_ms, b_by, ops = sol.bound(w * h * spp, segments, per_seg, 12 * w * h,
                                 in_bytes)
         res.update(segments_per_ray=seg_per_ray, simt_efficiency=simt,
                    regen_lane_use=regen, bound_ms=b_ms, bound_by=b_by,
@@ -1027,16 +985,16 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
             f"under the "
             f"per-lane regeneration loop, {simt:.1%} under a lockstep "
             f"sample loop; {per_seg} ops per segment; bound {b_ms:.3f} ms "
-            f"({b_by}, {ops:.4g} ops at {FP32_PEAK / 1e12:g} TFLOP/s)")
+            f"({b_by}, {ops:.4g} ops at {sol.FP32_PEAK / 1e12:g} TFLOP/s)")
         if blocks is not None:
             rows_per_seg = n["rows"] / n["seg"]
             warp_rows = n["warp_rows"] / n["warp_steps"]
             res.update(warp_rows_per_step=warp_rows)
             log(f"[count] {label}: a lockstep warp walks {warp_rows:.1f} "
                 f"sphere rows per bounce step under the per-thread cull")
-            c_seg = (OPS_CULL_SEGMENT + args["aabbs"].shape[0] * OPS_AABB
-                     + rows_per_seg * OPS_SPHERE_ROW + shade_ops(*flags))
-            cb_ms, cb_by, c_ops = bound(w * h * spp, segments, c_seg,
+            c_seg = sol.culled_segment_ops(args["aabbs"].shape[0],
+                                           rows_per_seg, *flags)
+            cb_ms, cb_by, c_ops = sol.bound(w * h * spp, segments, c_seg,
                                         12 * w * h, in_bytes)
             res.update(culled_rows_per_segment=rows_per_seg,
                        bound_ms_dense=b_ms, bound_ms=cb_ms, bound_by=cb_by,
@@ -1418,12 +1376,9 @@ def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
             f"{'(t, j)' if need_j else 't-only'}): K3 "
             f"{glob_times[label]:.4f} ms")
     glob_rays, glob_rows = o.shape[0], (cs.n_sph, cs.n_quad)
-    t_ops = glob_rays * (cs.n_sph * OPS_K3_SPHERE_ROW
-                         + cs.n_quad * OPS_K3_QUAD_ROW) / FP32_PEAK
-    t_bytes = glob_rays * K3_BYTES_PER_RAY / HBM_BYTES_S
-    glob_bound = max(t_ops, t_bytes) * 1e3
+    glob_bound, glob_by, _ = sol.k3_bound(glob_rays, cs.n_sph, cs.n_quad)
     log(f"[k3] global route bound: {glob_bound:.4f} ms a wavefront "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        f"({glob_by})")
 
     scene, waves = cfg5_wavefronts(torch, presets, ik, trace_ops,
                                    generate_rays)
@@ -1443,15 +1398,13 @@ def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
     o, d = waves[0][3], waves[0][4]
     plain_ms = time_kernel(torch, lambda: ik.closest_hit_reference(cs, o, d),
                            3)
-    ops = r * (cs.n_sph * OPS_K3_SPHERE_ROW + cs.n_quad * OPS_K3_QUAD_ROW)
-    t_ops, t_bytes = ops / FP32_PEAK, r * K3_BYTES_PER_RAY / HBM_BYTES_S
+    bound_ms, bound_by, _ = sol.k3_bound(r, cs.n_sph, cs.n_quad)
 
     def named(t):
         return {f"{k} {b}": v for (k, b), v in t.items()}
 
     rec = dict(rays=r, ms=times[("primary", 0)], plain_ms=plain_ms,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_ms=bound_ms, bound_by=bound_by,
                max_abs_err=worst_t, j_differing=worst_j,
                ms_launch_weighted=mean, wavefront_ms=named(times),
                global_rays=glob_rays, global_wavefront_ms=glob_times,
@@ -1608,17 +1561,11 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
         value = float(loss)         # host read, as bench.py:210-215
         return (p, o), value, time.perf_counter() - t0
 
-    # a 2-round probe prices a round; spp is the largest divisor of 200
-    # whose predicted step stays under 90 % of STEP_LIMIT_S
+    # a 2-round probe step at spp=4, broken down and profiled
     npix = w * h
     probe_step, state = make(4)
     timed(probe_step, state, 0)
     _, _, probe_s = timed(probe_step, state, 1)
-    per_round = probe_s / trace_ops.sample_rounds(npix, 4, True)[1]
-
-    def predicted(c):
-        return trace_ops.sample_rounds(npix, c, True)[1] * per_round
-
     split = _probe_breakdown(torch, inverse,
                              lambda: timed(probe_step, state, 2)[2])
     log(f"[cfg5] where a 2-round step (spp=4) goes, passes timed with a "
@@ -1629,15 +1576,12 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
         f"profiled: device busy {split['device_busy']:.1%} of the step, "
         f"{split['kernels']} kernels; top by device time: "
         + "; ".join(f"{n} {ms:.1f} ms" for n, ms in split["top"]))
-    spp = max([c for c in range(1, CFG5["spp"] + 1) if CFG5["spp"] % c == 0
-               and predicted(c) <= 0.9 * STEP_LIMIT_S] or [1])
+    spp = CFG5_SPP
     cut = spp != CFG5["spp"]
     chunk = trace_ops.sample_rounds(npix, spp, True)[0]
-    log(f"[cfg5] probe step at spp=4: {probe_s:.2f} s ({per_round:.3f} s "
-        f"per round of {chunk * npix} rays); running spp={spp}"
-        + (f" (cut from {CFG5['spp']}: one step there is predicted "
-           f"{predicted(CFG5['spp']):.0f} s > {STEP_LIMIT_S:g} s)"
-           if cut else ""))
+    log(f"[cfg5] probe step at spp=4: {probe_s:.2f} s; running spp={spp} "
+        f"(cut from {CFG5['spp']}, a cut of depth), rounds of "
+        f"{chunk * npix} rays")
     step, state = make(spp)
     counters = {"K1": 0, "K2": 0, "K3": 0}
     from tinyraytracer_tpu_torch.ops import megakernel as mk
@@ -1949,7 +1893,7 @@ def diff_lane_model(torch, dkp, ds, tab, cvec, spec, width, height, spp, mb,
     pid = pid[pid < npix]
     lens = live_bounces(dkp, tab, cvec, spec, width=width, pid=pid, spp=spp,
                         max_bounces=mb, seed=seed)
-    replay = per_seg_fwd - OPS_K5_COLOR
+    replay = per_seg_fwd - sol.OPS_K5_COLOR
     u = lane_use(lens.cpu(), mb, stage_ops=(replay, per_seg_bwd - replay))
     k = ds.CHUNK_SAMPLES
     lock = per_seg_fwd / u["lockstep"] + per_seg_bwd / u["lockstep"]
@@ -2073,35 +2017,6 @@ def fused_edges(torch, dkp, ds, kernel, fn, label, tab, cvec, tgt, spec):
     return worst_abs, worst_rel
 
 
-def per_seg_split(spec):
-    """Operations per live bounce of K5's phase 1 (trace, shade, shadow,
-    colour, advance) and of its phase 3 (replay and adjoint), as k5_bound
-    counts them."""
-    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
-    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
-                            - shade_ops(False, False))
-    fwd = 2 * rows + shade + OPS_K5_SHADOW + OPS_K5_ADVANCE
-    bwd = (fwd + shade + OPS_K5_ADJ + len(spec.surr_s) * OPS_K5_SPH_SURR
-           + len(spec.surr_q) * OPS_K5_QUAD_SURR)
-    return fwd + OPS_K5_COLOR, bwd
-
-
-def k5_bound(spec, pixels, spp, segments):
-    """Least time (ms) of one K5 call and what bounds it."""
-    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
-    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
-                            - shade_ops(False, False))
-    n_s, n_q = len(spec.surr_s), len(spec.surr_q)
-    fwd = 2 * rows + shade + OPS_K5_SHADOW + OPS_K5_ADVANCE
-    per_seg = (2 * fwd + OPS_K5_COLOR + shade + OPS_K5_ADJ
-               + n_s * OPS_K5_SPH_SURR + n_q * OPS_K5_QUAD_SURR)
-    ops = 2 * pixels * spp * OPS_CAMERA + segments * per_seg
-    t_ops = ops / FP32_PEAK
-    t_bytes = pixels * K5_BYTES_PER_PIXEL / HBM_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, per_seg)
-
-
 def k5_phase(torch, np, presets, dkp, card):
     """K5 against its twin on the card; returns the K5 record."""
     worst_rel, worst_abs = 0.0, 0.0
@@ -2182,7 +2097,7 @@ def k5_phase(torch, np, presets, dkp, card):
     _, segs = twin_segments(dkp, lambda: dkp.packed_diff_reference(
         tab, cvec, tgt, spp=1, **args))
     segments = segs * spp
-    b_ms, b_by, ops, per_seg = k5_bound(spec, w * h, spp, segments)
+    b_ms, b_by, ops, per_seg = sol.k5_bound(spec, w * h, spp, segments)
     log(f"[k5] cfg5 shape {w}x{h} mb={mb} (class scope, 2 spheres + "
         f"{spec.n_quad} quads): K5 {ms:.2f} ms at spp={spp}; at spp="
         f"{twin_spp} kernel {ms_twin_shape:.2f} ms, twin {plain_ms:.1f} ms "
@@ -2205,7 +2120,7 @@ def k5_phase(torch, np, presets, dkp, card):
                                spec)
     info = _diff_launch_info(torch, dk, dkp, ds, _build, "K5", spec,
                              tab.numel(), w * h, spp, mb)
-    fwd_ops = per_seg_split(spec)[0]
+    fwd_ops = sol.per_seg_split(spec)[0]
     lanes = diff_lane_model(torch, dkp, ds, tab, cvec, spec, w, h, spp, mb,
                             fwd_ops, per_seg - fwd_ops,
                             every=K5_LANE_EVERY)
@@ -2232,38 +2147,6 @@ def _k5_setup(torch, dkp, scene, camera, background, flags):
         flags.get("sil", True), flags.get("surr_sph", True),
         flags.get("surr_quad", True))
     return tab, cvec, spec
-
-
-def k4_fwd_ops(spec):
-    """(operations of a live bounce's trace, shade and advance in K4, its
-    shade alone): K5's counts, without the light sample and shadow ray in
-    a scene without lights."""
-    lit = spec.nee and spec.n_lights > 0
-    rows = spec.n_sph * OPS_SPHERE_ROW + spec.n_quad * OPS_QUAD_ROW
-    shade = OPS_K5_SHADE + (shade_ops(spec.has_met, spec.has_die)
-                            - shade_ops(False, False))
-    if not lit:
-        shade -= OPS_K5_LIGHT
-    fwd = (2 * rows + OPS_K5_SHADOW if lit else rows) + shade + OPS_K5_ADVANCE
-    return fwd, shade
-
-
-def k4_bound(spec, pixels, spp, segments):
-    """Least time (ms) of one K4 call and what bounds it: K5's counts,
-    without the light sample, shadow ray and soft shadows in a scene
-    without lights (the K4 surrogate rows are the scope's)."""
-    lit = spec.nee and spec.n_lights > 0
-    fwd, shade = k4_fwd_ops(spec)
-    per_sph = OPS_K5_SPH_SURR if lit else (OPS_K4_SPH_SIL if spec.sil
-                                           else 0)
-    per_quad = OPS_K5_QUAD_SURR if lit or spec.sil else 0
-    per_seg = (2 * fwd + OPS_K5_COLOR + shade + OPS_K5_ADJ
-               + len(spec.surr_s) * per_sph + len(spec.surr_q) * per_quad)
-    ops = 2 * pixels * spp * OPS_CAMERA + segments * per_seg
-    t_ops = ops / FP32_PEAK
-    t_bytes = pixels * K5_BYTES_PER_PIXEL / HBM_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, per_seg)
 
 
 def lit_spheres(presets, n, width, height):
@@ -2413,8 +2296,8 @@ def k4_phase(torch, np, presets, dk, dkp, card):
                   f"{info['image_split'] if s == spp else 1})",
                   dict(args, spp=s), tab, cvec, tgt,
                   twin_args=dict(args, spp=s, pixel_chunk=chunk))
-        b_ms, b_by, ops, per_seg = k4_bound(spec, w * h, spp, segs * spp)
-        fwd_ops = k4_fwd_ops(spec)[0] + OPS_K5_COLOR
+        b_ms, b_by, ops, per_seg = sol.k4_bound(spec, w * h, spp, segs * spp)
+        fwd_ops = sol.k4_fwd_ops(spec)[0] + sol.OPS_K5_COLOR
         lanes = diff_lane_model(torch, dkp, ds, tab, cvec, spec, w, h, spp,
                                 mb, fwd_ops, per_seg - fwd_ops)
         log(f"[k4] {cell} launch: {info}")
@@ -3247,6 +3130,10 @@ BVH_K3_MAX_FLIP = 0.01
 # 64x48 spp=4 (primary, then one bounce's scattered rays)
 BVH_RAYS = dict(width=64, height=48, spp=4)
 BVH_TIME_REPS = 3
+# config 4b's whole renders through the BVH, each beside K2's: 2, a cut
+# of depth to keep the script's time: each takes 30-40 s of host-bound
+# walks
+BVH_RENDER_REPS = 2
 # the walks of the render profiled for the device's busy share: a profiled
 # whole render would record some 2.3 million kernels, whose processing
 # takes minutes
@@ -3431,7 +3318,7 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
                   background_color=kw["background"], seed=0, device="cuda")
     times = {"bvh": [], "k2": []}
     img = img_k2 = None
-    for _ in range(BVH_TIME_REPS):
+    for _ in range(BVH_RENDER_REPS):
         _zero_counters(ik, mk, mkp, dk, dkp)
         bvh_ops.walk_counts.reset()
         torch.cuda.synchronize()
@@ -3451,14 +3338,14 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
     if tuple(img.shape) != (c4["height"], c4["width"], 3) or \
             not bool(torch.isfinite(img).all()) or bool((img < 0).any()):
         raise RuntimeError("cfg4b BVH image not finite / negative")
-    mb_, lo_b, hi_b = _spread(times["bvh"])
-    mk_, lo_k, hi_k = _spread(times["k2"])
+    mb_ = sum(times["bvh"]) / len(times["bvh"])
+    mk_ = sum(times["k2"]) / len(times["k2"])
     rays = c4["width"] * c4["height"] * spp
     busy = [p["busy"] for p in profiled]
     res["cfg4b"] = dict(
         spp=spp, max_bounces=c4["max_bounces"], render_s=times["bvh"],
-        median_s=mb_, mrays_s=rays / mb_ / 1e6, k2_render_s=times["k2"],
-        k2_median_s=mk_, warmup_s=warm_s, walks=walks,
+        mean_s=mb_, mrays_s=rays / mb_ / 1e6, k2_render_s=times["k2"],
+        k2_mean_s=mk_, warmup_s=warm_s, walks=walks,
         iterations_per_bounce_mean=walks["iterations_mean"],
         iterations_per_bounce_max=walks["max_iterations"],
         ray_steps_per_ray_walk=walks["ray_steps"] / (rays * c4[
@@ -3468,11 +3355,12 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
                            BVH_K2_MAX_FRAC, PARITY_MEAN_RTOL))
     log(f"[bvh] cfg4b {c4['width']}x{c4['height']} spp={spp} "
         f"mb={c4['max_bounces']}, Renderer(accelerator=\"bvh\").render_array"
-        f" {mb_ * 1e3:.1f} ms [{lo_b * 1e3:.1f}, {hi_b * 1e3:.1f}], "
-        f"{rays / mb_ / 1e6:.3f} camera Mrays/s; K2 {mk_ * 1e3:.2f} ms "
-        f"[{lo_k * 1e3:.2f}, {hi_k * 1e3:.2f}] (median [min, max] of "
-        f"{BVH_TIME_REPS}, alternating) on {card}; K1-K5 launches during "
-        f"the BVH renders: 0")
+        f" {mb_ * 1e3:.1f} ms ("
+        + ", ".join(f"{t * 1e3:.1f}" for t in times["bvh"])
+        + f"), {rays / mb_ / 1e6:.3f} camera Mrays/s; K2 {mk_ * 1e3:.2f} ms ("
+        + ", ".join(f"{t * 1e3:.2f}" for t in times["k2"])
+        + f") (mean (readings) of {BVH_RENDER_REPS}, alternating) on {card};"
+        " K1-K5 launches during the BVH renders: 0")
     groups = walks["walks"] // c4["max_bounces"]
     log(f"[bvh] cfg4b walks: {walks['walks']} ({groups} lockstep groups x "
         f"{c4['max_bounces']} bounces), walk iterations per bounce mean "
@@ -3854,8 +3742,114 @@ def examples_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, trace_ops,
     return res
 
 
+# Phase 21: bench_torch.py, the port of bench.py. Its launches, each
+# section's calls: configs 1-3 a warm-up and 3 timed renders each (K1 12)
+# plus config 1's 4 bursts of 8 (K1 32); config 4 (K2 4) and config 4b's
+# two Renderers, 3 renders each (K2 6); mean_executed_bounces' trace,
+# one t-and-j launch a bounce of each of its 2 samples at mb=20 (K3 40);
+# the 300x300 step, 1 + 5 (K5 6), the all-fields north star's warm-up
+# and 2 steps (K5 3), the config-5 shaped step 1 + 2 (K5 3); the
+# cfg4-class step 1 + 3 (K4 4).
+BENCH_LAUNCHES = {"K1": 44, "K2": 10, "K3": 40, "K4": 4, "K5": 12}
+# K5 at the first input of the all-fields 300x300 step and north star,
+# against the twin: each step's shape with spp cut (from 16 and 200) to
+# BENCH_TWIN_SPP (the twin runs the 18 quads' surrogates as (rows,
+# pixels) matrices).
+BENCH_TWIN_SPP = 2
+
+
+def _defaults(fn):
+    """The keyword defaults of a bench section: its sizes."""
+    import inspect
+
+    return {k: v.default for k, v in inspect.signature(fn).parameters.items()
+            if v.default is not inspect.Parameter.empty}
+
+
+def bench_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card,
+                cfg5f=None):
+    """Phase 21: bench_torch.py on the card. First, outside the counted
+    run, K5 with every field trainable (the full surrogate scope) against
+    its twin at the first input of the 300x300 step and of the north
+    star, spp cut to BENCH_TWIN_SPP, with the route, the accumulator
+    width and the launch plan of each; then bench_torch.main with every
+    counter zeroed: no error or missing key, every rate positive, every
+    share in (0, 1], each kernel launched BENCH_LAUNCHES times."""
+    import bench_torch
+    from tinyraytracer_tpu_torch import _build
+    from tinyraytracer_tpu_torch.ops import diff_schedule as ds
+
+    errs, infos = [], {}
+    for name, fn in (("fwdbwd", bench_torch.bench_fwdbwd),
+                     ("northstar", bench_torch.bench_northstar)):
+        b = _defaults(fn)
+        w, h, mb = b["width"], b["height"], b["max_bounces"]
+        world, camera, kw = presets.cornell_box(width=w, height=h)
+        scene, camera = world.build().to("cuda"), camera.to("cuda")
+        bg = kw["background"]
+        st = dk.build_diff_static(scene)
+        acc = dk.packed_acc_width(len(st.sph_rows), len(st.quad_rows),
+                                  st.nm, st.n_lights)
+        packed = dk.routes_packed(st, bg)
+        sil, surr = inverse._surrogate_scope(None)
+        surr_s, surr_q, class_level = dk._surrogate_rows(st, surr)
+        target = torch.zeros((h, w, 3), device="cuda")
+        _, tab, cvec, tgt, spec = dkp._inputs(scene, camera, target, bg, st,
+                                              True, sil, bool(surr_s),
+                                              bool(surr_q))
+        log(f"[bench] {name}: cornell_box {w}x{h}, every field trainable: "
+            f"{len(st.sph_rows)} spheres + {len(st.quad_rows)} quads, "
+            f"{len(spec.surr_s)} sphere and {len(spec.surr_q)} quad "
+            f"surrogates, silhouette {sil}; accumulator {acc} of "
+            f"{dk.DIFF_PACKED_MAX_ACC} floats; class scope {class_level}; "
+            f"routes to {'K5' if packed and class_level else 'K4'}")
+        if not (packed and class_level):
+            raise RuntimeError(f"the all-fields {name} step would not run "
+                               "on K5")
+        t0 = time.perf_counter()
+        _, ok, msg, _, err = diff_twin_check(
+            torch, dkp, "bench", dkp.packed_diff,
+            f"K5 at the {name} step's first input {w}x{h} "
+            f"spp={BENCH_TWIN_SPP} (cut from {b['spp']}) mb={mb}",
+            dict(spec=spec, width=w, height=h, spp=BENCH_TWIN_SPP,
+                 max_bounces=mb, seed=0), tab, cvec, tgt)
+        log(f"{msg}; {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            raise RuntimeError(f"K5 at the bench's all-fields {name} input "
+                               "disagrees with its twin or is not "
+                               "deterministic")
+        errs.append(err)
+        infos[name] = _diff_launch_info(torch, dk, dkp, ds, _build, "K5",
+                                        spec, tab.numel(), w * h, b["spp"],
+                                        mb)
+        log(f"[bench] all-fields {name} launch ({w}x{h} spp={b['spp']} "
+            f"mb={mb}): {infos[name]}")
+
+    _zero_counters(ik, mk, mkp, dk, dkp)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    line = bench_torch.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counters = _counters(ik, mk, mkp, dk, dkp)
+    peak = torch.cuda.max_memory_allocated()
+    bad = bench_torch.problems(line)
+    log(f"[bench] bench_torch.main in {wall:.1f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; launches {counters} (expected "
+        f"{BENCH_LAUNCHES}); problems {bad or 'none'}; on {card}")
+    ns, c5 = (line.get("fwdbwd_northstar_step_s"),
+              line.get("fwdbwd_northstar_cfg5_step_s"))
+    if cfg5f is not None and c5 and ns:
+        log(f"[bench] config-5 shaped step {c5:.4f} s against phase 14's "
+            f"cfg5f {min(cfg5f['step_s']):.4f} s (ratio "
+            f"{c5 / min(cfg5f['step_s']):.4f}); all fields {ns:.4f} s")
+    if bad or counters != BENCH_LAUNCHES:
+        raise RuntimeError(f"bench_torch: {bad}; launches {counters}")
+    return dict(line=line, launches=counters, wall_s=wall, peak_bytes=peak,
+                max_abs_err=max(errs), launch=infos, acc_width=acc)
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples")
+          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples", "bench")
 
 
 def main(argv=None) -> int:
@@ -3866,15 +3860,14 @@ def main(argv=None) -> int:
                     help="comma-separated phase groups to run: forward "
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
-                    "cfg4f (16-17), mesh (18), bvh (19), examples (20); "
-                    "the result lines need the default set")
+                    "cfg4f (16-17), mesh (18), bvh (19), examples (20), "
+                    "bench (21); the result lines need the default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
     import torch
 
     card = env_phase(torch)
-    sys.path.insert(0, ROOT)
     from tinyraytracer_tpu_torch import Image, Renderer, _build
     from tinyraytracer_tpu_torch.diff import inverse
     from tinyraytracer_tpu_torch.models import presets
@@ -3888,9 +3881,17 @@ def main(argv=None) -> int:
     from tinyraytracer_tpu_torch.ops import trace as trace_ops
     from tinyraytracer_tpu_torch.parallel import sharded
 
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(group):
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[lap] {group}: {now - t_lap:.1f} s")
+        t_lap = now
+
     build_phase(_build)
     sass = sass_phase(_build)
+    lap("build")
     results = {}
     if "forward" in only:
         worst = parity_phase(torch, np, presets, mk, mkp, _build.load())
@@ -3903,42 +3904,59 @@ def main(argv=None) -> int:
             worst[k] = max(worst[k], v)
         results["sass"] = sass
         api_phase(torch, np, presets, Renderer)
+        lap("forward")
     if "k3" in only:
         results["k3"] = k3_phase(torch, presets, ik, trace_ops,
                                  generate_rays, card)
+        lap("k3")
     if "train" in only:
         train_phase(torch, presets, ik, inverse, Renderer, card)
+        lap("train")
     if "cfg5" in only:
         results["cfg5"] = cfg5_phase(torch, presets, ik, inverse, trace_ops,
                                      Renderer, card)
+        lap("cfg5")
     if "modular" in only:
         modular_render_phase(torch, np, presets, Renderer, card)
+        lap("modular")
     if "k5" in only:
         results["k5"] = k5_phase(torch, np, presets, dkp, card)
+        lap("k5")
     if "fused" in only:
         fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card)
+        lap("fused")
     if "cfg5f" in only:
         results["cfg5f"] = cfg5_fused_phase(torch, presets, dk, dkp, inverse,
                                             Renderer, card)
+        lap("cfg5f")
     if "k4" in only:
         results["k4"] = k4_phase(torch, np, presets, dk, dkp, card)
+        lap("k4")
     if "cfg4f" in only:
         results["cfg4f"] = cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp,
                                        inverse, card)
         results["route"] = routing_phase(torch, presets, ik, mk, mkp, dk,
                                          dkp, inverse, card)
+        lap("cfg4f")
     if "mesh" in only:
         mesh_twin_checks(torch, presets, mk, mkp, sharded, _build.load())
         results["mesh"] = mesh_phase(torch, presets, ik, mk, mkp, dk, dkp,
                                      inverse, sharded, Renderer, card)
+        lap("mesh")
     if "bvh" in only:
         results["bvh"] = bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp,
                                    bvh_ops, trace_ops, generate_rays,
                                    Renderer, card)
+        lap("bvh")
     if "examples" in only:
         results["examples"] = examples_phase(torch, presets, ik, mk, mkp, dk,
                                              dkp, inverse, trace_ops,
                                              generate_rays, card)
+        lap("examples")
+    if "bench" in only:
+        results["bench"] = bench_phase(torch, presets, ik, mk, mkp, dk, dkp,
+                                       inverse, card, results.get("cfg5f"))
+        lap("bench")
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -3950,6 +3968,7 @@ def main(argv=None) -> int:
     mesh = results["mesh"]["launches"]
     ex = results["examples"]["launches"]
     ex_err = results["examples"]["max_abs_err"]
+    bench = results["bench"]["launches"]
 
     def entry(kid, name, source, replaces, cfg):
         res = results[cfg]
@@ -3957,7 +3976,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"tinyraytracer_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[kid] + mesh[kid] + ex[kid],
+            "launches": launches[kid] + mesh[kid] + ex[kid] + bench[kid],
             "max_abs_err": worst[kid], "ms": res["kernel_ms"],
             "plain_ms": res["twin_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
@@ -3975,7 +3994,7 @@ def main(argv=None) -> int:
          "source": "tinyraytracer_tpu_torch/csrc/closest_hit.cu",
          "replaces": "tinyraytracer_tpu/ops/intersect_pallas.py:166",
          "launches": results["cfg5"]["launches"]["K3"] + mesh["K3"]
-         + ex["K3"],
+         + ex["K3"] + bench["K3"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "config": "cfg5",
@@ -3986,8 +4005,9 @@ def main(argv=None) -> int:
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel_packed.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel_packed.py:240",
          "launches": results["cfg5f"]["launches"]["K5"] + mesh["K5"]
-         + ex["K5"],
-         "max_abs_err": max(k5["max_abs_err"], ex_err["K5"]),
+         + ex["K5"] + bench["K5"],
+         "max_abs_err": max(k5["max_abs_err"], ex_err["K5"],
+                            results["bench"]["max_abs_err"]),
          "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None, "config": "cfg5f",
@@ -3997,7 +4017,7 @@ def main(argv=None) -> int:
          "source": "tinyraytracer_tpu_torch/csrc/diffkernel.cu",
          "replaces": "tinyraytracer_tpu/ops/diffkernel.py:357",
          "launches": results["cfg4f"]["cfg4class"]["launches"]["K4"]
-         + mesh["K4"] + ex["K4"],
+         + mesh["K4"] + ex["K4"] + bench["K4"],
          "max_abs_err": max(k4["max_abs_err"], ex_err["K4"]),
          "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
