@@ -19,9 +19,10 @@ steps). The roofline shares come from tinyraytracer_tpu_torch/utils/sol.py.
 The line has bench.py's keys, with these differences:
 - `*_vpu_roofline` is `*_fp32_roofline`: a share of the H100's FP32 peak
   (utils/sol.py), not of a TPU's VPU.
-- `pct_sol_cornell_vs_measured_mix` is left out: its ceiling was
-  calibrated by a TPU microbenchmark, and the card has no such
-  calibration.
+- `pct_sol_cornell_vs_measured_mix` sets config 3's rate against the
+  card's own measured mix (utils/sol.py `pct_of_sol_measured`, whose two
+  rates scripts/torch_probe_vpu_microbench.py measures on the card), not
+  the TPU's.
 - Added: `device_name` and `power_limit_w` (nvidia-smi's name and
   power.limit).
 - `device` is the torch device type, and no number is rounded.
@@ -89,7 +90,7 @@ KEYS = frozenset(
     + ["device", "device_name", "power_limit_w",
        "cfg1_sphere_ground_400x225_spp16_burst8_per_image",
        "cfg1_dispatch_overhead_ms", "cornell_mean_executed_bounces",
-       "pct_sol_cornell_fp32_roofline",
+       "pct_sol_cornell_fp32_roofline", "pct_sol_cornell_vs_measured_mix",
        "cfg4b_random8000_400x225_spp16",
        "cfg4b_random8000_400x225_spp16_wall_s",
        "cfg4b_random8000_400x225_spp64",
@@ -239,6 +240,10 @@ def bench_forward(result, device, config, *, burst=8, estimate=(150, 150, 2)):
         low = r.lowered
         result["cornell_mean_executed_bounces"] = mean_b
         result["pct_sol_cornell_fp32_roofline"] = sol.pct_of_sol(
+            rate, r.n_sph, r.n_quad, mean_b, has_met=low.has_met,
+            has_die=low.has_die)
+        # the same rate against the card's measured op mix
+        result["pct_sol_cornell_vs_measured_mix"] = sol.pct_of_sol_measured(
             rate, r.n_sph, r.n_quad, mean_b, has_met=low.has_met,
             has_die=low.has_die)
     return rate

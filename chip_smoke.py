@@ -24,7 +24,9 @@ Phases, each printed on its own lines:
    sample split's threshold (one wave of the card), for both kernels.
 4. Main path: `Renderer(...).render(camera, world)` for BASELINE configs
    1-4 and 4b at full size, one warm-up then one timed render each; the
-   PNG goes to output/. Checks finite, non-negative radiance and the
+   PNG goes to output/ through the native encoder (native/, built at
+   first use) and must decode back to the image's pixels. Checks finite,
+   non-negative radiance and the
    Cornell box's orientation. Both launch counters are zeroed before this
    phase; K1's must rise on configs 1-3 only, K2's on 4 and 4b only.
 5. Where the time goes: the steps of one render (lowering, copies,
@@ -134,7 +136,9 @@ Phases, each printed on its own lines:
 
 19. The BVH accelerator (ops/bvh.py: a host build, a plain PyTorch walk
    launched op by op): build_bvh at config 4b's 8 000
-   spheres on the host (time, threaded layout); traverse on the card
+   spheres on the host by the C++ builder (native/) and by numpy
+   (use_native=False), the arrays bit for bit, both timed, the threaded
+   layout checked; traverse on the card
    against the CPU, bit for bit on (t, j), on config 4b's primary rays
    and one bounce's scattered rays (64x48 spp=4) and on Cornell's
    primary rays (the light/ceiling tie), and against K3's global route
@@ -149,8 +153,8 @@ Phases, each printed on its own lines:
    stay 0), the image against K2's; cornell_box at 600x600 spp=16
    mb=20 against K1 and the dense modular route; config 4b over a (2, 1)
    mesh of the card, bit for bit with one device; the CLI's
-   --accelerator bvh --profile DIR on the card (a PNG and a Chrome
-   trace with CUDA kernel events).
+   --accelerator bvh --profile DIR on the card (a PNG that decodes to
+   the image's size and a Chrome trace with CUDA kernel events).
 
 20. The last public names and the examples. With every counter zeroed,
    one `MegakernelRenderer.render_burst` of config 1 (K1, seeds 0-7) and
@@ -185,12 +189,25 @@ Phases, each printed on its own lines:
    counter zeroed, bench_torch.main on the card: it prints its JSON
    line, which must hold every key with no `_error`, positive rates and
    shares in (0, 1]; each kernel must have launched BENCH_LAUNCHES
-   times. The config-5 shaped step is printed beside phase 14's.
+   times. The config-5 shaped step is printed beside phase 14's; the
+   line carries `pct_sol_cornell_vs_measured_mix`.
+
+22. The measured-mix ceiling (csrc/microbench.cu, the port of
+   scripts/probe_vpu_microbench.py's kernel): in phase 2's SASS, each
+   mix's loop body holds at least the operations the mix counts; each
+   mix (fma, select, sphere, transcendental, quad) against its twin at
+   one full wave of threads (select, sphere and quad bit for bit, fma
+   within 1 ulp, transcendental within microbench.TRANSC_ULP), two
+   launches bit for bit, then timed beside the twin at the probe's 2 000
+   iterations; then scripts/torch_probe_vpu_microbench.py with the
+   counter zeroed (5 launches a mix): the five rates with the SM clock,
+   and utils/sol.py's three rates within SOL_RTOL of the sphere, quad
+   and transcendental mixes'.
 
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17), mesh (18), bvh (19), examples (20), bench (21). Each group's
-time is printed after it ("[lap]").
+(16-17), mesh (18), bvh (19), examples (20), bench (21), sol (22). Each
+group's time is printed after it ("[lap]").
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -493,6 +510,35 @@ def sass_phase(build):
     return out
 
 
+def read_png(np, path):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use filter
+    0, as the port's encoders write it (native/ and encode_png); raises on
+    a bad signature, chunk CRC, header or filter."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise RuntimeError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = head[0], head[1]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if head[2:] != (8, 2, 0, 0, 0) or rows[:, 0].any():
+        raise RuntimeError(f"{path}: not 8-bit RGB with filter 0: {head}")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
 def _packed_args(renderer, width, height, spp, max_bounces, seed=0):
     low = renderer.lowered
     return dict(n_sph=low.n_sph, n_quad=low.n_quad, width=width,
@@ -674,7 +720,10 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
         if not np.isfinite(data).all() or data.min() < 0:
             raise RuntimeError(f"{label}: image not finite / negative")
         path = os.path.join(ROOT, "output", f"chip_smoke_{label}_{name}.png")
-        image.save(path)
+        image.save(path)        # the native encoder
+        if not np.array_equal(read_png(np, path), image.to_u8()):
+            raise RuntimeError(f"{label}: the PNG does not decode to the "
+                               "image's pixels")
         mrays = w * h * spp / dt / 1e6
         results[label] = dict(preset=name, width=w, height=h, spp=spp,
                               max_bounces=mb, render_s=dt, mrays_s=mrays,
@@ -3177,12 +3226,21 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
     world, camera, kw = presets.random_spheres(width=c4["width"],
                                                height=c4["height"], n=c4["n"])
     scene = world.build()
-    build_s = []
+    from tinyraytracer_tpu_torch.native import runtime as native_rt
+    t0 = time.perf_counter()
+    native_rt.load()            # g++ at first use, unless phase 4 built it
+    load_s = time.perf_counter() - t0
+    build_s, numpy_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        host_bvh = bvh_ops.build_bvh(scene)
+        host_bvh = bvh_ops.build_bvh(scene)       # the native builder
         build_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        numpy_bvh = bvh_ops.build_bvh(scene, use_native=False)
+        numpy_s.append(time.perf_counter() - t0)
     a = host_bvh.numpy()
+    same = all(np.array_equal(v, numpy_bvh.numpy()[k]) and
+               v.dtype == numpy_bvh.numpy()[k].dtype for k, v in a.items())
     lp, hl, ml = a["leaf_prim"], a["hit_link"], a["miss_link"]
     m = lp.shape[0]
     inner = lp < 0
@@ -3194,13 +3252,21 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
           and (a["node_min"][inner] <= a["node_min"][left] + 1e-6).all()
           and (a["node_max"][inner] >= a["node_max"][left] - 1e-6).all())
     med, lo, hi = _spread(build_s)
+    nmed, nlo, nhi = _spread(numpy_s)
     res["build"] = dict(primitives=int((lp >= 0).sum()), nodes=m,
-                        build_s=build_s, median_s=med)
+                        build_s=build_s, median_s=med, numpy_s=numpy_s,
+                        numpy_median_s=nmed, native_equals_numpy=same,
+                        native_load_s=load_s)
     log(f"[bvh] build_bvh at {int((lp >= 0).sum())} primitives ({m} nodes) "
-        f"on the host: {med * 1e3:.1f} ms [{lo * 1e3:.1f}, {hi * 1e3:.1f}] "
-        f"(median [min, max] of 3); layout well-formed: {ok}")
-    if not ok:
-        raise RuntimeError("the BVH's threaded layout is malformed")
+        f"on the host, the C++ builder (native/, loaded in {load_s:.2f} s: "
+        f"the g++ build unless phase 4 did it): {med * 1e3:.2f} ms "
+        f"[{lo * 1e3:.2f}, "
+        f"{hi * 1e3:.2f}], use_native=False (numpy): {nmed * 1e3:.1f} ms "
+        f"[{nlo * 1e3:.1f}, {nhi * 1e3:.1f}] (median [min, max] of 3); "
+        f"arrays bit for bit: {same}; layout well-formed: {ok}")
+    if not ok or not same:
+        raise RuntimeError("the BVH's threaded layout is malformed, or the "
+                           "native builder's arrays differ from numpy's")
 
     # the walk on the card against the CPU, and against K3's global route
     rw, rh, rspp = BVH_RAYS["width"], BVH_RAYS["height"], BVH_RAYS["spp"]
@@ -3453,6 +3519,8 @@ def bvh_phase(torch, np, presets, ik, mk, mkp, dk, dkp, bvh_ops, trace_ops,
     if rc != 0 or not os.path.exists(png) or len(traces) != 1 \
             or n_kernels == 0:
         raise RuntimeError("the CLI's BVH profile run failed")
+    if read_png(np, png).shape != (48, 64, 3):
+        raise RuntimeError("the CLI's PNG does not decode to 64x48")
     return res
 
 
@@ -3848,8 +3916,155 @@ def bench_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card,
                 max_abs_err=max(errs), launch=infos, acc_width=acc)
 
 
+# Phase 22: the measured-mix ceiling (csrc/microbench.cu, P5). Each mix's
+# kernel against its twin at one full wave and SOL_TWIN_ITERS iterations
+# (select, sphere and quad bit for bit, fma within 1 ulp, transcendental
+# within microbench.TRANSC_ULP: 0, measured), two launches bit for bit;
+# the five mixes timed beside the twin at the probe's 2 000 iterations;
+# then the rates through scripts/torch_probe_vpu_microbench.py, which
+# must find utils/sol.py's three rates within SOL_RTOL.
+SOL_TWIN_ITERS = 64
+SOL_RTOL = 0.15
+SOL_ULP = {"fma": 1, "select": 0, "sphere": 0, "quad": 0}
+# The counted operations of a mix, as opcodes of its loop body: in sol.py's
+# units an FFMA counts 2, every other listed opcode 1 (a select none).
+SASS_COUNTED = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "MUFU")
+
+
+def microbench_sass():
+    """Opcodes of each microbench_kernel variant's loop body (the back
+    edge of largest span), read off phase 2's listing: its counted
+    operations (SASS_COUNTED, an FFMA twice) must be at least the mix's
+    OPS_PER_ITER x UNROLL (nvcc hoisted or folded none), and the fma mix
+    holds exactly 3 x UNROLL FFMAs."""
+    import re
+    from collections import Counter
+
+    from tinyraytracer_tpu_torch.utils import microbench as mb
+
+    with open(os.path.join(ROOT, "output", "forward_sass.txt")) as f:
+        sass = f.read()
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"microbench_kernelILi(\d)E", part.split()[0])
+        if not m:
+            continue
+        mix = mb.MIXES[int(m.group(1))]
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        addrs = [int(a, 16) for a, _ in ins]
+        loops = []
+        for i, (_, x) in enumerate(ins):
+            b = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", x)
+            if b and int(b.group(1), 16) < addrs[i]:
+                loops.append((addrs[i] - int(b.group(1), 16),
+                              addrs.index(int(b.group(1), 16)), i))
+        if not loops:
+            raise RuntimeError(f"microbench {mix}: no loop in the SASS")
+        _, a, b = max(loops)
+        ops = Counter(re.sub(r"^@!?P\d+\s+", "", x.strip()).split()[0]
+                      .split(".")[0] for _, x in ins[a:b + 1])
+        counted = sum(ops[k] * (2 if k == "FFMA" else 1)
+                      for k in SASS_COUNTED)
+        want = mb.OPS_PER_ITER[mix] * mb.UNROLL
+        log(f"[sol] SASS of the {mix} loop: {b - a + 1} instructions for "
+            f"{mb.UNROLL} iterations, counted-class {counted} (want >= "
+            f"{want}): {dict(sorted(ops.items()))}")
+        if counted < want or (mix == "fma" and ops["FFMA"] != 3 * mb.UNROLL):
+            raise RuntimeError(f"microbench {mix}: the loop holds fewer "
+                               "operations than the mix counts")
+        out[mix] = dict(instructions=b - a + 1, counted=counted,
+                        opcodes=dict(ops))
+    if set(out) != set(mb.MIXES):
+        raise RuntimeError(f"microbench variants in the SASS: {sorted(out)}")
+    return out
+
+
+def sol_phase(torch, card):
+    """Phase 22: csrc/microbench.cu against its twin, timed beside it at
+    the probe's iterations, then the main path: the probe script's rates
+    with the microbench counter zeroed before and read after, and
+    utils/sol.py's three rates held to them."""
+    import importlib.util
+
+    from tinyraytracer_tpu_torch.utils import microbench as mb
+    from tinyraytracer_tpu_torch.utils import sol
+
+    sass = microbench_sass()
+    errs, ulps, rows = {}, {}, {}
+    for mix in mb.MIXES:
+        n = mb.wave(mix)
+        x0 = mb.inputs(n, 1, "cuda")
+        got = mb.microbench(mix, x0, SOL_TWIN_ITERS)
+        again = mb.microbench(mix, x0, SOL_TWIN_ITERS)
+        want = mb.microbench_reference(mix, x0, SOL_TWIN_ITERS)
+        torch.cuda.synchronize()
+        tol = SOL_ULP.get(mix, mb.TRANSC_ULP)
+        ulps[mix] = _ulps(torch, got, want)
+        errs[mix] = float((got - want).abs().max())
+        same = bool(torch.equal(got, again))
+        log(f"[sol] {mix} at {n} threads x {SOL_TWIN_ITERS} iterations: "
+            f"kernel vs twin {ulps[mix]} ulps (allowed {tol}), max abs "
+            f"{errs[mix]:.3g}, two launches bit for bit {same}")
+        if ulps[mix] > tol or not same:
+            raise RuntimeError(f"microbench {mix} disagrees with its twin or "
+                               "is not deterministic")
+        ms = time_kernel(torch, lambda: mb.microbench(mix, x0,
+                                                      mb.PROBE_ITERS), 3)
+        want, plain_ms = time_once(torch, lambda: mb.microbench_reference(
+            mix, x0, mb.PROBE_ITERS))
+        got = mb.microbench(mix, x0, mb.PROBE_ITERS)
+        torch.cuda.synchronize()
+        bound_ms, by = sol.microbench_bound(n, mb.PROBE_ITERS,
+                                            mb.OPS_PER_ITER[mix])
+        rows[mix] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=by, threads=n,
+                         ulps=_ulps(torch, got, want),
+                         max_abs_err=float((got - want).abs().max()))
+        errs[mix] = max(errs[mix], rows[mix]["max_abs_err"])
+        log(f"[sol] {mix} at {n} threads x {mb.PROBE_ITERS} iterations: "
+            f"kernel {ms:.4f} ms, twin {plain_ms:.1f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}), kernel vs twin "
+            f"{rows[mix]['ulps']} ulps")
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_probe_vpu_microbench",
+        os.path.join(ROOT, "scripts", "torch_probe_vpu_microbench.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    mb.microbench.launches = 0
+    line = probe.main()
+    launches = mb.microbench.launches
+    for mix in mb.MIXES:
+        log(f"[sol] {mix}: {line[f'{mix}_tops']:.4f} T counted ops/s "
+            f"({line[f'{mix}_s']:.4f} s, {line[f'{mix}_iters']} iterations "
+            f"x {line[f'{mix}_threads']} threads, SM clock "
+            f"{line[f'{mix}_sm_clock_mhz']} MHz); on {card}")
+    log(f"[sol] microbench launches in the probe's run: {launches}")
+    if launches != 5 * len(mb.MIXES):
+        raise RuntimeError(f"the probe launched the microbench {launches} "
+                           "times, not 5 a mix")
+    held = {"CAND_COUNTED_OPS_PER_SEC": ("sphere",
+                                         sol.CAND_COUNTED_OPS_PER_SEC),
+            "QUAD_COUNTED_OPS_PER_SEC": ("quad",
+                                         sol.QUAD_COUNTED_OPS_PER_SEC),
+            "FIXED_COUNTED_OPS_PER_SEC": ("transcendental",
+                                          sol.FIXED_COUNTED_OPS_PER_SEC)}
+    bad = []
+    for name, (mix, rate) in held.items():
+        got = line[f"{mix}_tops"] * 1e12
+        log(f"[sol] sol.{name} = {rate:.4g} against the {mix} mix's "
+            f"{got:.4g} (ratio {rate / got:.4f}, allowed 1 +- {SOL_RTOL})")
+        if abs(rate / got - 1.0) > SOL_RTOL:
+            bad.append(name)
+    if bad:
+        raise RuntimeError(f"utils/sol.py's {bad} are more than "
+                           f"{SOL_RTOL:.0%} from this card's measured mix")
+    return dict(line=line, launches=launches, rows=rows, sass=sass,
+                max_abs_err=max(errs.values()), ulps=ulps)
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples", "bench")
+          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples", "bench", "sol")
 
 
 def main(argv=None) -> int:
@@ -3861,7 +4076,8 @@ def main(argv=None) -> int:
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
                     "cfg4f (16-17), mesh (18), bvh (19), examples (20), "
-                    "bench (21); the result lines need the default set")
+                    "bench (21), sol (22); the result lines need the "
+                    "default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
@@ -3957,6 +4173,9 @@ def main(argv=None) -> int:
         results["bench"] = bench_phase(torch, presets, ik, mk, mkp, dk, dkp,
                                        inverse, card, results.get("cfg5f"))
         lap("bench")
+    if "sol" in only:
+        results["sol"] = sol_phase(torch, card)
+        lap("sol")
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -3985,6 +4204,7 @@ def main(argv=None) -> int:
         }
 
     k3, k4, k5 = results["k3"], results["k4"], results["k5"]
+    mbr = results["sol"]["rows"]
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
@@ -4024,6 +4244,18 @@ def main(argv=None) -> int:
          "bound_by": k4["bound_by"], "library_ms": None,
          "config": "cfg4class", "plain_shape": k4["plain_shape"],
          "ms_at_plain_shape": k4["ms_at_plain_shape"]},
+        {"name": "microbench", "route": "cuda",
+         "source": "tinyraytracer_tpu_torch/csrc/microbench.cu",
+         "replaces": "scripts/probe_vpu_microbench.py:40",
+         "launches": results["sol"]["launches"],
+         "max_abs_err": results["sol"]["max_abs_err"],
+         "ms": sum(r["ms"] for r in mbr.values()),
+         "plain_ms": sum(r["plain_ms"] for r in mbr.values()),
+         "bound_ms": sum(r["bound_ms"] for r in mbr.values()),
+         "bound_by": mbr["sphere"]["bound_by"], "library_ms": None,
+         "config": "sol",
+         "plain_shape": "the five mixes, one wave x 2000 iterations each",
+         "ms_at_plain_shape": sum(r["ms"] for r in mbr.values())},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

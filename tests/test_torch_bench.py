@@ -144,8 +144,8 @@ def test_keys_are_bench_py_keys_with_the_stated_exceptions(line):
     jax_keys = bench_py_keys()
     assert len(jax_keys) == 36 and "cfg1_dispatch_overhead_ms" in jax_keys
     want = ({k.replace("_vpu_roofline", "_fp32_roofline") for k in jax_keys}
-            - {"pct_sol_cornell_vs_measured_mix"}
             | {"device_name", "power_limit_w"})
+    assert "pct_sol_cornell_vs_measured_mix" in want
     assert bt.KEYS == want
     assert set(line[0]) == want
 
@@ -162,6 +162,21 @@ def test_every_section_runs_its_kernel_with_positive_rates(line):
     assert out["value"] == out["cfg3_cornell_600x600_spp200"]
     assert out["vs_baseline"] == out["value"] / bt.BASELINE_RAYS_PER_SEC
     assert 1.0 <= out["cornell_mean_executed_bounces"] <= 3.0
+
+
+def test_measured_mix_share_is_cornells_rate_over_the_cards_ceiling(line):
+    """pct_sol_cornell_vs_measured_mix: config 3's rate and executed
+    bounces against utils/sol.py's measured-mix ceiling (cornell_box: 18
+    real quads, no metal or dielectric), above the FP32 share, whose
+    denominator is out of reach."""
+    from tinyraytracer_tpu_torch.utils import sol
+
+    out, _ = line
+    key = "cfg3_cornell_600x600_spp200"
+    assert out["pct_sol_cornell_vs_measured_mix"] == sol.pct_of_sol_measured(
+        out[key], 0, 18, out["cornell_mean_executed_bounces"])
+    assert (out["pct_sol_cornell_vs_measured_mix"]
+            > out["pct_sol_cornell_fp32_roofline"])
 
 
 def test_a_silent_reroute_fails_the_section(monkeypatch):

@@ -76,7 +76,8 @@ def test_declare_types_every_exported_function():
              "tinyrt_diff_classic", "tinyrt_diff_packed_occupancy",
              "tinyrt_diff_classic_occupancy",
              "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
-             "tinyrt_fold_samples", "tinyrt_error_string")
+             "tinyrt_fold_samples", "tinyrt_microbench",
+             "tinyrt_microbench_wave", "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
@@ -124,7 +125,11 @@ def test_declare_types_every_exported_function():
     assert occ5 == [ctypes.c_int] * 8 + [ip, ip]
     occ4 = lib.tinyrt_diff_classic_occupancy.argtypes
     assert occ4 == [ctypes.c_int] * 5 + [ip, ip]
-    for n in names[:10]:
+    mb = lib.tinyrt_microbench.argtypes
+    assert mb == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.POINTER(ctypes.c_float), p]
+    assert lib.tinyrt_microbench_wave.argtypes == [ctypes.c_int]
+    for n in names[:-1]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 
@@ -178,3 +183,26 @@ def test_k4_source_and_shared_header_are_in_the_build_hash(
     assert _build.library_path() != before
     if name.endswith(".cu"):
         assert (src / name) in sorted(src.glob("*.cu"))
+
+
+def test_pyproject_packages_the_port_with_its_sources():
+    """pyproject.toml declares the port (torch and numpy), ships every
+    CUDA source and the native library's source as package data, and
+    leaves the test settings to pytest.ini."""
+    import tomllib
+    from pathlib import Path
+
+    root = Path(_build.PKG_DIR).parent
+    meta = tomllib.loads((root / "pyproject.toml").read_text())
+    assert meta["project"]["dependencies"] == ["torch", "numpy"]
+    assert meta["tool"]["setuptools"]["packages"]["find"]["include"] == [
+        "tinyraytracer_tpu_torch*"]
+    globs = meta["tool"]["setuptools"]["package-data"][
+        "tinyraytracer_tpu_torch"]
+    shipped = {p for g in globs for p in _build.PKG_DIR.glob(g)}
+    sources = (set(_build.CSRC_DIR.glob("*.cu*"))
+               | set((_build.PKG_DIR / "native" / "src").glob("*.cpp")))
+    assert sources and shipped == sources
+    assert "pytest" not in meta.get("tool", {})
+    assert meta["project"]["scripts"]["tinyraytracer-torch"] == (
+        "tinyraytracer_tpu_torch.__main__:main")

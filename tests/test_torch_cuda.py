@@ -949,3 +949,63 @@ def test_fused_step_takes_a_background_on_the_card(cuda):
     assert torch.equal(runs[0][2], runs[1][2])
     for k, v in runs[0][0].items():
         assert torch.equal(v, runs[1][0][k]), k
+
+
+# csrc/microbench.cu against its twin, ulps of its output (chip_smoke.py
+# phase 22's tolerances: select, sphere and quad bit for bit, fma within 1 ulp
+# of the twin's twice-rounded f64 product, transcendental within
+# microbench.TRANSC_ULP, 0 as measured).
+MICROBENCH_ULP = {"fma": 1, "select": 0, "sphere": 0, "transcendental": 0,
+                  "quad": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", sorted(MICROBENCH_ULP))
+def test_microbench_kernel_matches_twin(cuda, mix):
+    from tinyraytracer_tpu_torch.utils import microbench as mb
+
+    assert MICROBENCH_ULP["transcendental"] == mb.TRANSC_ULP
+    n = mb.wave(mix, cuda)
+    x0 = mb.inputs(n, 2, cuda)
+    before = mb.microbench.launches
+    got = mb.microbench(mix, x0, 64)
+    again = mb.microbench(mix, x0, 64)
+    torch.cuda.synchronize()
+    assert mb.microbench.launches == before + 2
+    want = mb.microbench_reference(mix, x0, 64)
+    ulps = int((got.view(torch.int32).long() - want.view(torch.int32).long())
+               .abs().max())
+    assert ulps <= MICROBENCH_ULP[mix]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_microbench_measure_counts_its_launches(cuda, monkeypatch):
+    """measure(): 5 launches a mix (the iteration count's, a warm-up, 3
+    timed), positive rates, the SM clock read, fma the fastest."""
+    from tinyraytracer_tpu_torch.utils import microbench as mb
+
+    monkeypatch.setattr(mb, "RUN_SECONDS", 0.02)
+    before = mb.microbench.launches
+    res = mb.measure(cuda)
+    assert mb.microbench.launches == before + 5 * len(mb.MIXES)
+    assert set(res) == set(mb.MIXES)
+    for r in res.values():
+        assert r["tops"] > 0 and r["sm_clock_mhz"] > 0
+        assert r["iters"] % mb.UNROLL == 0
+    assert res["fma"]["tops"] == max(r["tops"] for r in res.values())
+
+
+@pytest.mark.cuda
+def test_native_bvh_of_a_scene_on_the_card(cuda):
+    """build_bvh of a scene on the card: the C++ builder's arrays, on the
+    card, equal the numpy builder's."""
+    from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
+
+    world, _, _ = presets.random_spheres(width=8, height=8, n=500)
+    scene = world.build().to(cuda)
+    native = bvh_ops.build_bvh(scene)
+    host = bvh_ops.build_bvh(scene, use_native=False)
+    for f, v in native.numpy().items():
+        assert getattr(native, f).device.type == "cuda"
+        assert np.array_equal(v, host.numpy()[f]), f

@@ -8,6 +8,9 @@ included) and the flags, so a changed source builds anew and an
 unchanged one loads what is there. If `nvcc` is missing or fails, the
 compiler's error is raised.
 
+`hashed_path`, `cached_build` and `load_once` are the build cache itself;
+native/runtime.py builds the port's C++ host library with them too.
+
 Flags that matter for the numbers (see csrc/common.cuh):
 `--fmad=false` keeps every multiply and add separately rounded, as in the
 reference; no `--use_fast_math`, so `sqrtf` and `/` stay IEEE.
@@ -58,13 +61,54 @@ def flags(fmad: bool = False) -> list:
             f"--fmad={'true' if fmad else 'false'}", "-Xptxas", "-v"]
 
 
-def library_path(fmad: bool = False) -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(flags(fmad)).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
+def hashed_path(name: str, args: list, sources: list) -> Path:
+    """BUILD_DIR/lib{name}_{hash}.so, the hash over the compiler's
+    arguments and each source's name and bytes: a changed source or flag
+    names another library."""
+    h = hashlib.sha256(" ".join(args).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libtinyrt_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def cached_build(out: Path, make) -> Path:
+    """Returns `out`, built first if it is missing: make(tmp) writes the
+    library to a temporary file of this process and returns the
+    compilers' output (kept beside `out` as .log) or None. The file then
+    replaces `out` atomically, so concurrent builders agree; a make that
+    raises leaves no temporary file."""
+    if out.is_file():
+        return out
+    out.parent.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        log = make(tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    if log is not None:
+        out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return out
+
+
+def load_once(key, build, declare) -> ctypes.CDLL:
+    """The library at build(), loaded and given its argtypes by
+    declare(lib) once per process for `key`."""
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build()))
+            declare(lib)
+            _loaded[key] = lib
+        return lib
+
+
+def library_path(fmad: bool = False) -> Path:
+    """Where the library for the current sources and flags lives."""
+    return hashed_path("tinyrt_torch", flags(fmad),
+                       sorted(CSRC_DIR.glob("*.cu*")))
 
 
 def _run(cmds: list) -> list:
@@ -79,45 +123,32 @@ def _run(cmds: list) -> list:
 def build(fmad: bool = False) -> Path:
     """Compile csrc/*.cu unless the library for these sources exists.
     Returns its path; the compilers' output is kept beside it (.log)."""
-    out = library_path(fmad)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    nvcc = nvcc_path()
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
-    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    steps = [[[nvcc, *flags(fmad), "-c", "-o", str(o), str(s)]
-              for s, o in zip(srcs, objs)],
-             [[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-               *map(str, objs)]]]
-    log = []
-    try:
-        for cmds in steps:
-            for cmd, (code, text) in zip(cmds, _run(cmds)):
-                log.append(text)
-                if code != 0:
-                    tmp.unlink(missing_ok=True)
-                    raise RuntimeError(f"nvcc failed with code {code}: "
-                                       f"{' '.join(cmd)}\n{text}")
-    finally:
-        for o in objs:
-            o.unlink(missing_ok=True)
-    out.with_suffix(".log").write_text("".join(log))
-    os.replace(tmp, out)     # atomic: concurrent builders agree
-    return out
+    def make(tmp):
+        nvcc = nvcc_path()
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+        steps = [[[nvcc, *flags(fmad), "-c", "-o", str(o), str(s)]
+                  for s, o in zip(srcs, objs)],
+                 [[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]]]
+        log = []
+        try:
+            for cmds in steps:
+                for cmd, (code, text) in zip(cmds, _run(cmds)):
+                    log.append(text)
+                    if code != 0:
+                        raise RuntimeError(f"nvcc failed with code {code}: "
+                                           f"{' '.join(cmd)}\n{text}")
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        return "".join(log)
+    return cached_build(library_path(fmad), make)
 
 
 def load(fmad: bool = False) -> ctypes.CDLL:
     """The kernel library, built if needed and loaded once per process."""
-    with _lock:
-        lib = _loaded.get(fmad)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(fmad)))
-            _declare(lib)
-            _loaded[fmad] = lib
-        return lib
+    return load_once(("cuda", fmad), lambda: build(fmad), _declare)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -160,6 +191,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_diff_classic
     fn.argtypes = [p, p, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, i, i, i,
                    i, u, u, i, i, f, i, i, i, i, i, p, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_microbench
+    fn.argtypes = [p, p, i, i, i, ctypes.POINTER(f), p]
+    fn.restype = i
+    fn = lib.tinyrt_microbench_wave
+    fn.argtypes = [i]
     fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

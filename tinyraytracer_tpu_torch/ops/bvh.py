@@ -182,13 +182,24 @@ def _build_host(bb_min: np.ndarray, bb_max: np.ndarray, prim_ids: np.ndarray):
     return node_min, node_max, hit_link, miss_link, leaf_prim
 
 
-def build_bvh(scene) -> BVHArrays:
-    """The flattened BVH of a scene, built on the host (numpy), on the
-    device of the scene's tensors."""
+def build_bvh(scene, use_native: bool = True) -> BVHArrays:
+    """The flattened BVH of a scene, built on the host, on the device of
+    the scene's tensors: by the port's C++ builder (native/, compiled at
+    first use; a failed build raises), or with `use_native=False` by the
+    numpy `_build_host`. Both give the same arrays, bit for bit."""
     bb_min, bb_max, prim_ids = primitive_aabbs(scene)
     if bb_min.shape[0] == 0:
         raise ValueError("cannot build a BVH over an empty scene")
-    built = _build_host(bb_min, bb_max, prim_ids)
+    if use_native:
+        from tinyraytracer_tpu_torch.native import runtime
+
+        nm, nx, hl, ml, lp = runtime.bvh_build(bb_min, bb_max)
+        # the native builder works in local prim order: map to global ids
+        lp = np.where(lp >= 0, prim_ids[np.maximum(lp, 0)], -1).astype(
+            np.int32)
+        built = (nm, nx, hl, ml, lp)
+    else:
+        built = _build_host(bb_min, bb_max, prim_ids)
     return bvh_from_numpy(dict(zip(_FIELDS, built)),
                           scene.sph_center.device)
 

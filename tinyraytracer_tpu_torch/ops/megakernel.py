@@ -217,6 +217,26 @@ def sphere_ts(sph: torch.Tensor, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
     return torch.where(disc >= 0.0, t, MISS)
 
 
+def quad_ts(quad: torch.Tensor, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
+    """(Q, P) hit distances of rays (P,) against quads `quad` (Q, 12+):
+    (n, n.corner, av, ca, bv, cb); the plane's t where the planar
+    coordinates fall in the half-open [0, 1), t >= T_MIN; MISS otherwise
+    (quad.rs:33-54). The twin of common.cuh's quad_hit_t."""
+    q = [quad[:, k:k + 1] for k in range(12)]
+    qnx, qny, qnz, qdp, avx, avy, avz, qca, bvx, bvy, bvz, qcb = q
+    den = qnx * dx + qny * dy + qnz * dz
+    ok_den = torch.abs(den) >= 1e-12
+    den = torch.where(ok_den, den, 1e-12)
+    tq = (qdp - (qnx * ox + qny * oy + qnz * oz)) / den
+    al = (avx * ox + avy * oy + avz * oz) + tq * (
+        avx * dx + avy * dy + avz * dz) - qca
+    be = (bvx * ox + bvy * oy + bvz * oz) + tq * (
+        bvx * dx + bvy * dy + bvz * dz) - qcb
+    ok = (ok_den & (tq >= T_MIN) & (al >= 0.0) & (al < 1.0)
+          & (be >= 0.0) & (be < 1.0))
+    return torch.where(ok, tq, MISS)
+
+
 def dense_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
                       pay: torch.Tensor):
     """Closest hit over a dense (rows, pixels) candidate matrix.
@@ -235,20 +255,7 @@ def dense_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
         if n_sph:
             ts.append(sphere_ts(sph, ox, oy, oz, dx, dy, dz))
         if n_quad:
-            # plane + planar coordinates, half-open [0, 1) (quad.rs:33-54)
-            q = [quad[:, k:k + 1] for k in range(12)]
-            qnx, qny, qnz, qdp, avx, avy, avz, qca, bvx, bvy, bvz, qcb = q
-            den = qnx * dx + qny * dy + qnz * dz
-            ok_den = torch.abs(den) >= 1e-12
-            den = torch.where(ok_den, den, 1e-12)
-            tq = (qdp - (qnx * ox + qny * oy + qnz * oz)) / den
-            al = (avx * ox + avy * oy + avz * oz) + tq * (
-                avx * dx + avy * dy + avz * dz) - qca
-            be = (bvx * ox + bvy * oy + bvz * oz) + tq * (
-                bvx * dx + bvy * dy + bvz * dz) - qcb
-            ok = (ok_den & (tq >= T_MIN) & (al >= 0.0) & (al < 1.0)
-                  & (be >= 0.0) & (be < 1.0))
-            ts.append(torch.where(ok, tq, MISS))
+            ts.append(quad_ts(quad, ox, oy, oz, dx, dy, dz))
         ts = torch.cat(ts, 0)
         win = torch.argmin(ts, 0)
         best = ts.gather(0, win[None])[0]

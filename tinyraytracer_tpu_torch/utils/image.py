@@ -1,9 +1,11 @@
 """Host-side image container and PNG output (utils/image.rs:5-111).
 
 The framebuffer stays a tensor on its device until the end; this wrapper
-only handles the host boundary: gamma, quantization, PNG encode. The PNG
-writer needs only the standard library (zlib + struct): 8-bit RGB, one
-IDAT chunk, filter type 0 on every row.
+only handles the host boundary: gamma, quantization, PNG encode.
+`Image.save` writes through the port's native encoder (native/, built at
+first use; a failed build raises). `encode_png` is its plain version in
+the standard library (zlib + struct): the same 8-bit RGB, one IDAT
+chunk, filter type 0 on every row, zlib level 6.
 """
 
 from __future__ import annotations
@@ -76,5 +78,6 @@ class Image:
         )
 
     def save(self, filename: str) -> None:
-        with open(filename, "wb") as f:
-            f.write(encode_png(self.to_u8()))
+        from tinyraytracer_tpu_torch.native import runtime
+
+        runtime.write_png(filename, self.to_u8())

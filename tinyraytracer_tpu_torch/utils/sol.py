@@ -29,10 +29,16 @@ load. A share above 1.0 means the count is wrong (a padded row, a
 double-counted shadow ray), not that the kernel is fast, and `pct_*`
 raise on one.
 
-Not ported: the JAX module's `pct_of_sol_measured` and its two rates,
-which a TPU microbenchmark calibrated (no H100 calibration exists), and
-its `QUAD_BOUNDARY_OPS_PER_ROW`, fitted to a TPU measurement: the quad
-surrogates are counted from csrc/diff_common.cuh here.
+`pct_of_sol_measured` sets the forward rate against the card's measured
+mix instead of the data sheet: counted operations cost what
+csrc/microbench.cu (utils/microbench.py) measured them to sustain: the
+sphere rows at the sphere-row mix's rate, the quad rows at the quad-row
+mix's, and the per-ray and per-segment work at the transcendental mix's. With `--fmad=false` no
+multiply-add fuses, so in these units the FP32 peak is out of reach.
+
+Not ported: the JAX module's `QUAD_BOUNDARY_OPS_PER_ROW`, fitted to a TPU
+measurement: the quad surrogates are counted from csrc/diff_common.cuh
+here.
 """
 
 from __future__ import annotations
@@ -40,6 +46,18 @@ from __future__ import annotations
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W).
 FP32_PEAK = 67e12        # FP32 operations a second, outside the tensor cores
 HBM_BYTES_S = 3.35e12    # HBM bytes a second
+
+# The measured-mix ceiling: counted operations a second that one full
+# wave of the card sustains on the sphere candidate row (sphere_hit_t and
+# the running-minimum compare), on the quad candidate row (quad_hit_t and
+# the compare) and on the transcendental-leaning shade mix (1/sqrt, IEEE
+# divide, expf/logf), as scripts/torch_probe_vpu_microbench.py measured
+# them on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, SM clock
+# 1980 MHz under the load (PERF.md section 6); chip_smoke.py phase 22
+# fails when a card measures any of them more than 15 % away.
+CAND_COUNTED_OPS_PER_SEC = 20.31e12     # 20.3088 T: 24 ops in ~40 issues
+QUAD_COUNTED_OPS_PER_SEC = 24.48e12     # 24.4794 T: 45 ops in ~60 issues
+FIXED_COUNTED_OPS_PER_SEC = 5.107e12    # 5.1071 T: 13 ops in ~85 issues
 
 # K1/K2 (csrc/common.cuh, csrc/megakernel.cu): FP32 operations per unit.
 OPS_SPHERE_ROW = 24      # sphere_hit_t + the running-minimum compare
@@ -161,6 +179,38 @@ def pct_of_sol(rays_per_sec: float, n_sph_rows: int, n_quad_rows: int,
     return _share(rays_per_sec * ops_per_camera_ray(
         n_sph_rows, n_quad_rows, bounces_executed, has_met=has_met,
         has_die=has_die), "forward")
+
+
+def pct_of_sol_measured(rays_per_sec: float, n_sph_rows: int,
+                        n_quad_rows: int, bounces_executed: float, *,
+                        has_met: bool = False,
+                        has_die: bool = False) -> float:
+    """Fraction of the measured-mix ceiling the forward rate achieves
+    (the JAX module's model, with the quad rows at a rate of their own):
+    over `bounces_executed` segments, the sphere rows' operations at
+    CAND_COUNTED_OPS_PER_SEC and the quad rows' at
+    QUAD_COUNTED_OPS_PER_SEC; the camera ray's and the segments' shading
+    at FIXED_COUNTED_OPS_PER_SEC. Raises on a share outside (0, 1]."""
+    sph = bounces_executed * n_sph_rows * OPS_SPHERE_ROW
+    quad = bounces_executed * n_quad_rows * OPS_QUAD_ROW
+    fixed = OPS_CAMERA + bounces_executed * shade_ops(has_met, has_die)
+    share = rays_per_sec * (sph / CAND_COUNTED_OPS_PER_SEC
+                            + quad / QUAD_COUNTED_OPS_PER_SEC
+                            + fixed / FIXED_COUNTED_OPS_PER_SEC)
+    if not share > 0.0 or share > 1.0:
+        raise ValueError(f"forward: share of the measured-mix ceiling "
+                         f"{share!r} is outside (0, 1]: the operation "
+                         "count is wrong")
+    return share
+
+
+# --- the microbenchmark P5 ---------------------------------------------------
+
+def microbench_bound(threads: int, iters: int, ops_per_iter: int) -> tuple:
+    """Least time (ms) of one csrc/microbench.cu launch and what bounds
+    it: its counted operations over the FP32 peak, a float in and one out
+    a thread over HBM's rate."""
+    return _bound(threads * iters * ops_per_iter, 8 * threads)
 
 
 # --- closest hit K3 ----------------------------------------------------------
