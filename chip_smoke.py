@@ -204,10 +204,26 @@ Phases, each printed on its own lines:
    and utils/sol.py's three rates within SOL_RTOL of the sphere, quad
    and transcendental mixes'.
 
+23. The layout probes P1-P4 (csrc/probe_*.cu, the ports of
+   scripts/probe_sublanes.py, probe_packgrad.py, probe_packgrad2.py and
+   probe_seglayout.py; wrappers and twins in utils/probes.py): in phase
+   2's SASS, some loop of each kernel holds the operations it counts an
+   element and bounce; each of the seven bodies at each of its probe's
+   shapes, on the probe's inputs and on seeded variants (PROBE_SEEDS;
+   for P4 P4_SEED_SHORT and P4_SEED_LIVE, the latter's rays never NaN),
+   against its twin (P1, P3 and P4 bit for bit, P2's tables within
+   PROBE_TABLE_RTOL of the largest entry), two launches and GRID = 1
+   against the probe's GRID bit for bit, the kernel timed at the probe's
+   GRID beside its bound and the twin at one grid step; P4's segments on
+   a NaN state a ray and its time on the probe's inputs over its time
+   off the NaN path (P4_SEED_LIVE); then the four
+   scripts/torch_probe_*.py with the counters zeroed, each launching its
+   kernel PROBE_LAUNCHES times and printing the probe's lines.
+
 `--only` runs some phase groups: forward (3-7), k3 (8), train (9), cfg5
 (10), modular (11), k5 (12), fused (13), cfg5f (14), k4 (15), cfg4f
-(16-17), mesh (18), bvh (19), examples (20), bench (21), sol (22). Each
-group's time is printed after it ("[lap]").
+(16-17), mesh (18), bvh (19), examples (20), bench (21), sol (22),
+probes (23). Each group's time is printed after it ("[lap]").
 
 Prints, before the last line, one JSON object describing each kernel, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and
@@ -4063,8 +4079,223 @@ def sol_phase(torch, card):
                 max_abs_err=max(errs.values()), ulps=ulps)
 
 
+# Phase 23: the layout probes P1-P4 (utils/probes.py, csrc/probe_*.cu).
+# Each body at each of its probe's shapes, on the probe's inputs and a
+# seeded variant: kernel against twin (P1, P3, P4 bit for bit; P2's
+# tables within PROBE_TABLE_RTOL of the table's largest entry, the fused
+# kernels' gradient-table tier, though its twin adds in the kernel's
+# order), two launches and GRID = 1 against the probe's GRID bit for bit;
+# kernel timed at the probe's GRID, the twin at one grid step. Then the
+# four scripts with the counters zeroed, each launching its kernel
+# PROBE_LAUNCHES times.
+PROBE_TABLE_RTOL = 1e-5
+PROBE_SEEDS = {"packgrad2": (3,), "sublanes": (1,)}   # P4: probes.P4_SEED_*
+PROBE_LAUNCHES = {"packgrad": 8, "packgrad2": 8, "seglayout": 48,
+                  "sublanes": 30}
+PROBE_KERNELS = {"packgrad": ("scatter_kernel", "masked_kernel"),
+                 "packgrad2": ("gather_kernel", "table_kernel"),
+                 "seglayout": ("gather_kernel", "select_kernel"),
+                 "sublanes": ("chain_kernel",)}
+PROBE_REPLACES = {"packgrad": "scripts/probe_packgrad.py:71",
+                  "packgrad2": "scripts/probe_packgrad2.py:77",
+                  "seglayout": "scripts/probe_seglayout.py:154",
+                  "sublanes": "scripts/probe_sublanes.py:23"}
+PROBE_IDS = {"packgrad": "P2", "packgrad2": "P3", "seglayout": "P4",
+             "sublanes": "P1"}
+
+
+def probe_sass():
+    """Each probe kernel's loops in phase 2's listing: some back edge's
+    body holds at least the operations OPS_PER_ELEMENT counts an element
+    and bounce (P1's loop runs 4 steps a pass: 4 x 4), in SASS_COUNTED
+    opcodes (an FFMA twice), so nvcc hoisted or folded none of them."""
+    import re
+    from collections import Counter
+
+    from tinyraytracer_tpu_torch.utils import probes
+
+    with open(os.path.join(ROOT, "output", "forward_sass.txt")) as f:
+        sass = f.read()
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fname = part.split()[0]
+        m = re.search(r"_probe_(packgrad2|packgrad|seglayout|sublanes)_cu_",
+                      fname)
+        k = re.search(r"(scatter|masked|gather|table|select|chain)_kernelE",
+                      fname)
+        if not (m and k):
+            continue
+        probe, kernel = m.group(1), k.group(1) + "_kernel"
+        body = probes.BODIES[probe][PROBE_KERNELS[probe].index(kernel)]
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        addrs = [int(a, 16) for a, _ in ins]
+        best = 0
+        for i, (_, x) in enumerate(ins):
+            b = re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", x)
+            if not b or int(b.group(1), 16) >= addrs[i]:
+                continue
+            ops = Counter(re.sub(r"^@!?P\d+\s+", "", y.strip()).split()[0]
+                          .split(".")[0]
+                          for _, y in ins[addrs.index(int(b.group(1), 16)):
+                                          i + 1])
+            best = max(best, sum(ops[k] * (2 if k == "FFMA" else 1)
+                                 for k in SASS_COUNTED))
+        want = probes.OPS_PER_ELEMENT[probe, body] * (
+            4 if probe == "sublanes" else 1)
+        log(f"[probes] SASS of {probe} {body} ({kernel}): {len(ins)} "
+            f"instructions, the fullest loop holds {best} counted "
+            f"operations (want >= {want})")
+        if best < want:
+            raise RuntimeError(f"probe {probe} {body}: no loop holds the "
+                               "operations the kernel counts")
+        out[f"{probe} {body}"] = dict(instructions=len(ins), counted=best,
+                                      want=want)
+    if len(out) != 7:
+        raise RuntimeError(f"probe kernels in the SASS: {sorted(out)}")
+    return out
+
+
+def _probe_cases(torch, probes, dev):
+    """(probe, body, shape, seed, launch(grid), twin()) for every body,
+    shape and input the phase checks."""
+    out = []
+    for body in probes.BODIES["packgrad"]:
+        out.append(("packgrad", body, probes.P2_SHAPE, None,
+                    lambda g, b=body: probes.packgrad(b, dev, g),
+                    lambda b=body: probes.packgrad_reference(b, dev)))
+    for seed in (None, *PROBE_SEEDS["packgrad2"]):
+        pay = probes.packgrad2_inputs(seed, dev)
+        out.append(("packgrad2", "C", probes.P3_SHAPE, seed,
+                    lambda g, p=pay: probes.packgrad2("C", p, grid=g),
+                    lambda p=pay: probes.packgrad2_reference("C", p)))
+    out.append(("packgrad2", "D", probes.P3_SHAPE, None,
+                lambda g: probes.packgrad2("D", device=dev, grid=g),
+                lambda: probes.packgrad2_reference("D", device=dev)))
+    for seed in (None, probes.P4_SEED_SHORT, probes.P4_SEED_LIVE):
+        tab = probes.seglayout_inputs(seed, dev)
+        for body, shapes in (("A", probes.P4_A_SHAPES),
+                             ("B", probes.P4_B_SHAPES)):
+            for shape in shapes:
+                out.append((
+                    "seglayout", body, shape, seed,
+                    lambda g, b=body, s=shape, t=tab: probes.seglayout(
+                        b, s, t, g),
+                    lambda b=body, s=shape, t=tab:
+                        probes.seglayout_reference(b, s, t)))
+    for seed in (None, *PROBE_SEEDS["sublanes"]):
+        for shape in probes.P1_SHAPES:
+            x = probes.sublanes_inputs(shape, seed, dev)
+            out.append(("sublanes", "chain", shape, seed,
+                        lambda g, x=x: probes.sublanes(x, g),
+                        lambda x=x: probes.sublanes_reference(x)))
+    return out
+
+
+def probes_phase(torch, card):
+    """Phase 23: the layout probes against their twins, then the main
+    path: the four scripts/torch_probe_*.py with their launch counters
+    zeroed before and read after."""
+    import importlib.util
+
+    from tinyraytracer_tpu_torch.utils import probes
+
+    sass = probe_sass()
+    dev = torch.device("cuda")
+    grids = {"packgrad": probes.P2_GRID, "packgrad2": probes.P3_GRID,
+             "seglayout": probes.P4_GRID, "sublanes": probes.P1_GRID}
+    rows = {p: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_grid1=0.0,
+                    max_abs_err=0.0, by=set(), cases=0) for p in grids}
+    nan, seg_ms = {}, {}
+    for probe, body, shape, seed, launch, twin in _probe_cases(torch, probes,
+                                                                dev):
+        grid = grids[probe]
+        got, again, one = launch(grid), launch(grid), launch(1)
+        want, plain_ms = time_once(torch, twin)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ulps = _ulps(torch, got, want)
+        if probe == "packgrad":
+            ok = err <= PROBE_TABLE_RTOL * float(want.abs().max())
+        else:
+            ok = bool(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)))
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        grid1 = bool(torch.equal(got.view(torch.int32),
+                                 one.view(torch.int32)))
+        ms = time_kernel(torch, lambda: launch(grid), 2)
+        ms1 = time_kernel(torch, lambda: launch(1), 2)
+        bound_ms, by = probes.bound(probe, body, shape, grid)
+        label = (f"{PROBE_IDS[probe]} {probe} {body} {tuple(shape)} "
+                 f"{'probe inputs' if seed is None else f'seed {seed}'}")
+        log(f"[probes] {label}: kernel vs twin {ulps} ulps, max abs "
+            f"{err:.3g}, two launches bit for bit {same}, GRID 1 = GRID "
+            f"{grid} {grid1}; kernel {ms:.4f} ms at GRID {grid} ({ms1:.4f}"
+            f" at 1), twin {plain_ms:.1f} ms at one step, bound "
+            f"{bound_ms:.4f} ms ({by}); on {card}")
+        if not (ok and same and grid1):
+            raise RuntimeError(f"{label}: the kernel disagrees with its twin "
+                               "or is not deterministic")
+        if probe == "seglayout":
+            seg_ms[body, tuple(shape), str(seed)] = ms
+        if seed is None:
+            r = rows[probe]
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += bound_ms
+            r["ms_grid1"] += ms1
+            r["by"].add(by)
+            r["cases"] += 1
+        rows[probe]["max_abs_err"] = max(rows[probe]["max_abs_err"], err)
+    for seed in (None, probes.P4_SEED_SHORT, probes.P4_SEED_LIVE):
+        st = {}
+        probes.seglayout_reference("A", probes.P4_A_SHAPES[0],
+                                   probes.seglayout_inputs(seed, dev),
+                                   stats=st)
+        ns = st["nan_segments"].float()
+        nan[str(seed)] = dict(mean=float(ns.mean()), min=int(ns.min()),
+                              max=int(ns.max()), hits=st["hits"][:8])
+        log(f"[probes] P4 A (1, 1024), "
+            f"{'probe inputs' if seed is None else f'seed {seed}'}: "
+            f"segments starting on a NaN state a ray: mean "
+            f"{nan[str(seed)]['mean']:.2f}, min {nan[str(seed)]['min']}, "
+            f"max {nan[str(seed)]['max']} of {probes.P4_SEGMENTS}; rays "
+            f"hitting in segments 1-8: {st['hits'][:8]}")
+    counters = {"packgrad": probes.packgrad, "packgrad2": probes.packgrad2,
+                "seglayout": probes.seglayout, "sublanes": probes.sublanes}
+    lines, launches = {}, {}
+    for probe, fn in counters.items():
+        spec = importlib.util.spec_from_file_location(
+            f"torch_probe_{probe}",
+            os.path.join(ROOT, "scripts", f"torch_probe_{probe}.py"))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        for f in counters.values():
+            f.launches = 0
+        lines[probe] = script.main()
+        launches[probe] = fn.launches
+        others = {p: f.launches for p, f in counters.items() if p != probe}
+        log(f"[probes] scripts/torch_probe_{probe}.py: {fn.launches} "
+            f"launches (want {PROBE_LAUNCHES[probe]}), the other probes' "
+            f"{others}; on {card}")
+        if fn.launches != PROBE_LAUNCHES[probe] or any(others.values()):
+            raise RuntimeError(f"torch_probe_{probe}.py launched its kernel "
+                               f"{fn.launches} times")
+    for (body, shape, seed), ms in seg_ms.items():
+        if seed == str(probes.P4_SEED_LIVE):
+            log(f"[probes] P4 {body} {shape}: the probe's inputs (NaN from "
+                f"segment 2 or 3) take {seg_ms[body, shape, 'None'] / ms:.3f}"
+                f"x the time of seed {seed}'s (no NaN state); on {card}")
+    for r in rows.values():
+        r["by"] = "/".join(sorted(r["by"]))
+    return dict(rows=rows, launches=launches, lines=lines, sass=sass,
+                nan=nan, seglayout_ms={" ".join(map(str, k)): v
+                                       for k, v in seg_ms.items()})
+
+
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
-          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples", "bench", "sol")
+          "cfg5f", "k4", "cfg4f", "mesh", "bvh", "examples", "bench", "sol",
+          "probes")
 
 
 def main(argv=None) -> int:
@@ -4076,8 +4307,8 @@ def main(argv=None) -> int:
                     "(phases 3-7), k3 (8), train (9), cfg5 (10), modular "
                     "(11), k5 (12), fused (13), cfg5f (14), k4 (15), "
                     "cfg4f (16-17), mesh (18), bvh (19), examples (20), "
-                    "bench (21), sol (22); the result lines need the "
-                    "default set")
+                    "bench (21), sol (22), probes (23); the result lines "
+                    "need the default set")
     args = ap.parse_args(argv)
     only = args.only.split(",")
     import numpy as np
@@ -4176,6 +4407,9 @@ def main(argv=None) -> int:
     if "sol" in only:
         results["sol"] = sol_phase(torch, card)
         lap("sol")
+    if "probes" in only:
+        results["probes"] = probes_phase(torch, card)
+        lap("probes")
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     with open(os.path.join(ROOT, "output", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, results=results), f, indent=1)
@@ -4205,6 +4439,21 @@ def main(argv=None) -> int:
 
     k3, k4, k5 = results["k3"], results["k4"], results["k5"]
     mbr = results["sol"]["rows"]
+
+    def probe_entry(probe):
+        r = results["probes"]["rows"][probe]
+        return {
+            "name": f"probe_{probe}", "route": "cuda",
+            "source": f"tinyraytracer_tpu_torch/csrc/probe_{probe}.cu",
+            "replaces": PROBE_REPLACES[probe],
+            "launches": results["probes"]["launches"][probe],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["by"], "library_ms": None, "config": "probes",
+            "plain_shape": f"one grid step of each of the {r['cases']} "
+                           "bodies and shapes",
+            "ms_at_plain_shape": r["ms_grid1"],
+        }
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
@@ -4256,6 +4505,8 @@ def main(argv=None) -> int:
          "config": "sol",
          "plain_shape": "the five mixes, one wave x 2000 iterations each",
          "ms_at_plain_shape": sum(r["ms"] for r in mbr.values())},
+        *(probe_entry(p) for p in ("sublanes", "packgrad", "packgrad2",
+                                   "seglayout")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -77,7 +77,10 @@ def test_declare_types_every_exported_function():
              "tinyrt_diff_classic_occupancy",
              "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
              "tinyrt_fold_samples", "tinyrt_microbench",
-             "tinyrt_microbench_wave", "tinyrt_error_string")
+             "tinyrt_microbench_wave", "tinyrt_probe_packgrad",
+             "tinyrt_probe_packgrad2", "tinyrt_probe_seglayout_a",
+             "tinyrt_probe_seglayout_b", "tinyrt_probe_sublanes",
+             "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
@@ -129,6 +132,13 @@ def test_declare_types_every_exported_function():
     assert mb == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.POINTER(ctypes.c_float), p]
     assert lib.tinyrt_microbench_wave.argtypes == [ctypes.c_int]
+    i = ctypes.c_int
+    assert lib.tinyrt_probe_packgrad.argtypes == [p, i, i, i, p]
+    assert lib.tinyrt_probe_packgrad2.argtypes == [p, p, i, i, i, p]
+    assert lib.tinyrt_probe_seglayout_a.argtypes == [p, p, p, i, i, i, p]
+    assert lib.tinyrt_probe_seglayout_b.argtypes == [
+        ctypes.POINTER(ctypes.c_float), p, i, i, i, i, p]
+    assert lib.tinyrt_probe_sublanes.argtypes == [p, p, i, i, i, p]
     for n in names[:-1]:
         assert getattr(lib, n).restype is ctypes.c_int
 

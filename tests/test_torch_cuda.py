@@ -1009,3 +1009,73 @@ def test_native_bvh_of_a_scene_on_the_card(cuda):
     for f, v in native.numpy().items():
         assert getattr(native, f).device.type == "cuda"
         assert np.array_equal(v, host.numpy()[f]), f
+
+
+# The layout probes' kernels (csrc/probe_*.cu) against their twins
+# (utils/probes.py) at the probes' own shapes, on the probes' inputs and
+# on seeded ones: P1, P3 and P4 bit for bit, P2's tables within 1e-5 of
+# the largest entry (chip_smoke.py phase 23's tolerances); two launches
+# and grid 1 against a grid of 3 bit for bit.
+def _probe_cases(cuda):
+    from tinyraytracer_tpu_torch.utils import probes as pr
+
+    cases = [(f"P2 {b}", lambda g, b=b: pr.packgrad(b, cuda, g),
+              lambda b=b: pr.packgrad_reference(b, cuda), 1e-5)
+             for b in "AB"]
+    for seed in (None, 3):
+        pay = pr.packgrad2_inputs(seed, cuda)
+        cases.append((f"P3 C {seed}", lambda g, p=pay: pr.packgrad2(
+            "C", p, grid=g), lambda p=pay: pr.packgrad2_reference("C", p),
+            0.0))
+    cases.append(("P3 D", lambda g: pr.packgrad2("D", device=cuda, grid=g),
+                  lambda: pr.packgrad2_reference("D", device=cuda), 0.0))
+    for seed in (None, pr.P4_SEED_SHORT, pr.P4_SEED_LIVE):
+        tab = pr.seglayout_inputs(seed, cuda)
+        for body, shape in (("A", (1, 1024)), ("A", (1, 2048)),
+                            ("B", (8, 128)), ("B", (32, 256))):
+            cases.append((
+                f"P4 {body} {shape} {seed}",
+                lambda g, b=body, s=shape, t=tab: pr.seglayout(b, s, t, g),
+                lambda b=body, s=shape, t=tab: pr.seglayout_reference(
+                    b, s, t), 0.0))
+    for seed in (None, 1):
+        for shape in pr.P1_SHAPES:
+            x = pr.sublanes_inputs(shape, seed, cuda)
+            cases.append((f"P1 {shape} {seed}",
+                          lambda g, x=x: pr.sublanes(x, g),
+                          lambda x=x: pr.sublanes_reference(x), 0.0))
+    return cases
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_their_twins(cuda):
+    from tinyraytracer_tpu_torch.utils import probes as pr
+
+    counters = (pr.packgrad, pr.packgrad2, pr.seglayout, pr.sublanes)
+    before = sum(f.launches for f in counters)
+    cases = _probe_cases(cuda)
+    for label, launch, twin, rtol in cases:
+        got, again, one = launch(3), launch(3), launch(1)
+        want = twin()
+        torch.cuda.synchronize()
+        bits = got.view(torch.int32)
+        assert torch.equal(bits, again.view(torch.int32)), label
+        assert torch.equal(bits, one.view(torch.int32)), label
+        if rtol:
+            assert float((got - want).abs().max()) <= rtol * float(
+                want.abs().max()), label
+        else:
+            assert torch.equal(bits, want.view(torch.int32)), label
+    assert sum(f.launches for f in counters) == before + 3 * len(cases)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from tinyraytracer_tpu_torch.utils import probes as pr
+
+    tab = pr.seglayout_inputs(None, cuda)
+    with pytest.raises(ValueError, match="launch on"):
+        pr.seglayout("A", (1, 1024), dict(sc=tab["sc"],
+                                          pay=tab["pay"].cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        pr.sublanes(torch.zeros(128, 8, device=cuda).T)

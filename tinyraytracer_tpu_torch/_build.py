@@ -198,5 +198,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_microbench_wave
     fn.argtypes = [i]
     fn.restype = i
+    fn = lib.tinyrt_probe_packgrad
+    fn.argtypes = [p, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_probe_packgrad2
+    fn.argtypes = [p, p, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_probe_seglayout_a
+    fn.argtypes = [p, p, p, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_probe_seglayout_b
+    fn.argtypes = [ctypes.POINTER(f), p, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.tinyrt_probe_sublanes
+    fn.argtypes = [p, p, i, i, i, p]
+    fn.restype = i
     lib.tinyrt_error_string.argtypes = [i]
     lib.tinyrt_error_string.restype = ctypes.c_char_p

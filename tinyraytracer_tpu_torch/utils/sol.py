@@ -362,3 +362,12 @@ def mean_executed_bounces(scene, camera, *, max_bounces: int, background,
             # alive_after(max_bounces-1) rays execute no further segment.
             alive_total += float(alive_counts[:-1].sum())
     return 1.0 + alive_total / (npix * spp)
+
+
+# --- the layout probes P1-P4 -------------------------------------------------
+
+def probe_bound(ops: float, nbytes: float) -> tuple:
+    """Least time (ms) of one launch of a layout probe's kernel
+    (csrc/probe_*.cu; utils/probes.py counts its operations and bytes)
+    and what bounds it."""
+    return _bound(ops, nbytes)
