@@ -103,6 +103,19 @@ def test_packgrad_tables_cross_check(p2):
         <= TABLE_RTOL * float(np.abs(a).max())
 
 
+def test_packgrad_scatter_orders_differ_by_rounding_alone():
+    """The kernel's order (a row's lanes summed in lane order, then added
+    to the row) against the order in turns (each lane adding into the
+    row): within TABLE_RTOL of the largest entry, not the same bits."""
+    new = pr.packgrad_reference("A", "cpu", bounces=3)
+    turns = pr.packgrad_reference("A", "cpu", bounces=3, turns=True)
+    assert not torch.equal(new, turns)
+    assert float((new - turns).abs().max()) <= TABLE_RTOL * float(
+        turns.abs().max())
+    with pytest.raises(ValueError, match="turns"):
+        pr.packgrad_reference("B", "cpu", turns=True)
+
+
 def test_packgrad_scatter_at_another_bounce_count():
     """P2 has no input: the bounce count is what varies (3, through the
     loader's constant)."""
@@ -230,6 +243,26 @@ def test_seglayout_states_at_the_probe_inputs_and_the_seed():
 
 
 @pytest.mark.parametrize("body,shape", [("A", (1, 1024)), ("B", (8, 128))])
+def test_seglayout_special_tables_hold_every_special_discriminant(body,
+                                                                  shape):
+    """P4_SPECIAL: over four segments the discriminants include exact
+    zeros (lanes 0, 3 and 17 of each sublane), subnormals (lane 0's, one
+    each sign), negatives and NaN; -0 sits in the tables' centres and
+    radii (a discriminant of -0 cannot arise). The output stays finite."""
+    tab = pr.seglayout_inputs(pr.P4_SPECIAL)
+    for t in (tab["sc"], tab["smem"]):
+        assert bool(((t == 0) & torch.signbit(t)).any())
+    st = {}
+    out = pr.seglayout_reference(body, shape, tab, segments=4, stats=st)
+    rows = shape[0]
+    assert st["disc"]["zero"] == 3 * rows
+    assert st["disc"]["neg_zero"] == 0
+    assert st["disc"]["subnormal"] == 2 * rows
+    assert st["disc"]["negative"] > 0 and st["disc"]["nan"] > 0
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("body,shape", [("A", (1, 1024)), ("B", (8, 128))])
 def test_a_wrong_winner_changes_the_seeded_output(body, shape, monkeypatch):
     """The last of equal minima in place of the first changes the seeded
     output (its last row repeats row 7's sphere with another payload),
@@ -320,6 +353,8 @@ def test_wrappers_run_the_twins_on_the_cpu_and_check_their_input():
         pr.seglayout("A", (2, 64), tab)
     with pytest.raises(ValueError, match="grid"):
         pr.sublanes(x, grid=0)
+    with pytest.raises(ValueError, match="no kernel information"):
+        pr.kernel_info("seglayout", "A", "cpu")
 
 
 def test_counts_and_bounds():
@@ -340,6 +375,64 @@ def test_counts_and_bounds():
             assert by == "operations"
             assert ms == pytest.approx(
                 pr.work(probe, body, shape, 4)[0] / sol.FP32_PEAK * 1e3)
+
+
+def test_issue_and_shared_bounds():
+    """The issue bound: 128 lanes a SM and clock; the shared-traffic
+    bound: 128 bytes a SM and clock; P2 A's traffic: 24 rows of 16 floats
+    read and written a warp and sublane step."""
+    n = pr.element_bounces("seglayout", (1, 1024), grid=pr.P4_GRID)
+    assert n == 1024 * 64 * 4096
+    assert pr.element_bounces("packgrad") == 32 * 256 * 16
+    # 1 980 element-bounces a lane of 132 SMs x 128 lanes, 1 000
+    # instructions each: 1 980 000 clocks at 1 980 MHz
+    assert pr.issue_bound_ms(1000, 132 * 128 * 1980, 132, 1980.0) == \
+        pytest.approx(1.0)
+    assert pr.shared_bytes() == 1024 * 8 * 16 * 32 * 24 * 16 * 4 * 2
+    assert pr.shared_bound_ms(pr.shared_bytes(), 132, 1980.0) == \
+        pytest.approx(0.3851, abs=1e-4)
+
+
+def test_chip_smoke_reads_slow_path_blocks_and_the_ptxas_log():
+    """chip_smoke.py's readers: the instructions a predicated forward
+    branch skips to reach a CALL are a slow-path block (run only when a
+    lane needs it), and each kernel's registers and spills come off the
+    `-Xptxas -v` log by name."""
+    import importlib.util
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    listing = """
+        /*0000*/                   MUFU.RSQ R7, R8 ;
+        /*0010*/              @!P1 BRA 0x50 ;
+        /*0020*/                   MOV R7, R8 ;
+        /*0030*/                   CALL.REL.NOINC 0x90 ;
+        /*0040*/                   BRA 0x60 ;
+        /*0050*/                   FMUL.FTZ R1, R2, R3 ;
+        /*0060*/                   BSYNC B0 ;
+        /*0070*/               @P0 BRA 0x80 ;
+        /*0080*/                   BRA 0x0 ;
+    """
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", listing)
+    addrs = [int(a, 16) for a, _ in ins]
+    opcodes = [re.sub(r"^@!?P\d+\s+", "", x.strip()).split()[0]
+               .split(".")[0] for _, x in ins]
+    assert cs.slow_call_blocks(ins, addrs, opcodes) == [0, 0, 1, 1, 1, 0, 0,
+                                                        0, 0]
+    log = """ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_probe_seglayout_cu_ab13gather_kernelEPKf' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 23 registers, used 1 barriers, 768 bytes smem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Used 7 registers"""
+    entries = cs.ptxas_entries(log)
+    assert list(entries.values()) == [(23, 8, 12), (7, 0, 0)]
+    assert [cs._probe_kernel(n) for n in entries] == [
+        ("seglayout", "gather_kernel"), None]
 
 
 # --- the entry-point scripts ---------------------------------------------------------

@@ -210,6 +210,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_probe_seglayout_b
     fn.argtypes = [ctypes.POINTER(f), p, i, i, i, i, p]
     fn.restype = i
+    for name in ("tinyrt_probe_packgrad_info", "tinyrt_probe_seglayout_info"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, ip]
+        fn.restype = i
     fn = lib.tinyrt_probe_sublanes
     fn.argtypes = [p, p, i, i, i, p]
     fn.restype = i

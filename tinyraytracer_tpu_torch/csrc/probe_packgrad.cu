@@ -23,22 +23,35 @@
 // blocks side by side and each stores its whole (24, 128) block to the
 // one output (a race of identical values: every block computes the same
 // bits, so GRID = 1 and GRID = 1024 give the same output).
-// - A scatters without atomics: each warp keeps its own table in shared
-//   memory (rows padded to 17 floats, so 24 distinct rows fall in 24
-//   distinct banks). Lanes of a warp that share a row (__match_any_sync)
-//   add in turns, ordered by lane (a lane's rank among them): within a
-//   turn every row has one writer. At the end the 8 warp tables are added
-//   in warp order. The probe's rows are consecutive across a warp's 32
-//   lanes: two turns a step, 8 rows with two writers.
+// - A scatters without atomics into a table in shared memory a warp
+//   (rows padded to 20 floats, 16-byte aligned), one writer a row a
+//   sublane step. The lanes that share a row (__match_any_sync) share it
+//   at every sublane, since row(l, s) = (row(l, 0) + s) mod 24 moves
+//   every row alike: the group, its first lane (the writer) and the
+//   largest group are found once. Each step the writer adds the others'
+//   16 values to its own in lane order (their c by a shuffle; the
+//   products are theirs, bit for bit), then reads its row, adds and
+//   stores it as four 16-byte accesses. The row advances by one a step,
+//   no `%`. A warp's writers hold 24 distinct rows, consecutive mod 24:
+//   each quarter-warp phase of a 16-byte access touches 8 consecutive
+//   rows, whose chunks (5 r + q) mod 8 fill the 8 bank quads once, so no
+//   access conflicts. At the end the 8 warp tables are added in warp
+//   order. The probe's rows are consecutive across a warp's 32 lanes:
+//   lanes j and j + 24 share a row (j < 8), so 24 writers of 32 lanes.
 // - B keeps each thread's 48 partial sums in registers over bounces and
 //   sublanes; at the end a warp-shuffle tree (offsets 16, 8, 4, 2, 1) and
 //   the 8 warps in order give row 0.
 // No float atomics: two launches give the same bits.
 //
 // What bounds it: FP32 operations (utils/probes.py OPS_PER_ELEMENT: 34
-// per element and bounce for A, 98 for B) and, for A, the shared-memory
-// read-modify-writes of the scatter (16 per element and bounce): nothing
-// is read from device memory and 12 KB are written.
+// per element and bounce for A, 98 for B), and nearer the instructions
+// issued and, for A, the shared-memory traffic of the scatter: 24 rows of
+// 16 floats read and written a warp and sublane step, 12.9 GB at the
+// probe's GRID, against 128 bytes a clock a SM (utils/probes.py
+// `shared_bytes`). A's loop issues 106 SASS instructions a lane and step
+// (every lane issues the partner's 16 products and adds): on an H100 at
+// 1.98 GHz its issue bound, 0.43 ms, lies above the traffic's, 0.39 ms.
+// Nothing is read from device memory and 12 KB are written.
 
 #include <cuda_runtime.h>
 
@@ -50,36 +63,56 @@ constexpr int kNA = 24;
 constexpr int kK = 16;
 constexpr int kCols = 128;
 constexpr int kWarps = kL / 32;
-constexpr int kPad = kK + 1;
+constexpr int kPad = kK + 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kL) scatter_kernel(float* __restrict__ out,
                                                      int bounces) {
-  __shared__ float tab[kWarps][kNA][kPad];
+  __shared__ __align__(16) float tab[kWarps][kNA][kPad];
   const int l = threadIdx.x;
   const int lane = l & 31;
   const int w = l >> 5;
   for (int i = lane; i < kNA * kPad; i += 32) (&tab[w][0][0])[i] = 0.0f;
   __syncwarp();
   const float lf = (float)l * 1e-3f;
-  const unsigned below = (1u << lane) - 1u;
+  const int row0 = l % kNA;
+  const unsigned same = __match_any_sync(kFull, row0);
+  const unsigned others = same & (same - 1u);   // the group but its first
+  const bool writer = (same & (0u - same)) == (1u << lane);
+  const int most = (int)__reduce_max_sync(kFull, (unsigned)__popc(same));
 #pragma unroll 1
   for (int b = 0; b < bounces; ++b) {
+    int row = row0;
 #pragma unroll 1
     for (int s = 0; s < kS; ++s) {
       const float c = (lf + (float)s) + (float)b;
-      const int row = (l + s) % kNA;
-      const unsigned same = __match_any_sync(kFull, row);
-      const int rank = __popc(same & below);
-      const int turns = __reduce_max_sync(kFull, (unsigned)rank) + 1;
-      for (int t = 0; t < turns; ++t) {
-        if (rank == t) {
+      float v[kK];
 #pragma unroll
-          for (int k = 0; k < kK; ++k)
-            tab[w][row][k] = tab[w][row][k] + c * (float)(k + 1);
+      for (int k = 0; k < kK; ++k) v[k] = c * (float)(k + 1);
+      unsigned rest = others;
+#pragma unroll 1
+      for (int t = 1; t < most; ++t) {   // the group's lanes in order
+        const float cm = __shfl_sync(kFull, c, rest ? __ffs(rest) - 1 : lane);
+        if (rest) {
+#pragma unroll
+          for (int k = 0; k < kK; ++k) v[k] = v[k] + cm * (float)(k + 1);
         }
-        __syncwarp();
+        rest &= rest - 1u;
       }
+      if (writer) {
+        float4* r = reinterpret_cast<float4*>(&tab[w][row][0]);
+#pragma unroll
+        for (int q = 0; q < kK / 4; ++q) {
+          float4 a = r[q];
+          a.x = a.x + v[4 * q];
+          a.y = a.y + v[4 * q + 1];
+          a.z = a.z + v[4 * q + 2];
+          a.w = a.w + v[4 * q + 3];
+          r[q] = a;
+        }
+      }
+      __syncwarp();
+      row = row == kNA - 1 ? 0 : row + 1;
     }
   }
   __syncthreads();
@@ -158,6 +191,21 @@ int tinyrt_probe_packgrad(float* out, int which, int grid, int bounces,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Kernel `which` (0: A, 1: B) as the card runs it: info[0] its resident
+// blocks of 256 a SM, info[1] its registers a thread. Returns a
+// cudaError_t.
+int tinyrt_probe_packgrad_info(int which, int* info) {
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const void* fn = which == 0 ? (const void*)scatter_kernel
+                              : (const void*)masked_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], fn, kL, 0);
+  info[1] = attr.numRegs;
+  return (int)e;
 }
 
 }  // extern "C"

@@ -20,9 +20,13 @@ gives the same bits as the probe's GRID.
 
 Inputs are made with numpy: the probe's own constants, or a seeded
 variant that can show a wrong index (`packgrad2_inputs`,
-`seglayout_inputs`, `sublanes_inputs`). `OPS_PER_ELEMENT` counts each
-kernel's FP32 operations in utils/sol.py's rule; `bound` turns them into
-the least time the card could take.
+`seglayout_inputs`, `sublanes_inputs`; P4 also has special-value
+tables, `P4_SPECIAL`). `OPS_PER_ELEMENT` counts each kernel's FP32
+operations in utils/sol.py's rule; `bound` turns them into the least
+time the card could take. `issue_bound_ms` and `shared_bound_ms` give
+the bounds of a kernel's issued instructions (read off its SASS) and of
+P2 A's shared-memory traffic (`shared_bytes`); `kernel_info` reads a P2
+or P4 kernel's blocks a SM and registers off the card.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ P4_A_SHAPES = ((1, 1024), (1, 2048))
 # NaN path; their chain doubles an angle a segment, so they are held to
 # the kernel, not to the JAX body's contracted arithmetic).
 P4_SEED_SHORT, P4_SEED_LIVE = 5, 0
+# P4's special-value tables (seglayout_inputs(P4_SPECIAL)): discriminants
+# of exact zeros, subnormals, negatives and NaN; -0 in the tables.
+P4_SPECIAL = "special"
+P4_SEEDS = (P4_SEED_SHORT, P4_SEED_LIVE, P4_SPECIAL)   # besides the probe's
 P4_B_SHAPES = ((8, 128), (8, 256), (8, 512), (16, 128), (16, 256), (32, 256))
 # P1 (scripts/probe_sublanes.py:192-193, :221)
 P1_ITERS, P1_GRID = 2000, 512
@@ -160,26 +168,39 @@ def _warp_tree(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _scatter_reference(device, bounces):
+def _scatter_reference(device, bounces, turns=False):
     s_n, width = P2_SHAPE
     l, lf = _lanes(device, P2_SHAPE)
     kf = torch.arange(1, P2_K + 1, device=device).float()
-    tab = torch.zeros((width // 32) * NA, P2_K, device=device)
+    slots = (width // 32) * NA
+    tab = torch.zeros(slots, P2_K, device=device)
     lower = torch.ones(32, 32, dtype=torch.bool, device=device).tril(-1)
-    turns = []      # per sublane and turn: (warp, row) slots, their lanes
-    for s in range(s_n):
+    groups = []     # per sublane and rank t: (warp, row) slots, their
+    for s in range(s_n):    # lanes, their writer's place among rank 0's
         row = (l + s) % NA
         rw = row.view(-1, 32)
         rank = ((rw[:, :, None] == rw[:, None, :]) & lower).sum(-1).view(-1)
         slot = (l // 32) * NA + row
-        turns.append([(slot[rank == t], lf[rank == t])
-                      for t in range(int(rank.max()) + 1)])
+        at = torch.zeros(slots, dtype=torch.long, device=device)
+        at[slot[rank == 0]] = torch.arange(int((rank == 0).sum()),
+                                           device=device)
+        groups.append([(slot[rank == t], lf[rank == t], at[slot[rank == t]])
+                       for t in range(int(rank.max()) + 1)])
     for b in range(bounces):
         for s in range(s_n):
-            for slot, lft in turns[s]:
+            if turns:
+                for slot, lft, _ in groups[s]:
+                    c = (lft + float(s)) + float(b)
+                    tab.index_copy_(0, slot, tab.index_select(0, slot)
+                                    + c[:, None] * kf)
+                continue
+            (slot, lft, _), *rest = groups[s]
+            add = ((lft + float(s)) + float(b))[:, None] * kf
+            for _, lft, at in rest:
                 c = (lft + float(s)) + float(b)
-                tab.index_copy_(0, slot, tab.index_select(0, slot)
+                add.index_copy_(0, at, add.index_select(0, at)
                                 + c[:, None] * kf)
+            tab.index_copy_(0, slot, tab.index_select(0, slot) + add)
     tab = tab.view(width // 32, NA, P2_K)
     v = tab[0]
     for u in range(1, tab.shape[0]):
@@ -206,17 +227,24 @@ def _masked_reference(device, bounces):
     return out
 
 
-def packgrad_reference(body: str, device="cpu",
-                       bounces: int = P2_BOUNCES) -> torch.Tensor:
+def packgrad_reference(body: str, device="cpu", bounces: int = P2_BOUNCES,
+                       turns: bool = False) -> torch.Tensor:
     """The (24, 128) block of body A (scatter) or B (masked sums) of
     scripts/probe_packgrad.py after `bounces` bounces, in the kernel's
-    order (bit for bit with it)."""
+    order (bit for bit with it): in A, the lanes of a warp that share a
+    row add their values in lane order, then the sum goes into the row.
+    With `turns` (A only), they add into the row one after another, an
+    order the kernel does not run: its sums differ from the kernel's by
+    rounding alone."""
     if body not in BODIES["packgrad"]:
         raise ValueError(f"unknown body {body!r}: A or B")
+    if turns and body != "A":
+        raise ValueError("turns is an order of body A")
     _check_counts(1, bounces)
     dev = _device(device)
-    return (_scatter_reference if body == "A" else _masked_reference)(
-        dev, bounces)
+    if body == "B":
+        return _masked_reference(dev, bounces)
+    return _scatter_reference(dev, bounces, turns)
 
 
 def packgrad(body: str, device="cuda", grid: int = P2_GRID,
@@ -353,7 +381,17 @@ def seglayout_inputs(seed=None, device="cpu") -> dict:
     minima must win (jnp.argmin); A's payload
     and B's nxw uniform in [0, 0.5), albedos in [0.1, 1); B's material
     ids the integers 0-7 at smem[p * 8 + 5], its albedo of material m at
-    smem[m * 8 + 6]."""
+    smem[m * 8 + 6]. With seed P4_SPECIAL: P4_SEED_SHORT's tables with
+    rows 1-6 made special for the first segment's rays (`_special_rows`).
+    """
+    if seed == P4_SPECIAL:
+        tab = {k: v.numpy()
+               for k, v in seglayout_inputs(P4_SEED_SHORT).items()}
+        rows = _special_rows()
+        tab["sc"][1:1 + len(rows), :4] = rows
+        smem = tab["smem"].reshape(NA, P4_ROW)
+        smem[1:1 + len(rows), :4] = rows
+        return {k: torch.from_numpy(v).to(device) for k, v in tab.items()}
     if seed is None:
         sc = np.full((NA, P4_ROW), 0.5, np.float32)
         pay = np.full((P4_PAY, NA), 0.25, np.float32)
@@ -383,11 +421,47 @@ def seglayout_inputs(seed=None, device="cpu") -> dict:
             for k, v in (("sc", sc), ("pay", pay), ("smem", smem))}
 
 
+def _special_rows() -> np.ndarray:
+    """(cx, cy, cz, rad) of six spheres whose discriminants hb^2 - c on
+    the first segment's rays (origin (0.1, 0.2, lane * 1e-3), direction
+    (1, 0.5, 0.25)) are special:
+    - a NaN centre: disc NaN on every ray and segment;
+    - centre z = -1e-20 beside lane 0's origin, radius 1.1e-20: a
+      positive subnormal disc on lane 0 (hb^2 and c subnormal too);
+    - the same centre, radius 0: a negative subnormal disc on lane 0;
+    - lane 0's origin with z = -0 and radius -0: disc = +0 exactly (m
+      = 0 - (-0) = +0);
+    - lanes 3's and 17's origins, radius 0: disc = +0 exactly there.
+    A disc of -0 cannot arise: hb * hb - c is +0 whenever both are zero,
+    since a square is never -0 and c = |m|^2 - rad^2 is +0 then; the -0s
+    of these rows enter its operands. Every other lane of these rows has
+    a negative disc."""
+    lane = np.float32(1e-3)
+    z = [np.float32(3) * lane, np.float32(17) * lane]
+    return np.array([[np.nan, 0.2, 0.0, 0.1],
+                     [0.1, 0.2, -1e-20, 1.1e-20],
+                     [0.1, 0.2, -1e-20, 0.0],
+                     [0.1, 0.2, -0.0, -0.0],
+                     [0.1, 0.2, z[0], 0.0],
+                     [0.1, 0.2, z[1], 0.0]], np.float32)
+
+
+def _disc_kinds(disc: torch.Tensor) -> dict:
+    """Counts of special discriminants: +0, -0, subnormal (nonzero, below
+    2^-126 in magnitude), negative (any < 0) and NaN."""
+    zero = disc == 0
+    return {"zero": int((zero & ~torch.signbit(disc)).sum()),
+            "neg_zero": int((zero & torch.signbit(disc)).sum()),
+            "subnormal": int((~zero & (disc.abs() < 2.0**-126)).sum()),
+            "negative": int((disc < 0).sum()),
+            "nan": int(torch.isnan(disc).sum())}
+
+
 def _max_nan(a, b):
     return torch.maximum(a, b)      # NaN in, NaN out, as jnp.maximum
 
 
-def _sphere_tt(o, d, rows, k):
+def _sphere_tt(o, d, rows, k, kinds=None):
     ox, oy, oz = o
     dx, dy, dz = d
     cx, cy, cz, rad = rows
@@ -395,6 +469,9 @@ def _sphere_tt(o, d, rows, k):
     hb = (mx * dx + my * dy) + mz * dz
     c = ((mx * mx + my * my) + mz * mz) - rad * rad
     disc = hb * hb - c
+    if kinds is not None:
+        for key, n in _disc_kinds(disc).items():
+            kinds[key] = kinds.get(key, 0) + n
     sq = sqrt_rn(_max_nan(disc, k["zero"]))
     t0 = -hb - sq
     t1 = -hb + sq
@@ -464,7 +541,8 @@ def seglayout_reference(body: str, shape, tables: dict,
     scripts/probe_seglayout.py after `segments` segments, in the kernel's
     order (bit for bit with it). With a dict `stats`, fills
     `nan_segments`: per ray, the segments that start on a NaN origin,
-    and `hits`: per segment, the rays with a hit."""
+    `hits`: per segment, the rays with a hit, and `disc`: the special
+    discriminants of every row, ray and segment (`_disc_kinds`)."""
     _check_counts(1, segments)
     dev = _seg_tables(body, tables)
     s_n, width = shape
@@ -484,13 +562,13 @@ def seglayout_reference(body: str, shape, tables: dict,
     dy, dz = torch.full_like(dx, 0.5), torch.full_like(dx, 0.25)
     acc = torch.zeros(n, device=dev)
     nan_segs = torch.zeros(n, dtype=torch.long, device=dev)
-    hits = []
+    hits, kinds = [], ({} if stats is not None else None)
     for _ in range(segments):
         if stats is not None:
             nan_segs += (torch.isnan(o[0]) | torch.isnan(o[1])
                          | torch.isnan(o[2]))
         tt = _sphere_tt(tuple(v[None] for v in o),
-                        (dx[None], dy[None], dz[None]), rows, k)
+                        (dx[None], dy[None], dz[None]), rows, k, kinds)
         best, w = winner(tt)
         if stats is not None:
             hits.append(int((best < k["miss"]).sum()))
@@ -511,6 +589,7 @@ def seglayout_reference(body: str, shape, tables: dict,
     if stats is not None:
         stats["nan_segments"] = nan_segs.view(s_n, width)
         stats["hits"] = hits
+        stats["disc"] = kinds
     return acc.view(s_n, width)
 
 
@@ -606,16 +685,29 @@ sublanes.launches = 0
 
 # --- counts, bounds, timing ----------------------------------------------------
 
+def _block(probe, shape, bounces):
+    """(elements of a grid step's block, bounces) with the defaults."""
+    shape = {"packgrad": P2_SHAPE, "packgrad2": P3_SHAPE}.get(probe, shape)
+    if bounces is None:
+        bounces = {"packgrad": P2_BOUNCES, "packgrad2": P3_BOUNCES,
+                   "seglayout": P4_SEGMENTS, "sublanes": P1_ITERS}[probe]
+    return int(shape[0]) * int(shape[1]), int(bounces)
+
+
+def element_bounces(probe: str, shape=None, grid: int = 1,
+                    bounces: int = None) -> int:
+    """Element-bounces (lane-bounces, ray-segments, element-steps) of one
+    launch over `grid` steps."""
+    n, bounces = _block(probe, shape, bounces)
+    return n * bounces * grid
+
+
 def work(probe: str, body: str, shape=None, grid: int = 1,
          bounces: int = None) -> tuple:
     """(FP32 operations, bytes) of one launch over `grid` steps: the
     operations counted off the source; each input read once and the
     output block written once."""
-    shape = {"packgrad": P2_SHAPE, "packgrad2": P3_SHAPE}.get(probe, shape)
-    n = int(shape[0]) * int(shape[1])
-    if bounces is None:
-        bounces = {"packgrad": P2_BOUNCES, "packgrad2": P3_BOUNCES,
-                   "seglayout": P4_SEGMENTS, "sublanes": P1_ITERS}[probe]
+    n, bounces = _block(probe, shape, bounces)
     ops = n * bounces * OPS_PER_ELEMENT[probe, body]
     if probe in ("packgrad", "packgrad2"):
         ops += OPS_PER_STEP[probe, body]
@@ -637,6 +729,49 @@ def bound(probe: str, body: str, shape=None, grid: int = 1,
     """(ms, "operations" or "bytes"): the least time the card could take
     for one launch, utils/sol.py's roofline of `work`."""
     return sol.probe_bound(*work(probe, body, shape, grid, bounces))
+
+
+# Per SM and clock on the card: 4 schedulers issue a warp instruction
+# each (128 lanes), and shared memory moves 128 bytes.
+LANES_PER_SM_CLOCK = 128
+SHARED_BYTES_PER_SM_CLOCK = 128
+
+
+def shared_bytes(grid: int = P2_GRID, bounces: int = P2_BOUNCES) -> int:
+    """Shared-memory bytes P2 A's scatter must move over `grid` steps: a
+    warp and sublane step reads and writes each row its lanes reach (24:
+    32 consecutive lanes, rows mod 24), 16 floats each."""
+    s_n, width = P2_SHAPE
+    return grid * (width // 32) * bounces * s_n * NA * P2_K * 4 * 2
+
+
+def issue_bound_ms(instructions: float, elements: int, sms: int,
+                   clock_mhz: float) -> float:
+    """The least time `elements` element-bounces take when each issues
+    `instructions` SASS instructions: 128 lanes a SM and clock."""
+    return (instructions * elements / (LANES_PER_SM_CLOCK * sms
+                                       * clock_mhz * 1e6) * 1e3)
+
+
+def shared_bound_ms(nbytes: int, sms: int, clock_mhz: float) -> float:
+    """The least time shared memory takes to move `nbytes`: 128 bytes a
+    SM and clock."""
+    return nbytes / (SHARED_BYTES_PER_SM_CLOCK * sms * clock_mhz * 1e6) * 1e3
+
+
+def kernel_info(probe: str, body: str, device="cuda") -> dict:
+    """P2's or P4's kernel for `body` as the card runs it: its resident
+    blocks of 256 a SM and its registers a thread. Raises off a card."""
+    dev = _device(device)
+    if dev.type != "cuda" or probe not in ("packgrad", "seglayout"):
+        raise ValueError(f"no kernel information for {probe} on {dev}")
+    info = (ctypes.c_int * 2)()
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"tinyrt_probe_{probe}_info")(
+            BODIES[probe].index(body), info)
+    _raise(f"probe_{probe} info", err)
+    return {"blocks_per_sm": info[0], "registers": info[1]}
 
 
 def launch_ms(fn) -> tuple:
