@@ -4135,8 +4135,11 @@ def sol_phase(torch, card):
 # gradient-table tier), two launches and GRID = 1 against the probe's
 # GRID bit for bit; kernel timed at the probe's GRID beside its FP32 and
 # issue bounds (P2 A: and its shared-traffic bound), the twin at one grid
-# step; P2's and P4's registers, spills, blocks a SM and slow-path CALL
-# sites. Then the four scripts with the counters zeroed, each launching
+# step; P2's, P3's and P4's registers, spills, blocks a SM and slow-path
+# CALL sites. P3's kernels, shorter than their wrapper's host path, are
+# also timed on the device alone (a CUDA graph of wrapper calls: its row's
+# ms), beside its issue bound, the parent design's and C's gather-traffic
+# bound. Then the four scripts with the counters zeroed, each launching
 # its kernel PROBE_LAUNCHES times.
 PROBE_TABLE_RTOL = 1e-5
 PROBE_SEEDS = {"packgrad2": (3,), "sublanes": (1,)}   # P4: probes.P4_SEEDS
@@ -4152,7 +4155,13 @@ PROBE_REPLACES = {"packgrad": "scripts/probe_packgrad.py:71",
                   "sublanes": "scripts/probe_sublanes.py:23"}
 PROBE_IDS = {"packgrad": "P2", "packgrad2": "P3", "seglayout": "P4",
              "sublanes": "P1"}
-PROBE_LOOP_ELEMENTS = {"sublanes": 4}    # element-bounces a pass of the loop
+# Element-bounces a pass of a body's hot loop: P1's loop runs 4 steps,
+# P3's 4 sublanes side by side (csrc/probe_packgrad2.cu kE).
+PROBE_LOOP_ELEMENTS = {("sublanes", "chain"): 4, ("packgrad2", "C"): 4,
+                       ("packgrad2", "D"): 4}
+# P3's issue bounds at the probe's GRID before its redesign (25 and 48
+# SASS instructions an element-bounce; 1 980 MHz, 132 SMs).
+P3_PARENT_ISSUE_MS = {"C": 0.0251, "D": 0.0481}
 
 
 def _probe_kernel(name):
@@ -4166,7 +4175,8 @@ def _probe_kernel(name):
 def probe_sass():
     """Each probe kernel's loops in phase 2's listing: some back edge's
     body holds at least the operations OPS_PER_ELEMENT counts an element
-    and bounce (P1's loop runs 4 steps a pass: 4 x 4), in SASS_COUNTED
+    and bounce (times PROBE_LOOP_ELEMENTS: P1's loop runs 4 steps a
+    pass, P3's 4 sublanes), in SASS_COUNTED
     opcodes (an FFMA twice), so nvcc hoisted or folded none of them. The
     smallest such loop is the kernel's hot loop: its instructions an
     element and bounce, less those of its slow-path call blocks (run only
@@ -4190,8 +4200,8 @@ def probe_sass():
         addrs = [int(a, 16) for a, _ in ins]
         opcodes = [re.sub(r"^@!?P\d+\s+", "", y.strip()).split()[0]
                    .split(".")[0] for _, y in ins]
-        want = probes.OPS_PER_ELEMENT[probe, body] * PROBE_LOOP_ELEMENTS.get(
-            probe, 1)
+        per = PROBE_LOOP_ELEMENTS.get((probe, body), 1)
+        want = probes.OPS_PER_ELEMENT[probe, body] * per
         target = [re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", x)
                   for _, x in ins]
         target = [int(t.group(1), 16) if t else None for t in target]
@@ -4209,7 +4219,6 @@ def probe_sass():
             if counted >= want and (hot is None or n < hot[0]):
                 hot = (n, n - sum(slow[a:i + 1]))
         calls = opcodes.count("CALL")
-        per = PROBE_LOOP_ELEMENTS.get(probe, 1)
         log(f"[probes] SASS of {probe} {body} ({kernel}): {len(ins)} "
             f"instructions, the fullest loop holds {best} counted "
             f"operations (want >= {want}); the hot loop {hot and hot[0]} "
@@ -4293,7 +4302,7 @@ def probes_phase(torch, card, clock_mhz=None):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs = probe_ptxas()
     info = {}
-    for probe in ("seglayout", "packgrad"):
+    for probe in ("seglayout", "packgrad", "packgrad2"):
         for body, kernel in zip(probes.BODIES[probe], PROBE_KERNELS[probe]):
             k = probes.kernel_info(probe, body, dev)
             r, st, ld = regs[probe, kernel]
@@ -4310,7 +4319,7 @@ def probes_phase(torch, card, clock_mhz=None):
              "seglayout": probes.P4_GRID, "sublanes": probes.P1_GRID}
     rows = {p: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_grid1=0.0,
                     max_abs_err=0.0, by=set(), cases=0) for p in grids}
-    nan, seg_ms, issue = {}, {}, {}
+    nan, seg_ms, issue, p3 = {}, {}, {}, {}
     for probe, body, shape, seed, launch, twin in _probe_cases(torch, probes,
                                                                 dev):
         grid = grids[probe]
@@ -4357,10 +4366,17 @@ def probes_phase(torch, card, clock_mhz=None):
                                "or is not deterministic")
         if probe == "seglayout":
             seg_ms[body, tuple(shape), str(seed)] = ms
+        if probe == "packgrad2" and seed is None:
+            p3[body] = p3_device_times(probes, body, launch, grid, ms, ms1,
+                                       bound_ms, issue_ms, sms, clock_mhz,
+                                       card)
         if seed is None:
             issue[f"{probe} {body} {tuple(shape)}"] = dict(
                 ms=ms, bound_ms=bound_ms, issue_bound_ms=issue_ms)
             r = rows[probe]
+            if probe == "packgrad2":
+                r["ms_with_launch"] = r.get("ms_with_launch", 0.0) + ms
+                ms, ms1 = p3[body]["device_ms"], p3[body]["device_ms_grid1"]
             r["ms"] += ms
             r["plain_ms"] += plain_ms
             r["bound_ms"] += bound_ms
@@ -4416,7 +4432,37 @@ def probes_phase(torch, card, clock_mhz=None):
     return dict(rows=rows, launches=launches, lines=lines, sass=sass,
                 nan=nan, seglayout_ms={" ".join(map(str, k)): v
                                        for k, v in seg_ms.items()},
-                info=info, issue=issue, sm_clock_mhz=clock_mhz)
+                info=info, issue=issue, p3=p3, sm_clock_mhz=clock_mhz)
+
+
+def p3_device_times(probes, body, launch, grid, ms, ms1, bound_ms, issue_ms,
+                    sms, clock_mhz, card):
+    """P3 `body` on the device alone (probes.graph_ms) at the probe's GRID
+    and at 1, beside the events-around-two-launches times `ms`, `ms1`,
+    its FP32 and issue bounds, the parent design's issue bound and (C)
+    the bound of its gathers' shared-memory traffic."""
+    dev_ms = probes.graph_ms(lambda: launch(grid))
+    dev_ms1 = probes.graph_ms(lambda: launch(1))
+    out = dict(device_ms=dev_ms, device_ms_grid1=dev_ms1, ms_with_launch=ms,
+               ms_with_launch_grid1=ms1, bound_ms=bound_ms,
+               issue_bound_ms=issue_ms,
+               parent_issue_bound_ms=P3_PARENT_ISSUE_MS[body],
+               issue_share=issue_ms / dev_ms)
+    extra = ""
+    if body == "C":
+        out["gather_bound_ms"] = probes.shared_bound_ms(
+            probes.gather_bytes(grid), sms, clock_mhz)
+        out["gather_share"] = out["gather_bound_ms"] / dev_ms
+        extra = (f", its gathers' shared-memory bound "
+                 f"{out['gather_bound_ms']:.4f} ms "
+                 f"({out['gather_share']:.1%})")
+    log(f"[probes] P3 packgrad2 {body} on the device alone (a CUDA graph of "
+        f"20 launches): {dev_ms:.4f} ms at GRID {grid}, {dev_ms1:.4f} at 1 "
+        f"(events around two wrapper launches: {ms:.4f}, {ms1:.4f}); issue "
+        f"bound {issue_ms:.4f} ms ({out['issue_share']:.1%} of it reached; "
+        f"the parent design's {P3_PARENT_ISSUE_MS[body]}), FP32 bound "
+        f"{bound_ms:.4f} ms{extra}; on {card}")
+    return out
 
 
 PHASES = ("forward", "k3", "train", "cfg5", "modular", "k5", "fused",
@@ -4580,6 +4626,8 @@ def main(argv=None) -> int:
             "plain_shape": f"one grid step of each of the {r['cases']} "
                            "bodies and shapes",
             "ms_at_plain_shape": r["ms_grid1"],
+            **({"ms_with_launch": r["ms_with_launch"]}
+               if "ms_with_launch" in r else {}),
         }
     print(json.dumps({"kernels": [
         entry("K1", "megakernel_packed", "megakernel_packed.cu",

@@ -80,8 +80,8 @@ def test_declare_types_every_exported_function():
              "tinyrt_microbench_wave", "tinyrt_probe_packgrad",
              "tinyrt_probe_packgrad2", "tinyrt_probe_seglayout_a",
              "tinyrt_probe_seglayout_b", "tinyrt_probe_sublanes",
-             "tinyrt_probe_packgrad_info", "tinyrt_probe_seglayout_info",
-             "tinyrt_error_string")
+             "tinyrt_probe_packgrad_info", "tinyrt_probe_packgrad2_info",
+             "tinyrt_probe_seglayout_info", "tinyrt_error_string")
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
     _build._declare(lib)
     p = ctypes.c_void_p
@@ -141,6 +141,7 @@ def test_declare_types_every_exported_function():
         ctypes.POINTER(ctypes.c_float), p, i, i, i, i, p]
     assert lib.tinyrt_probe_sublanes.argtypes == [p, p, i, i, i, p]
     assert lib.tinyrt_probe_packgrad_info.argtypes == [i, ip]
+    assert lib.tinyrt_probe_packgrad2_info.argtypes == [i, ip]
     assert lib.tinyrt_probe_seglayout_info.argtypes == [i, ip]
     for n in names[:-1]:
         assert getattr(lib, n).restype is ctypes.c_int

@@ -1015,7 +1015,8 @@ def test_native_bvh_of_a_scene_on_the_card(cuda):
 # (utils/probes.py) at the probes' own shapes, on the probes' inputs and
 # on seeded ones (P4: two seeds and the special-value tables), bit for
 # bit (chip_smoke.py phase 23's check); two launches and grid 1 against a
-# grid of 3 bit for bit.
+# grid of 3 bit for bit. P3, whose last block alone stores the output
+# block, also at grid 2 and at its probe's 512.
 def _probe_cases(cuda):
     from tinyraytracer_tpu_torch.utils import probes as pr
 
@@ -1054,19 +1055,24 @@ def test_probe_kernels_match_their_twins(cuda):
     counters = (pr.packgrad, pr.packgrad2, pr.seglayout, pr.sublanes)
     before = sum(f.launches for f in counters)
     cases = _probe_cases(cuda)
+    extra = 0
     for label, launch, twin, rtol in cases:
         got, again, one = launch(3), launch(3), launch(1)
+        more = [launch(g) for g in (2, pr.P3_GRID)] if label[:2] == "P3" \
+            else []
+        extra += len(more)
         want = twin()
         torch.cuda.synchronize()
         bits = got.view(torch.int32)
-        assert torch.equal(bits, again.view(torch.int32)), label
-        assert torch.equal(bits, one.view(torch.int32)), label
+        for other in (again, one, *more):
+            assert torch.equal(bits, other.view(torch.int32)), label
         if rtol:
             assert float((got - want).abs().max()) <= rtol * float(
                 want.abs().max()), label
         else:
             assert torch.equal(bits, want.view(torch.int32)), label
-    assert sum(f.launches for f in counters) == before + 3 * len(cases)
+    assert sum(f.launches for f in counters) == before + 3 * len(cases) \
+        + extra
 
 
 @pytest.mark.cuda

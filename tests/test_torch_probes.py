@@ -393,6 +393,19 @@ def test_issue_and_shared_bounds():
         pytest.approx(0.3851, abs=1e-4)
 
 
+def test_p3_gather_traffic_and_device_timing_need_a_card():
+    """P3 C's gathers read 8 fields of 4 bytes an element-bounce: 1 GiB
+    at the probe's GRID, 0.0321 ms of an H100's shared memory at 1 980
+    MHz. Its kernel information is read off a card only."""
+    assert pr.gather_bytes() == 512 * 16 * 256 * 16 * 8 * 4 == 2**30
+    assert pr.gather_bytes(grid=1, bounces=2) == 16 * 256 * 2 * 32
+    assert pr.shared_bound_ms(pr.gather_bytes(), 132, 1980.0) == \
+        pytest.approx(0.0321, abs=1e-4)
+    for body in pr.BODIES["packgrad2"]:
+        with pytest.raises(ValueError, match="no kernel information"):
+            pr.kernel_info("packgrad2", body, "cpu")
+
+
 def test_chip_smoke_reads_slow_path_blocks_and_the_ptxas_log():
     """chip_smoke.py's readers: the instructions a predicated forward
     branch skips to reach a CALL are a slow-path block (run only when a

@@ -210,7 +210,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_probe_seglayout_b
     fn.argtypes = [ctypes.POINTER(f), p, i, i, i, i, p]
     fn.restype = i
-    for name in ("tinyrt_probe_packgrad_info", "tinyrt_probe_seglayout_info"):
+    for name in ("tinyrt_probe_packgrad_info", "tinyrt_probe_packgrad2_info",
+                 "tinyrt_probe_seglayout_info"):
         fn = getattr(lib, name)
         fn.argtypes = [i, ip]
         fn.restype = i

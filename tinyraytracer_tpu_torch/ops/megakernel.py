@@ -534,6 +534,9 @@ class MegakernelRenderer:
     """Scene-bound forward renderer: one kernel launch per image, or per
     mesh cell with `render(mesh=)`.
 
+    `device` defaults to the card, as every entry point of the port does:
+    the reference's three-argument call binds the renderer to CUDA.
+    Nothing is lowered onto it or launched before `render`.
     `chunk_cull` (K2 only): None culls when the scene has more than
     AUTO_CULL_ROWS padded active rows and at least one sphere, as the JAX
     package does; True or False forces it. Host lowerings and their
@@ -541,7 +544,7 @@ class MegakernelRenderer:
     """
 
     def __init__(self, scene: SceneArrays, camera: Camera, background,
-                 device, chunk_cull: bool | None = None):
+                 device="cuda", chunk_cull: bool | None = None):
         self.device = torch.device(device)
         self.scene = scene
         self.camera = camera

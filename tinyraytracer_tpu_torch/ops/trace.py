@@ -130,13 +130,14 @@ def trace(
     background,
     exact: bool = False,
     remat: bool = True,
+    bvh=None,
     compact=None,
+    *,
     nee: bool = False,
     silhouette: bool = False,
     count_alive: bool = False,
     tape: Optional[SelectionTape] = None,
     rows: Optional[SceneRows] = None,
-    bvh=None,
 ):
     """Path-trace a ray wavefront. Returns (R, 3) linear radiance, and
     with `count_alive=True` also the per-bounce alive ray counts
@@ -151,6 +152,10 @@ def trace(
     `remat` (with autograd on) recomputes each bounce in the backward
     pass from its saved selections instead of keeping its graph.
     `rows` is `scene_rows(scene)`, computed when not given.
+    The positional parameters are the reference's
+    (tinyraytracer_tpu/ops/trace.py) through `compact`; the rest are
+    keyword only, so a call in the reference's positional form binds as
+    there or raises TypeError.
     """
     dev = origins.device
     r = origins.shape[0]

@@ -15,8 +15,9 @@ launches (`packgrad.launches`, ...).
 
 A grid step of the TPU becomes a CUDA block (or, for P4, the blocks of
 one step's rays), all steps side by side, each storing the whole output
-block: the kernel does the probe's GRID x block of work, and GRID = 1
-gives the same bits as the probe's GRID.
+block (P3: only the last step stores it, as the TPU writes its one
+output block back once): the kernel does the probe's GRID x block of
+work, and GRID = 1 gives the same bits as the probe's GRID.
 
 Inputs are made with numpy: the probe's own constants, or a seeded
 variant that can show a wrong index (`packgrad2_inputs`,
@@ -25,8 +26,10 @@ tables, `P4_SPECIAL`). `OPS_PER_ELEMENT` counts each kernel's FP32
 operations in utils/sol.py's rule; `bound` turns them into the least
 time the card could take. `issue_bound_ms` and `shared_bound_ms` give
 the bounds of a kernel's issued instructions (read off its SASS) and of
-P2 A's shared-memory traffic (`shared_bytes`); `kernel_info` reads a P2
-or P4 kernel's blocks a SM and registers off the card.
+shared-memory traffic (P2 A's scatter, `shared_bytes`; P3 C's gathers,
+`gather_bytes`); `kernel_info` reads a P2, P3 or P4 kernel's blocks a SM
+and registers off the card; `graph_ms` times a launch on the device
+alone (a CUDA graph of wrapper calls).
 """
 
 from __future__ import annotations
@@ -325,8 +328,9 @@ def packgrad2_reference(body: str, pay=None, device="cpu",
                         bounces: int = P3_BOUNCES) -> torch.Tensor:
     """Body C (the (16, 256) gather from `pay`) or D (the (24, 128)
     table; no input) of scripts/probe_packgrad2.py after `bounces`
-    bounces, in the kernel's order (bit for bit with it and with the JAX
-    body)."""
+    bounces, bit for bit with the kernel and the JAX body: C in the
+    kernel's order; D's integer sums are exact in any order (the kernel
+    runs its sublanes outside its bounces, this twin inside)."""
     _check_counts(1, bounces)
     if body == "C":
         _check_tensor("pay", pay, (P3_F, NA))
@@ -745,6 +749,14 @@ def shared_bytes(grid: int = P2_GRID, bounces: int = P2_BOUNCES) -> int:
     return grid * (width // 32) * bounces * s_n * NA * P2_K * 4 * 2
 
 
+def gather_bytes(grid: int = P3_GRID, bounces: int = P3_BOUNCES) -> int:
+    """Shared-memory bytes P3 C's gathers read over `grid` steps: each
+    element and bounce its 8 fields, 4 bytes each, by a lane's own load.
+    A warp's 32 lanes reach only 24 columns, but its loads still take 8
+    wavefronts of 128 bytes: one a 4-byte load, four a 16-byte one."""
+    return element_bounces("packgrad2", None, grid, bounces) * P3_FIELDS * 4
+
+
 def issue_bound_ms(instructions: float, elements: int, sms: int,
                    clock_mhz: float) -> float:
     """The least time `elements` element-bounces take when each issues
@@ -760,10 +772,12 @@ def shared_bound_ms(nbytes: int, sms: int, clock_mhz: float) -> float:
 
 
 def kernel_info(probe: str, body: str, device="cuda") -> dict:
-    """P2's or P4's kernel for `body` as the card runs it: its resident
-    blocks of 256 a SM and its registers a thread. Raises off a card."""
+    """P2's, P3's or P4's kernel for `body` as the card runs it: its
+    resident blocks of 256 a SM and its registers a thread. Raises off a
+    card."""
     dev = _device(device)
-    if dev.type != "cuda" or probe not in ("packgrad", "seglayout"):
+    if dev.type != "cuda" or probe not in ("packgrad", "packgrad2",
+                                           "seglayout"):
         raise ValueError(f"no kernel information for {probe} on {dev}")
     info = (ctypes.c_int * 2)()
     lib = _build.load()
@@ -783,6 +797,26 @@ def launch_ms(fn) -> tuple:
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device ms a launch of `fn` (a wrapper call): `launches` calls
+    captured in one CUDA graph, replayed `replays` times between CUDA
+    events, the best replay over `launches`. No host work between the
+    kernels, so a kernel shorter than its wrapper's host path is timed,
+    not the host. The calls in the capture add to the wrapper's launch
+    count; the replays do not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    return min(launch_ms(graph.replay)[1] / launches for _ in range(replays))
 
 
 def best_ms(fn, runs: int) -> tuple:
