@@ -59,12 +59,9 @@ import torch
 from tinyraytracer_tpu_torch.diff.inverse import make_fused_train_step
 from tinyraytracer_tpu_torch.models import presets
 from tinyraytracer_tpu_torch.ops import diffkernel as dk
-from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
-from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
 from tinyraytracer_tpu_torch.ops import megakernel as mk
-from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 from tinyraytracer_tpu_torch.renderer import Renderer
-from tinyraytracer_tpu_torch.utils import sol
+from tinyraytracer_tpu_torch.utils import profiling, sol
 from tinyraytracer_tpu_torch.utils.device import resolve_device
 
 BASELINE_RAYS_PER_SEC = 1.0e7  # bench.py's estimate of the reference CPU
@@ -107,19 +104,19 @@ KEYS = frozenset(
 # Numbers that may be zero or negative (a difference).
 SIGNED = frozenset(["cfg1_dispatch_overhead_ms"])
 
-# The kernels' wrappers (module, name), by the ids the repository's
-# documents use.
-KERNELS = {"K1": (mkp, "render_packed"), "K2": (mk, "render_flat"),
-           "K3": (ik, "closest_hit"), "K4": (dk, "classic_diff"),
-           "K5": (dkp, "packed_diff")}
+# The kernels' wrappers, by the ids the repository's documents use.
+KERNELS = {"K1": "render_packed", "K2": "render_flat", "K3": "closest_hit",
+           "K4": "classic_diff", "K5": "packed_diff"}
 
 
 def runs(device) -> dict | None:
-    """Each kernel's wrapper's launches on a CUDA device; None on the
-    CPU, where no kernel launches."""
+    """Each kernel's wrapper's launches on a CUDA device (the host
+    counters `launches.<wrapper>`, utils/profiling.py); None on the CPU,
+    where no kernel launches."""
     if device.type != "cuda":
         return None
-    return {k: getattr(m, f).launches for k, (m, f) in KERNELS.items()}
+    return {k: profiling.counter(f"launches.{name}")
+            for k, name in KERNELS.items()}
 
 
 @contextlib.contextmanager

@@ -247,7 +247,7 @@ sys.path.insert(0, ROOT)
 
 # The roofline model (FP32 operations per unit of work, the card's peaks,
 # the kernels' bounds) is defined once, in the package.
-from tinyraytracer_tpu_torch.utils import sol  # noqa: E402
+from tinyraytracer_tpu_torch.utils import profiling, sol  # noqa: E402
 
 # Kernel vs twin on one card (phase 3): see tests/test_torch_cuda.py.
 PARITY_ATOL = 1e-5
@@ -385,6 +385,24 @@ LIT_BG = (0.01, 0.01, 0.015)
 
 def log(*a):
     print(*a, flush=True)
+
+
+# Each wrapper's launches at its last zero_launches (the host counters
+# `launches.<wrapper>` only rise).
+_LAUNCH_BASE: dict = {}
+
+
+def n_launches(fn) -> int:
+    """Launches of the kernel wrapper `fn` since zero_launches(fn) (its host
+    counter, utils/profiling.py)."""
+    name = fn.__name__
+    return profiling.counter(f"launches.{name}") - _LAUNCH_BASE.get(name, 0)
+
+
+def zero_launches(*fns) -> None:
+    for fn in fns:
+        _LAUNCH_BASE[fn.__name__] = profiling.counter(
+            f"launches.{fn.__name__}")
 
 
 def env_phase(torch):
@@ -623,11 +641,11 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
         r, kw = _scene(presets, mk, name, {}, w, h)
         args = _packed_args(r, w, h, 4, min(kw["max_bounces"], 8), seed=3)
         args.update(o)
-        before = mkp.render_packed.launches
+        before = n_launches(mkp.render_packed)
         launch = lambda: mkp.render_packed(r.table, r.cam, **args)  # noqa
         got = launch()
         torch.cuda.synchronize()
-        if mkp.render_packed.launches != before + 1:
+        if n_launches(mkp.render_packed) != before + 1:
             raise RuntimeError("K1 launch counter did not rise")
         _repeat_check(torch, f"K1 {name}", launch, got)
         want = mkp.render_packed_reference(r.table, r.cam, **args)
@@ -642,10 +660,10 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
         args = r.flat_args(spp=4, max_bounces=min(kw["max_bounces"], 8),
                            seed=3)
         args.update(o)
-        before = mk.render_flat.launches
+        before = n_launches(mk.render_flat)
         got = mk.render_flat(**args)
         torch.cuda.synchronize()
-        if mk.render_flat.launches != before + 1:
+        if n_launches(mk.render_flat) != before + 1:
             raise RuntimeError("K2 launch counter did not rise")
         _repeat_check(torch, f"K2 {label}", lambda: mk.render_flat(**args),
                       got)
@@ -710,14 +728,14 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
 def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
     results = {}
-    mkp.render_packed.launches = 0
-    mk.render_flat.launches = 0
+    zero_launches(mkp.render_packed, mk.render_flat)
     for label, name, pkw, w, h, spp, mb, _ in CONFIGS:
         world, camera, kw = presets.PRESETS[name](width=w, height=h, **pkw)
         renderer = Renderer(spp, max_bounces=mb,
                             background_color=kw["background"], seed=0,
                             device="cuda")
-        before = (mkp.render_packed.launches, mk.render_flat.launches)
+        before = (n_launches(mkp.render_packed),
+                  n_launches(mk.render_flat))
         fb = renderer.render_array(camera, world.build())   # warm-up
         torch.cuda.synchronize()
         if tuple(fb.shape) != (h, w, 3) or not bool(torch.isfinite(fb).all()):
@@ -730,8 +748,8 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
         image = renderer.render(camera, world)   # ends in a host copy
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        rose = (mkp.render_packed.launches - before[0],
-                mk.render_flat.launches - before[1])
+        rose = (n_launches(mkp.render_packed) - before[0],
+                n_launches(mk.render_flat) - before[1])
         want = (2, 0) if label in ("cfg1", "cfg2", "cfg3") else (0, 2)
         if rose != want:
             raise RuntimeError(f"{label}: launches (K1, K2) rose by {rose}, "
@@ -762,8 +780,8 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
                 f"red right {r_ok}")
             if not (g_ok and r_ok):
                 raise RuntimeError("Cornell box orientation is wrong")
-    launches = {"K1": mkp.render_packed.launches,
-                "K2": mk.render_flat.launches}
+    launches = {"K1": n_launches(mkp.render_packed),
+                "K2": n_launches(mk.render_flat)}
     log(f"[main] launches in the main path: {launches}")
     if min(launches.values()) < 1:
         raise RuntimeError("the main path did not launch every kernel")
@@ -1320,10 +1338,11 @@ def k3_phase(torch, presets, ik, trace_ops, generate_rays, card):
             for need_j in (True, False):
                 outs = []
                 for _ in range(2):
-                    before = ik.closest_hit.launches
+                    before = n_launches(ik.closest_hit)
                     outs.append(ik.closest_hit(c, o, d, need_j))
                     torch.cuda.synchronize()
-                    if ik.closest_hit.launches != before + (o.shape[0] > 0):
+                    if n_launches(ik.closest_hit) != before + (
+                            o.shape[0] > 0):
                         raise RuntimeError("K3 launch counter did not rise")
                 (t_k, j_k), (t_2, j_2) = outs
                 tag = f"{c.route}{'' if need_j else ' t-only'}"
@@ -1536,11 +1555,11 @@ def train_phase(torch, presets, ik, inverse, Renderer, card):
     plain = ik.compact_rows(scene, "cuda", plain=True)
 
     def run(compact=None):
-        before = ik.closest_hit.launches
+        before = n_launches(ik.closest_hit)
         out = step(p0, o0, 0) if compact is None else step(p0, o0, 0,
                                                            compact)
         torch.cuda.synchronize()
-        return out, ik.closest_hit.launches - before
+        return out, n_launches(ik.closest_hit) - before
 
     (pk, ok_, lk), nk = run()
     (pk2, ok2, lk2), _ = run()
@@ -1655,22 +1674,22 @@ def cfg5_phase(torch, presets, ik, inverse, trace_ops, Renderer, card):
     counters = {"K1": 0, "K2": 0, "K3": 0}
     from tinyraytracer_tpu_torch.ops import megakernel as mk
     from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
-    mkp.render_packed.launches = mk.render_flat.launches = 0
-    ik.closest_hit.launches = 0
+    zero_launches(mkp.render_packed, mk.render_flat, ik.closest_hit)
     inverse.mesh_value_and_grad = checking_vg
     try:
         state, loss0, warm_s = timed(step, state, 0)
         torch.cuda.reset_peak_memory_stats()
         times, per_step = [], []
         for i in (1, 2):
-            before = ik.closest_hit.launches
+            before = n_launches(ik.closest_hit)
             state, loss, dt = timed(step, state, i)
             times.append(dt)
-            per_step.append(ik.closest_hit.launches - before)
+            per_step.append(n_launches(ik.closest_hit) - before)
     finally:
         inverse.mesh_value_and_grad = real_vg
-    counters.update(K1=mkp.render_packed.launches,
-                    K2=mk.render_flat.launches, K3=ik.closest_hit.launches)
+    counters.update(K1=n_launches(mkp.render_packed),
+                    K2=n_launches(mk.render_flat),
+                    K3=n_launches(ik.closest_hit))
     peak = torch.cuda.max_memory_allocated()
     step_s = min(times)
     rounds = spp // chunk
@@ -2121,11 +2140,11 @@ def k5_phase(torch, np, presets, dkp, card):
                 h, w, 3).astype(np.float32) * 0.5).cuda()
             args = dict(spec=spec, width=w, height=h, spp=spp,
                         max_bounces=mb, seed=3)
-            before = dkp.packed_diff.launches
+            before = n_launches(dkp.packed_diff)
             got = dkp.packed_diff(tab, cvec, tgt, **args)
             again = dkp.packed_diff(tab, cvec, tgt, **args)
             torch.cuda.synchronize()
-            if dkp.packed_diff.launches != before + 2:
+            if n_launches(dkp.packed_diff) != before + 2:
                 raise RuntimeError("K5 launch counter did not rise")
             want = dkp.packed_diff_reference(tab, cvec, tgt, **args)
             det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -2272,11 +2291,11 @@ def diff_twin_check(torch, dkp, tag, kernel, label, args, tab, cvec, tgt,
     largest entry, the two launches bit for bit, all finite. Returns the
     kernel's outputs, whether all held, the message, the largest table
     ratio and the largest |d|."""
-    before = kernel.launches
+    before = n_launches(kernel)
     got = kernel(tab, cvec, tgt, **args)
     again = kernel(tab, cvec, tgt, **args)
     torch.cuda.synchronize()
-    if kernel.launches != before + 2:
+    if n_launches(kernel) != before + 2:
         raise RuntimeError(f"{label}: the launch counter did not rise")
     want = dkp.packed_diff_reference(tab, cvec, tgt, **(twin_args or args))
     det = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -2407,12 +2426,12 @@ def fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card):
                                                 64, 16)
     scene = template.to("cuda")
     bg = kw["background"]
-    before = (dkp.packed_diff.launches, ik.closest_hit.launches)
+    before = (n_launches(dkp.packed_diff), n_launches(ik.closest_hit))
     lf, _img, gf = dk.render_value_and_grad(
         scene, camera, target, spp=spp, max_bounces=mb, background=bg,
         seed=0)
     torch.cuda.synchronize()
-    k5_n = dkp.packed_diff.launches - before[0]
+    k5_n = n_launches(dkp.packed_diff) - before[0]
     from tinyraytracer_tpu_torch.diff.params import scene_params
     lm, gm = inverse.value_and_grad(
         lambda p: inverse.render_loss(
@@ -2434,13 +2453,13 @@ def fused_phase(torch, presets, ik, dk, dkp, inverse, Renderer, card):
             rels.values()) > FUSED_GRAD_RTOL:
         raise RuntimeError("the fused and modular gradients disagree")
     for engine, steps in (("fused", 3), ("auto", 2)):
-        before = (dkp.packed_diff.launches, ik.closest_hit.launches)
+        before = (n_launches(dkp.packed_diff), n_launches(ik.closest_hit))
         _, losses = inverse.fit(
             template, camera, target, steps=steps, spp=spp, max_bounces=mb,
             background=bg, trainable=TRAINABLE, engine=engine,
             device="cuda")
-        n5 = dkp.packed_diff.launches - before[0]
-        n3 = ik.closest_hit.launches - before[1]
+        n5 = n_launches(dkp.packed_diff) - before[0]
+        n3 = n_launches(ik.closest_hit) - before[1]
         log(f"[fused] fit(engine={engine!r}, steps={steps}): losses "
             f"{[round(x, 6) for x in losses]}; K5 launches {n5}, K3 {n3}")
         if n5 != steps or n3 != 0 or not all(math.isfinite(x)
@@ -2540,15 +2559,16 @@ def cfg5_fused_phase(torch, presets, dk, dkp, inverse, Renderer, card):
 
 
 def _counters(ik, mk, mkp, dk, dkp):
-    return {"K1": mkp.render_packed.launches, "K2": mk.render_flat.launches,
-            "K3": ik.closest_hit.launches, "K4": dk.classic_diff.launches,
-            "K5": dkp.packed_diff.launches}
+    return {"K1": n_launches(mkp.render_packed),
+            "K2": n_launches(mk.render_flat),
+            "K3": n_launches(ik.closest_hit),
+            "K4": n_launches(dk.classic_diff),
+            "K5": n_launches(dkp.packed_diff)}
 
 
 def _zero_counters(ik, mk, mkp, dk, dkp):
-    mkp.render_packed.launches = mk.render_flat.launches = 0
-    ik.closest_hit.launches = dk.classic_diff.launches = 0
-    dkp.packed_diff.launches = 0
+    zero_launches(mkp.render_packed, mk.render_flat, ik.closest_hit,
+                  dk.classic_diff, dkp.packed_diff)
 
 
 def cfg4f_phase(torch, presets, ik, mk, mkp, dk, dkp, inverse, card):
@@ -4081,9 +4101,9 @@ def sol_phase(torch, card):
         os.path.join(ROOT, "scripts", "torch_probe_vpu_microbench.py"))
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    mb.microbench.launches = 0
+    zero_launches(mb.microbench)
     line = probe.main()
-    launches = mb.microbench.launches
+    launches = n_launches(mb.microbench)
     for mix in mb.MIXES:
         log(f"[sol] {mix}: {line[f'{mix}_tops']:.4f} T counted ops/s "
             f"({line[f'{mix}_s']:.4f} s, {line[f'{mix}_iters']} iterations "
@@ -4410,16 +4430,17 @@ def probes_phase(torch, card, clock_mhz=None):
         script = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(script)
         for f in counters.values():
-            f.launches = 0
+            zero_launches(f)
         lines[probe] = script.main()
-        launches[probe] = fn.launches
-        others = {p: f.launches for p, f in counters.items() if p != probe}
-        log(f"[probes] scripts/torch_probe_{probe}.py: {fn.launches} "
+        launches[probe] = n_launches(fn)
+        others = {p: n_launches(f) for p, f in counters.items()
+                  if p != probe}
+        log(f"[probes] scripts/torch_probe_{probe}.py: {n_launches(fn)} "
             f"launches (want {PROBE_LAUNCHES[probe]}), the other probes' "
             f"{others}; on {card}")
-        if fn.launches != PROBE_LAUNCHES[probe] or any(others.values()):
+        if n_launches(fn) != PROBE_LAUNCHES[probe] or any(others.values()):
             raise RuntimeError(f"torch_probe_{probe}.py launched its kernel "
-                               f"{fn.launches} times")
+                               f"{n_launches(fn)} times")
     for (body, shape, seed), ms in seg_ms.items():
         if seed == str(probes.P4_SEED_LIVE):
             ratio = seg_ms[body, shape, "None"] / ms

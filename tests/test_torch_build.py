@@ -86,15 +86,17 @@ def test_declare_types_every_exported_function():
     _build._declare(lib)
     p = ctypes.c_void_p
     packed = lib.tinyrt_megakernel_packed.argtypes
-    assert len(packed) == 21
-    assert [k for k, t in enumerate(packed) if t is p] == [0, 1, 5, 6, 20]
+    assert len(packed) == 22
+    # ... the device's counter buffer (or None) and the stream
+    assert [k for k, t in enumerate(packed) if t is p] == [0, 1, 5, 6, 20,
+                                                           21]
     assert packed[9] is packed[10] is ctypes.c_uint
     assert packed[13] is ctypes.c_float
     assert packed[18] is packed[19] is ctypes.c_int     # the pixel range
     flat = lib.tinyrt_megakernel_flat.argtypes
-    assert len(flat) == 27
+    assert len(flat) == 28
     assert [k for k, t in enumerate(flat) if t is p] == [0, 1, 4, 6, 8, 11,
-                                                         12, 26]
+                                                         12, 26, 27]
     assert flat[24] is flat[25] is ctypes.c_int
     assert flat[19] is ctypes.c_float
     assert flat[15] is flat[16] is ctypes.c_uint
@@ -112,16 +114,17 @@ def test_declare_types_every_exported_function():
     assert [k for k, t in enumerate(k3) if t is ctypes.c_longlong] == [
         1, 2, 4, 5, 15]
     k5 = lib.tinyrt_diff_packed.argtypes
-    assert len(k5) == 34
+    assert len(k5) == 35
+    # ... the stage events (or None) and the stream
     assert [k for k, t in enumerate(k5) if t is p] == [0, 1, 8, 9, 10, 11,
-                                                       12, 30, 33]
+                                                       12, 30, 33, 34]
     assert k5[15] is k5[16] is ctypes.c_uint and k5[19] is ctypes.c_float
     assert k5[31] is k5[32] is ctypes.c_int
     k4 = lib.tinyrt_diff_classic.argtypes
-    assert len(k4) == 35
+    assert len(k4) == 36
     assert [k for k, t in enumerate(k4) if t is p] == [0, 1, 7, 9, 11, 12,
                                                        13, 14, 15, 16, 31,
-                                                       34]
+                                                       34, 35]
     assert k4[21] is k4[22] is ctypes.c_uint and k4[25] is ctypes.c_float
     assert k4[32] is k4[33] is ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)

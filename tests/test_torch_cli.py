@@ -43,8 +43,9 @@ def test_cli_rejects_unknown_accelerator(tmp_path):
 
 
 def test_cli_profile_writes_trace(tmp_path):
-    """--profile DIR writes a Chrome trace holding the render's ops beside
-    the PNG."""
+    """--profile DIR writes a Chrome trace holding the render's ops and
+    spans beside the PNG, and the spans' and counters' snapshot beside the
+    trace (utils/profiling.py)."""
     out, prof = tmp_path / "p.png", tmp_path / "prof"
     assert cli_main(_args(out, "--accelerator", "bvh", "--profile",
                           str(prof))) == 0
@@ -55,6 +56,18 @@ def test_cli_profile_writes_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "aten::index_select" in names
+    assert {"tinyrt.render", "tinyrt.render.gamma"} <= names
+    counts = glob.glob(os.path.join(prof, "*.counters.json"))
+    assert [c[:-len(".counters.json")] for c in counts] == [
+        files[0][:-len(".pt.trace.json")]]
+    with open(counts[0]) as f:
+        snap = json.load(f)
+    assert set(snap) == {"spans", "counters", "stages", "device"}
+    for name in ("tinyrt.render", "tinyrt.render.build",
+                 "tinyrt.render.readback", "tinyrt.render.gamma"):
+        assert snap["spans"][name]["count"] == 1, name
+        assert 0.0 <= snap["spans"][name]["self_ms"] <= snap["spans"][
+            name]["total_ms"]
 
 
 def test_profiling_annotate_spans_the_trace(tmp_path):

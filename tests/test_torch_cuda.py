@@ -17,6 +17,7 @@ from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
 from tinyraytracer_tpu_torch.ops import megakernel as mk
 from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 from tinyraytracer_tpu_torch.ops import trace as trace_ops
+from tinyraytracer_tpu_torch.utils import profiling
 from torch_k3_scenes import k3_world
 
 # Kernel vs twin on one card. Both use the card's sinf/cosf/expf/logf,
@@ -53,10 +54,10 @@ def test_packed_kernel_matches_twin(cuda, name):
     args = dict(n_sph=low.n_sph, n_quad=low.n_quad, width=64, height=48,
                 spp=4, max_bounces=min(kw["max_bounces"], 8), seed=3,
                 has_met=low.has_met, has_die=low.has_die, sky=low.sky)
-    before = mkp.render_packed.launches
+    before = profiling.counter("launches.render_packed")
     got = mkp.render_packed(r.table, r.cam, **args)
     torch.cuda.synchronize()
-    assert mkp.render_packed.launches == before + 1
+    assert profiling.counter("launches.render_packed") == before + 1
     want = mkp.render_packed_reference(r.table, r.cam, **args)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert got.shape == (48, 64, 3) and np.isfinite(got).all()
@@ -70,10 +71,10 @@ def test_renderer_on_cuda_launches_kernel(cuda):
     from tinyraytracer_tpu_torch import Renderer
 
     world, camera, kw = presets.cornell_box(width=32, height=32)
-    before = mkp.render_packed.launches
+    before = profiling.counter("launches.render_packed")
     img = Renderer(4, max_bounces=4, background_color=kw["background"],
                    device=cuda).render(camera, world)
-    assert mkp.render_packed.launches == before + 1
+    assert profiling.counter("launches.render_packed") == before + 1
     assert img.data.shape == (32, 32, 3) and np.isfinite(img.data).all()
 
 
@@ -94,10 +95,10 @@ def test_flat_kernel_matches_twin(cuda, name, pkw, forced):
     r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
     assert r.chunk_cull == (pkw.get("n") == 8000)
     args = r.flat_args(spp=4, max_bounces=min(kw["max_bounces"], 8), seed=3)
-    before = mk.render_flat.launches
+    before = profiling.counter("launches.render_flat")
     got = mk.render_flat(**args)
     torch.cuda.synchronize()
-    assert mk.render_flat.launches == before + 1
+    assert profiling.counter("launches.render_flat") == before + 1
     del args["aabbs"]
     _assert_close(got, mk.render_flat_reference(**args))
     if forced:
@@ -238,10 +239,10 @@ def test_flat_kernel_refuses_misaligned_rows(cuda):
     sph = args["sph"]
     shifted = torch.empty(sph.numel() + 1, device=cuda)[1:].view(sph.shape)
     shifted.copy_(sph)
-    before = mk.render_flat.launches
+    before = profiling.counter("launches.render_flat")
     with pytest.raises(ValueError, match="aligned"):
         mk.render_flat(**{**args, "sph": shifted})
-    assert mk.render_flat.launches == before
+    assert profiling.counter("launches.render_flat") == before
 
 
 class _RayCapture:
@@ -274,10 +275,10 @@ def test_closest_hit_kernel_equals_twin(cuda, name, pkw):
                         nee=True, tape=cap)
     assert len(cap.rays) == 4
     for ro, rd in cap.rays:
-        before = ik.closest_hit.launches
+        before = profiling.counter("launches.closest_hit")
         t, j = ik.closest_hit(cs, ro, rd)
         torch.cuda.synchronize()
-        assert ik.closest_hit.launches == before + 1
+        assert profiling.counter("launches.closest_hit") == before + 1
         t_r, j_r = ik.closest_hit_reference(cs, ro, rd)
         assert torch.equal(t, t_r) and torch.equal(j, j_r)
 
@@ -299,10 +300,11 @@ def _k3_bitwise(cs, o, d):
         for need_j in (True, False):
             runs = []
             for _ in range(2):
-                before = ik.closest_hit.launches
+                before = profiling.counter("launches.closest_hit")
                 runs.append(ik.closest_hit(c, o, d, need_j))
                 torch.cuda.synchronize()
-                assert ik.closest_hit.launches == before + (o.shape[0] > 0)
+                assert profiling.counter("launches.closest_hit") == (
+                    before + (o.shape[0] > 0))
             for t, j in runs:
                 assert torch.equal(t, t_r), (c.route, need_j)
                 if need_j:
@@ -385,10 +387,11 @@ def test_closest_hit_strided_rays_and_t_only(cuda):
     _k3_bitwise(cs, wide[:, :3], wide[:, 3:])
     _k3_bitwise(cs, ro.t().contiguous().t(), rd.t().contiguous().t())
     t, j = ik.closest_hit(cs, ro, rd)
-    before = ik.closest_hit.launches
+    before = profiling.counter("launches.closest_hit")
     t1, j1 = ik.closest_hit(cs, ro, rd, need_j=False)
     torch.cuda.synchronize()
-    assert ik.closest_hit.launches == before + 1 and j1 is None
+    assert profiling.counter("launches.closest_hit") == before + 1
+    assert j1 is None
     assert torch.equal(t, t1)
 
 
@@ -408,13 +411,13 @@ def test_train_step_kernel_equals_twin_and_counts_launches(cuda):
         device=cuda)
     assert step.__defaults__[0] is not None          # K3 by default
     plain = ik.compact_rows(scene.to(cuda), cuda, plain=True)
-    before = ik.closest_hit.launches
+    before = profiling.counter("launches.closest_hit")
     pk, _, lk = step(p0, o0, 0)
     torch.cuda.synchronize()
-    assert ik.closest_hit.launches == before + 2 * 4 * 1
+    assert profiling.counter("launches.closest_hit") == before + 2 * 4 * 1
     pt, _, lt = step(p0, o0, 0, plain)
     torch.cuda.synchronize()
-    assert ik.closest_hit.launches == before + 8
+    assert profiling.counter("launches.closest_hit") == before + 8
     assert torch.equal(lk, lt)
     for k in pk:
         assert torch.equal(pk[k], pt[k]), k
@@ -442,11 +445,11 @@ def test_diff_kernel_matches_twin(cuda, name, flags):
         scene.to(cuda), camera, target, bg, None, True,
         flags.get("sil", True), True, flags.get("surr_quad", True))
     kw = dict(spec=spec, width=32, height=24, spp=2, max_bounces=5, seed=3)
-    before = dkp.packed_diff.launches
+    before = profiling.counter("launches.packed_diff")
     got = dkp.packed_diff(tab, cam, tgt, **kw)
     again = dkp.packed_diff(tab, cam, tgt, **kw)
     torch.cuda.synchronize()
-    assert dkp.packed_diff.launches == before + 2
+    assert profiling.counter("launches.packed_diff") == before + 2
     want = dkp.packed_diff_reference(tab, cam, tgt, **kw)
     assert torch.equal(got[0], want[0])
     for a, b, c in zip(got, want, again):
@@ -460,7 +463,6 @@ def test_fused_train_step_runs_on_k5(cuda):
     """One fused step on the card: one K5 launch, finite params, and the
     untrained fields unmoved."""
     from tinyraytracer_tpu_torch.diff import inverse
-    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
     world, camera, kw = presets.cornell_spheres(width=32, height=32)
     scene = world.build()
@@ -468,10 +470,10 @@ def test_fused_train_step_runs_on_k5(cuda):
         scene, camera, torch.zeros((32, 32, 3)), spp=2, max_bounces=4,
         background=kw["background"], trainable=("sph_center", "mat_albedo"),
         device=cuda)
-    before = dkp.packed_diff.launches
+    before = profiling.counter("launches.packed_diff")
     p1, _, loss = step(p0, o0, 0)
     torch.cuda.synchronize()
-    assert dkp.packed_diff.launches == before + 1
+    assert profiling.counter("launches.packed_diff") == before + 1
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(v).all()) for v in p1.values())
     assert torch.equal(p1["quad_corner"], p0["quad_corner"])
@@ -519,11 +521,11 @@ def test_classic_diff_kernel_matches_twin(cuda, scope):
     _, tab, cam, tgt, spec = dkp._inputs(scene.to(cuda), camera, target, bg,
                                          None, True, True, surr, True)
     kw = dict(spec=spec, width=32, height=24, spp=2, max_bounces=4, seed=3)
-    before = dk.classic_diff.launches
+    before = profiling.counter("launches.classic_diff")
     got = dk.classic_diff(tab, cam, tgt, **kw)
     again = dk.classic_diff(tab, cam, tgt, **kw)
     torch.cuda.synchronize()
-    assert dk.classic_diff.launches == before + 2
+    assert profiling.counter("launches.classic_diff") == before + 2
     _k4_check(dkp, got, dkp.packed_diff_reference(tab, cam, tgt, **kw),
               again)
 
@@ -568,11 +570,11 @@ def _fused_run(kernel, tab, cam, tgt, kw):
     from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
     fn = dkp.packed_diff if kernel == "K5" else dk.classic_diff
-    before = fn.launches
+    before = profiling.counter(f"launches.{fn.__name__}")
     got = fn(tab, cam, tgt, **kw)
     again = fn(tab, cam, tgt, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 2
+    assert profiling.counter(f"launches.{fn.__name__}") == before + 2
     return got, again, dkp.packed_diff_reference(tab, cam, tgt, **kw)
 
 
@@ -774,10 +776,10 @@ def test_forward_kernels_on_a_pixel_range_equal_twins(cuda, route):
         counter = mk.render_flat
     whole = fn().reshape(-1, 3)
     for b, n in PIXEL_RANGES:
-        before = counter.launches
+        before = profiling.counter(f"launches.{counter.__name__}")
         got = fn(pixels=(b, n))
         torch.cuda.synchronize()
-        assert counter.launches == before + 1
+        assert profiling.counter(f"launches.{counter.__name__}") == before + 1
         assert got.shape == (n, 3)
         assert torch.equal(got, twin(pixels=(b, n)))
         assert torch.equal(got, whole[b:b + n])
@@ -835,13 +837,13 @@ def test_mesh_routes_on_one_card(cuda):
     r = mk.MegakernelRenderer(world.build(), camera, kw["background"], cuda)
     ref = r.render(spp=4, max_bounces=6, seed=3)
     dev = [cuda] * 4
-    before = mkp.render_packed.launches
+    before = profiling.counter("launches.render_packed")
     tile = r.render(spp=4, max_bounces=6, seed=3,
                     mesh=sharded.make_mesh(dev))
     split = r.render(spp=4, max_bounces=6, seed=3,
                      mesh=sharded.make_mesh(dev, sample_parallel=2))
     torch.cuda.synchronize()
-    assert mkp.render_packed.launches == before + 8
+    assert profiling.counter("launches.render_packed") == before + 8
     assert torch.equal(tile, ref)
     assert float((split - ref).abs().max()) <= 1e-6
     world, camera, kw = presets.cornell_spheres(width=32, height=32)
@@ -881,13 +883,11 @@ def test_bvh_renderer_runs_no_kernel(cuda):
     route's image (selection rounds apart: MAX_FRAC of pixels may differ)
     and launches none of K1-K5."""
     from tinyraytracer_tpu_torch import Renderer
-    from tinyraytracer_tpu_torch.ops import diffkernel as dk
-    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
     def counts():
-        return (mkp.render_packed.launches, mk.render_flat.launches,
-                ik.closest_hit.launches, dk.classic_diff.launches,
-                dkp.packed_diff.launches)
+        return tuple(profiling.counter(f"launches.{name}") for name in (
+            "render_packed", "render_flat", "closest_hit", "classic_diff",
+            "packed_diff"))
 
     world, camera, kw = presets.random_spheres(width=32, height=24, n=200)
     args = dict(max_bounces=6, background_color=kw["background"], seed=1,
@@ -931,7 +931,6 @@ def test_fused_step_takes_a_background_on_the_card(cuda):
     """A background tensor on the card (as the JAX examples pass a device
     array): the fused step routes to K5 and gives the tuple's bits."""
     from tinyraytracer_tpu_torch.diff import inverse
-    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
     world, camera, kw = presets.cornell_spheres(width=32, height=32)
     scene = world.build()
@@ -942,10 +941,10 @@ def test_fused_step_takes_a_background_on_the_card(cuda):
         step, (p0, o0) = inverse.make_fused_train_step(
             scene, camera, target, spp=2, max_bounces=4, background=bg,
             trainable=("sph_center", "mat_albedo"), device=cuda)
-        before = dkp.packed_diff.launches
+        before = profiling.counter("launches.packed_diff")
         runs.append(step(p0, o0, 0))
         torch.cuda.synchronize()
-        assert dkp.packed_diff.launches == before + 1
+        assert profiling.counter("launches.packed_diff") == before + 1
     assert torch.equal(runs[0][2], runs[1][2])
     for k, v in runs[0][0].items():
         assert torch.equal(v, runs[1][0][k]), k
@@ -967,11 +966,11 @@ def test_microbench_kernel_matches_twin(cuda, mix):
     assert MICROBENCH_ULP["transcendental"] == mb.TRANSC_ULP
     n = mb.wave(mix, cuda)
     x0 = mb.inputs(n, 2, cuda)
-    before = mb.microbench.launches
+    before = profiling.counter("launches.microbench")
     got = mb.microbench(mix, x0, 64)
     again = mb.microbench(mix, x0, 64)
     torch.cuda.synchronize()
-    assert mb.microbench.launches == before + 2
+    assert profiling.counter("launches.microbench") == before + 2
     want = mb.microbench_reference(mix, x0, 64)
     ulps = int((got.view(torch.int32).long() - want.view(torch.int32).long())
                .abs().max())
@@ -986,9 +985,10 @@ def test_microbench_measure_counts_its_launches(cuda, monkeypatch):
     from tinyraytracer_tpu_torch.utils import microbench as mb
 
     monkeypatch.setattr(mb, "RUN_SECONDS", 0.02)
-    before = mb.microbench.launches
+    before = profiling.counter("launches.microbench")
     res = mb.measure(cuda)
-    assert mb.microbench.launches == before + 5 * len(mb.MIXES)
+    assert profiling.counter("launches.microbench") == (
+        before + 5 * len(mb.MIXES))
     assert set(res) == set(mb.MIXES)
     for r in res.values():
         assert r["tops"] > 0 and r["sm_clock_mhz"] > 0
@@ -1052,8 +1052,8 @@ def _probe_cases(cuda):
 def test_probe_kernels_match_their_twins(cuda):
     from tinyraytracer_tpu_torch.utils import probes as pr
 
-    counters = (pr.packgrad, pr.packgrad2, pr.seglayout, pr.sublanes)
-    before = sum(f.launches for f in counters)
+    names = ("packgrad", "packgrad2", "seglayout", "sublanes")
+    before = sum(profiling.counter(f"launches.{n}") for n in names)
     cases = _probe_cases(cuda)
     extra = 0
     for label, launch, twin, rtol in cases:
@@ -1071,8 +1071,8 @@ def test_probe_kernels_match_their_twins(cuda):
                 want.abs().max()), label
         else:
             assert torch.equal(bits, want.view(torch.int32)), label
-    assert sum(f.launches for f in counters) == before + 3 * len(cases) \
-        + extra
+    assert sum(profiling.counter(f"launches.{n}") for n in names) == (
+        before + 3 * len(cases) + extra)
 
 
 @pytest.mark.cuda

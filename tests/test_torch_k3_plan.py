@@ -11,6 +11,7 @@ import torch
 from tinyraytracer_tpu_torch.models.camera import generate_rays
 from tinyraytracer_tpu_torch.ops import intersect_kernel as ik
 from tinyraytracer_tpu_torch.ops import trace as ttr
+from tinyraytracer_tpu_torch.utils import profiling
 from torch_k3_scenes import k3_world
 
 
@@ -91,12 +92,12 @@ def test_no_rays_select_nothing(need_j):
     scene, _, _ = _scene("cornell_spheres")
     cs = ik.compact_rows(scene, "cpu")
     none = torch.zeros((0, 3))
-    before = ik.closest_hit.launches
+    before = profiling.counter("launches.closest_hit")
     for c in (cs, dataclasses.replace(cs, bank=None)):
         t, j = ik.closest_hit(c, none, none, need_j)
         assert t.shape == (0,) and t.dtype == torch.float32
         assert (j is None) if not need_j else (j.shape == (0,))
-    assert ik.closest_hit.launches == before
+    assert profiling.counter("launches.closest_hit") == before
 
 
 def test_coincident_spheres_first_row_wins():
@@ -126,11 +127,11 @@ def test_t_only_selection_gives_the_same_t_and_no_j(route):
         cs = dataclasses.replace(cs, bank=None)
     pid = torch.arange(16 * 12)
     o, d = generate_rays(camera, pid, 0, 0)
-    before = ik.closest_hit.launches
+    before = profiling.counter("launches.closest_hit")
     t, j = ik.closest_hit(cs, o, d)
     t1, j1 = ik.closest_hit(cs, o, d, need_j=False)
     t2, j2 = ik.closest_hit_reference(cs, o, d, False)
-    assert ik.closest_hit.launches == before
+    assert profiling.counter("launches.closest_hit") == before
     assert j1 is None and j2 is None and j.dtype == torch.int32
     assert torch.equal(t, t1) and torch.equal(t, t2)
     assert ((j >= 0) == (t < ik.MISS_T)).all()

@@ -22,6 +22,7 @@ from tinyraytracer_tpu_torch.ops import megakernel as tmk
 from tinyraytracer_tpu_torch.ops import megakernel_packed as tmkp
 from tinyraytracer_tpu_torch.ops import scene_table as st
 from tinyraytracer_tpu_torch.ops import tonemap
+from tinyraytracer_tpu_torch.utils import profiling
 
 # Image tolerance, as tests/test_torch_megakernel.py states it for K1:
 # per-pixel |d| <= ATOL on at least 1 - MAX_FRAC of the pixels, image
@@ -171,12 +172,14 @@ def test_large_scene_routes_to_flat_twin(monkeypatch):
 
     monkeypatch.setattr(tmk, "render_flat_reference", spy)
     monkeypatch.setattr(tmkp, "render_packed_reference", no_packed)
-    before = (tmkp.render_packed.launches, tmk.render_flat.launches)
+    before = (profiling.counter("launches.render_packed"),
+              profiling.counter("launches.render_flat"))
     world, camera, kw = tpresets.random_spheres(width=12, height=8, n=60)
     img = Renderer(2, max_bounces=4, background_color=kw["background"],
                    seed=1, device="cpu").render(camera, world)
     assert calls == [60]
-    assert (tmkp.render_packed.launches, tmk.render_flat.launches) == before
+    assert (profiling.counter("launches.render_packed"),
+            profiling.counter("launches.render_flat")) == before
     r = tmk.MegakernelRenderer(world.build(), camera, kw["background"],
                                "cpu")
     args = r.flat_args(spp=2, max_bounces=4, seed=1)
@@ -217,10 +220,11 @@ def test_flat_wrapper_validates_and_counts_only_kernel_launches():
     r = tmk.MegakernelRenderer(world.build(), camera, kw["background"],
                                "cpu", chunk_cull=True)
     args = r.flat_args(spp=1, max_bounces=2)
-    before = tmk.render_flat.launches
+    before = profiling.counter("launches.render_flat")
     img = tmk.render_flat(**args)
     assert tuple(img.shape) == (6, 8, 3)
-    assert tmk.render_flat.launches == before     # the twin is no launch
+    # the twin is no launch
+    assert profiling.counter("launches.render_flat") == before
     bad = [
         dict(sph=args["sph"].double()),
         dict(quad=args["quad"][:, :8].contiguous()),

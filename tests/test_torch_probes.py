@@ -39,7 +39,7 @@ import torch
 
 import torch_probe_loader as loader
 from tinyraytracer_tpu_torch.utils import probes as pr
-from tinyraytracer_tpu_torch.utils import sol
+from tinyraytracer_tpu_torch.utils import profiling, sol
 
 TABLE_RTOL = 1e-5
 P4_SEED = pr.P4_SEED_SHORT
@@ -325,8 +325,8 @@ def test_sublanes_one_step_within_one_rounding():
 # --- wrappers, counts, bounds ------------------------------------------------------
 
 def test_wrappers_run_the_twins_on_the_cpu_and_check_their_input():
-    counters = (pr.packgrad, pr.packgrad2, pr.seglayout, pr.sublanes)
-    before = [f.launches for f in counters]
+    names = ("packgrad", "packgrad2", "seglayout", "sublanes")
+    before = [profiling.counter(f"launches.{n}") for n in names]
     assert torch.equal(pr.packgrad("B", "cpu", grid=7, bounces=2),
                        pr.packgrad_reference("B", "cpu", 2))
     pay = pr.packgrad2_inputs(1)
@@ -338,7 +338,8 @@ def test_wrappers_run_the_twins_on_the_cpu_and_check_their_input():
     x = pr.sublanes_inputs((2, 8), 0)
     assert torch.equal(pr.sublanes(x, grid=2, iters=5),
                        pr.sublanes_reference(x, 5))
-    assert [f.launches for f in counters] == before      # no kernel ran
+    # no kernel ran
+    assert [profiling.counter(f"launches.{n}") for n in names] == before
     with pytest.raises(ValueError, match="unknown body"):
         pr.packgrad("C", "cpu")
     with pytest.raises(ValueError, match="float32"):

@@ -8,8 +8,7 @@ import pytest
 
 from tinyraytracer_tpu_torch import Image, Renderer, RenderHandle
 from tinyraytracer_tpu_torch.models import presets
-from tinyraytracer_tpu_torch.ops import megakernel as mk
-from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
+from tinyraytracer_tpu_torch.utils import profiling
 
 # one scene for each kernel route: packed (K1) and classic layout (K2)
 SCENES = [("sphere_ground", {}), ("random_spheres", dict(n=60))]
@@ -25,7 +24,8 @@ def _setup(name, pkw, seed=0):
 @pytest.mark.parametrize("name, pkw", SCENES)
 def test_render_batch_frames_equal_single_renders(name, pkw):
     r, world, camera = _setup(name, pkw, seed=7)
-    before = (mkp.render_packed.launches, mk.render_flat.launches)
+    before = (profiling.counter("launches.render_packed"),
+              profiling.counter("launches.render_flat"))
     frames = r.render_batch(camera, world, [3, 0, 3])
     assert len(frames) == 3 and all(isinstance(f, Image) for f in frames)
     for s, img in zip([3, 0, 3], frames):
@@ -34,7 +34,8 @@ def test_render_batch_frames_equal_single_renders(name, pkw):
                                       single.render(camera, world).data)
     assert not np.array_equal(frames[0].data, frames[1].data)
     assert r.seed == 7                      # the renderer's seed is kept
-    assert (mkp.render_packed.launches, mk.render_flat.launches) == before
+    assert (profiling.counter("launches.render_packed"),
+            profiling.counter("launches.render_flat")) == before
     assert r.render_batch(camera, world, []) == []
 
 

@@ -21,9 +21,9 @@ from tinyraytracer_tpu_torch.models import presets
 from tinyraytracer_tpu_torch.models.camera import generate_rays
 from tinyraytracer_tpu_torch.ops import bvh as tbvh
 from tinyraytracer_tpu_torch.ops import megakernel as mk
-from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 from tinyraytracer_tpu_torch.ops import trace as ttr
 from tinyraytracer_tpu_torch.parallel import sharded
+from tinyraytracer_tpu_torch.utils import profiling
 
 W, H = 8, 6
 
@@ -35,7 +35,8 @@ def spheres():
 
 
 def _launches():
-    return mkp.render_packed.launches + mk.render_flat.launches
+    return (profiling.counter("launches.render_packed")
+            + profiling.counter("launches.render_flat"))
 
 
 def test_megakernel_renderer_defaults_to_the_card(spheres):

@@ -19,8 +19,9 @@ pixel's samples (parallel/sharded.py); `--device cuda:k` renders on that
 card alone. `--accelerator` picks the render path as the JAX CLI's does:
 the megakernels (`auto`, `megakernel`), the modular tracer with BVH
 selection (`bvh`) or with dense selection (`none`). `--profile DIR`
-writes a torch.profiler Chrome trace of the render into DIR
-(utils/profiling.py).
+writes a torch.profiler Chrome trace of the render into DIR and, beside
+it, the port's spans and counters (`*.counters.json`,
+utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def main(argv=None) -> int:
                          "dense selection")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler Chrome trace of the "
-                         "render into DIR (open it in Perfetto)")
+                         "render into DIR (open it in Perfetto), and the "
+                         "port's spans and counters beside it")
     args = ap.parse_args(argv)
 
     import torch

@@ -157,14 +157,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.tinyrt_megakernel_packed
     fn.argtypes = [p, p, i, i, i, p, p, i, i, u, u, i, i, f, i, i, i, i, i,
-                   i, p]
+                   i, p, p]
     fn.restype = i
     fn = lib.tinyrt_megakernel_packed_split
     fn.argtypes = [i, i, i, i, i, i, i]
     fn.restype = i
     fn = lib.tinyrt_megakernel_flat
     fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, p, i, i, u, u, i, i, f,
-                   i, i, i, i, i, i, p]
+                   i, i, i, i, i, i, p, p]
     fn.restype = i
     fn = lib.tinyrt_megakernel_flat_split
     fn.argtypes = [i, i, i, i, i, i]
@@ -179,7 +179,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i
     fn = lib.tinyrt_diff_packed
     fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i, i, u, u, i, i,
-                   f, i, i, i, i, i, i, i, i, i, i, p, i, i, p]
+                   f, i, i, i, i, i, i, i, i, i, i, p, i, i, p, p]
     fn.restype = i
     ip = ctypes.POINTER(i)
     fn = lib.tinyrt_diff_packed_occupancy
@@ -190,7 +190,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i
     fn = lib.tinyrt_diff_classic
     fn.argtypes = [p, p, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, i, i, i,
-                   i, u, u, i, i, f, i, i, i, i, i, p, i, i, p]
+                   i, u, u, i, i, f, i, i, i, i, i, p, i, i, p, p]
     fn.restype = i
     fn = lib.tinyrt_microbench
     fn.argtypes = [p, p, i, i, i, ctypes.POINTER(f), p]

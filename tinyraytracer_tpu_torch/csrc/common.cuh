@@ -335,7 +335,8 @@ __device__ __forceinline__ void camera_ray(const float* cam, float px,
 // of a pixel are cut into `split` contiguous parts, one thread each
 // (blockIdx.z is the part), and each thread writes every sample's colour
 // to samples[(s * npix + i) * 3 .. +3), which fold_kernel (megakernel.cu)
-// adds up in sample order.
+// adds up in sample order. `counts`, null unless the launch counts, is
+// the device's counter buffer (count_lanes).
 struct Frame {
   float* out;
   float* samples;
@@ -344,6 +345,7 @@ struct Frame {
   uint32_t seed, spp_offset;
   int spp, max_bounces, split;
   float inv_spp;
+  unsigned long long* counts;
 };
 
 // A Frame for the range [pix0, pix0 + npix), or a Frame with npix 0 when
@@ -359,7 +361,24 @@ inline Frame make_frame(float* out, float* samples, int width, int height,
   const int rows = ok ? (pix0 + npix - 1) / width - row0 + 1 : 0;
   return Frame{out,  samples, width,      height,      pix0,  npix, row0,
                rows, seed,    spp_offset, spp,         max_bounces, split,
-               inv_spp};
+               inv_spp, nullptr};
+}
+
+// Adds a warp's bounce segments (summed over its lanes) to counts[0] and
+// its loop passes to counts[1], one atomic each from the warp's first
+// lane. Every thread of the warp calls it, converged; the passes are the
+// same on every lane (the loop's exit is a warp vote). segments / (32 x
+// passes) is the share of issued lanes that did useful work.
+__device__ __forceinline__ void count_lanes(unsigned long long* counts,
+                                            unsigned int segments,
+                                            unsigned int passes) {
+  for (int o = 16; o > 0; o >>= 1) {
+    segments += __shfl_down_sync(0xffffffffu, segments, o);
+  }
+  if (((threadIdx.y * blockDim.x + threadIdx.x) & 31u) == 0u) {
+    atomicAdd(counts, (unsigned long long)segments);
+    atomicAdd(counts + 1, (unsigned long long)passes);
+  }
 }
 
 // Renders part `part` of pixel (x, y)'s samples (see Frame), one bounce
@@ -371,8 +390,10 @@ inline Frame make_frame(float* out, float* samples, int width, int height,
 // again, with the warp reconverging at the end of every sample.
 // `scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w)` is the kernel's
 // own search: the strict-`<` first minimum over spheres, then quads, and
-// the winner's payload (zero on a miss).
-template <bool HAS_MET, bool HAS_DIE, bool SKY, class Scene>
+// the winner's payload (zero on a miss). COUNT adds the warp's segments
+// and passes to f.counts at exit (count_lanes); without it the loop is
+// the same code as ever.
+template <bool HAS_MET, bool HAS_DIE, bool SKY, bool COUNT, class Scene>
 __device__ __forceinline__ void render_pixel(const float* cam,
                                              const Scene& scene,
                                              const Frame& f, int x, int y,
@@ -392,8 +413,11 @@ __device__ __forceinline__ void render_pixel(const float* cam,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   bool alive = true;
   int b = 0;  // bounce within the current sample
+  unsigned int segments = 0, passes = 0;  // COUNT only
   while (__any_sync(0xffffffffu, active)) {
+    if (COUNT) ++passes;
     if (active) {
+      if (COUNT) ++segments;
       const uint32_t samp = f.spp_offset + (uint32_t)s;
       if (b == 0) {  // a new sample: its camera ray, stream 0
         camera_ray(cam, px, py, pid, samp, f.seed, ox, oy, oz, dx, dy, dz);
@@ -429,6 +453,7 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       }
     }
   }
+  if (COUNT) count_lanes(f.counts, segments, passes);
   if (in_image && f.split == 1) {
     float* o = f.out + 3 * (size_t)i;
     o[0] = acc_r * f.inv_spp;

@@ -1427,5 +1427,19 @@ cudaError_t occupancy(Kernel kernel, int block, size_t smem, int* per_sm,
   return e;
 }
 
+// The stages a launcher of K5 or K4 times when it is given events (while
+// a profiler records: utils/profiling.stage_events): the image kernel
+// with its fold, the replay-and-adjoint kernel, the reduce. Stage k runs
+// from events[k] to events[k + 1].
+enum Stage { kStageImage = 0, kStageAdjoint = 1, kStageReduce = 2,
+             kStageEnd = 3 };
+
+// Records boundary k on `st` when `events` is set; nothing otherwise.
+inline cudaError_t mark_stage(void* const* events, int k, cudaStream_t st) {
+  return events == nullptr
+             ? cudaSuccess
+             : cudaEventRecord(static_cast<cudaEvent_t>(events[k]), st);
+}
+
 }  // namespace diff
 }  // namespace tinyrt

@@ -153,16 +153,20 @@ struct Launcher {
   float *cols, *wpart;
   int blocks;
   cudaStream_t st;
+  void* const* events;  // the stage boundaries, or null
   template <class F>
   cudaError_t run() const {
     const dim3 grid((L.npix + kBlock - 1) / kBlock, split);
+    cudaError_t e = mark_stage(events, kStageImage, st);
+    if (e != cudaSuccess) return e;
     classic_image_kernel<F><<<grid, kBlock, 0, st>>>(cam, a, L, split,
                                                      samples, img);
-    cudaError_t e = cudaGetLastError();
+    e = cudaGetLastError();
     if (e == cudaSuccess && split > 1) {
       e = (cudaError_t)tinyrt_fold_samples(samples, img, L.npix, L.spp,
                                            L.inv_spp, st);
     }
+    if (e == cudaSuccess) e = mark_stage(events, kStageAdjoint, st);
     if (e != cudaSuccess) return e;
     classic_kernel<F><<<blocks, kBlock, 0, st>>>(cam, a, sc, L, target, img,
                                                  saves, cols, wpart);
@@ -191,7 +195,8 @@ int tinyrt_diff_classic_occupancy(int image, int nee, int sil, int has_met,
 // 1 runs first in the image kernel, each pixel's samples in `split` parts
 // (`samples` then holds spp x npix x 3 floats when split > 1). Scratch:
 // `saves` T x slots x 16 floats (slots >= max_bounces), `cols` na x T,
-// `wpart` blocks x 4 x na (T = blocks x 128). Returns the first failing
+// `wpart` blocks x 4 x na (T = blocks x 128). `events`, or null, are the
+// Stage boundaries, as tinyrt_diff_packed's. Returns the first failing
 // launch's cudaError_t (0 on success); does not synchronise.
 int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
                         int n_quad, int n_lights, int nm, int light_quad,
@@ -202,7 +207,8 @@ int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
                         unsigned int seed, unsigned int spp_offset, int spp,
                         int max_bounces, float inv_spp, int nee, int sil,
                         int has_met, int has_die, int split, float* samples,
-                        int pix0, int npix, void* stream) {
+                        int pix0, int npix, void* const* events,
+                        void* stream) {
   Args a{};
   const int na = set_layout(a, n_sph, n_quad, n_lights, nm, light_quad);
   a.tab = tab;
@@ -226,14 +232,17 @@ int tinyrt_diff_classic(const float* cam, const float* tab, int n_sph,
                         L,      split,   target,
                         img,    samples, reinterpret_cast<float4*>(saves),
                         cols,   wpart,   blocks,
-                        st};
+                        st,     events};
   cudaError_t e = dispatch_flags(nee != 0, sil != 0, has_met != 0,
                                  has_die != 0, launch);
+  if (e == cudaSuccess) e = mark_stage(events, kStageReduce, st);
   if (e != cudaSuccess) return (int)e;
   const float loss_div = (float)(width * height) * 3.0f;
   classic_reduce<<<(na + 127) / 128, 128, 0, st>>>(wpart, blocks, na,
                                                    a.a_loss, loss_div, acc);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = mark_stage(events, kStageEnd, st);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -167,12 +167,15 @@ struct Launcher {
   float* part;
   int blocks;
   cudaStream_t st;
+  void* const* events;  // the stage boundaries, or null
   template <class F>
   cudaError_t run() const {
     const dim3 grid((L.npix + kBlock - 1) / kBlock, split);
+    cudaError_t e = mark_stage(events, kStageImage, st);
+    if (e != cudaSuccess) return e;
     image_kernel<F><<<grid, kBlock, smem_bytes(nw, 0, false), st>>>(
         cam, tab, a, L, nw, split, samples, img);
-    cudaError_t e = cudaGetLastError();
+    e = cudaGetLastError();
     if (e == cudaSuccess && split > 1) {
       e = (cudaError_t)tinyrt_fold_samples(samples, img, L.npix, L.spp,
                                            L.inv_spp, st);
@@ -185,6 +188,8 @@ struct Launcher {
                                (int)smem);
       if (e != cudaSuccess) return e;
     }
+    e = mark_stage(events, kStageAdjoint, st);
+    if (e != cudaSuccess) return e;
     diff_kernel<F><<<blocks, kBlock, smem, st>>>(
         cam, tab, a, sc, L, nw, shared_acc, target, img, saves, part);
     return cudaGetLastError();
@@ -221,8 +226,10 @@ int tinyrt_diff_packed_occupancy(int nw, int na, int shared_acc, int image,
 // (`samples` then holds spp x npix x 3 floats of per-sample colours when
 // split > 1). `saves` holds blocks x
 // 128 x slots x 16 floats of scratch (slots >= max_bounces), `part`
-// blocks x na. Returns the first failing launch's cudaError_t (0 on
-// success); does not synchronise.
+// blocks x na. `events`, or null, are the diff_common.cuh Stage
+// boundaries, recorded on `stream` around the three stages. Returns the
+// first failing launch's cudaError_t (0 on success); does not
+// synchronise.
 int tinyrt_diff_packed(const float* cam, const float* tab, int nw, int n_sph,
                        int n_quad, int n_lights, int nm, int light_quad,
                        const float* target, float* img, float* saves,
@@ -231,7 +238,8 @@ int tinyrt_diff_packed(const float* cam, const float* tab, int nw, int n_sph,
                        int max_bounces, float inv_spp, int nee, int sil,
                        int has_met, int has_die, int surr_sph, int surr_quad,
                        int blocks, int slots, int shared_acc, int split,
-                       float* samples, int pix0, int npix, void* stream) {
+                       float* samples, int pix0, int npix,
+                       void* const* events, void* stream) {
   Args a{};
   const int na = set_layout(a, n_sph, n_quad, n_lights, nm, light_quad);
   a.seed = seed;
@@ -258,14 +266,17 @@ int tinyrt_diff_packed(const float* cam, const float* tab, int nw, int n_sph,
                         target, img,
                         samples, reinterpret_cast<float4*>(saves),
                         part,  blocks,
-                        st};
+                        st,    events};
   cudaError_t e = dispatch_flags(nee != 0, sil != 0, has_met != 0,
                                  has_die != 0, launch);
+  if (e == cudaSuccess) e = mark_stage(events, kStageReduce, st);
   if (e != cudaSuccess) return (int)e;
   const float loss_div = (float)(width * height) * 3.0f;
   reduce_kernel<<<(na + 127) / 128, 128, 0, st>>>(part, blocks, na,
                                                   a.a_loss, loss_div, acc);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = mark_stage(events, kStageEnd, st);
+  return (int)e;
 }
 
 }  // extern "C"

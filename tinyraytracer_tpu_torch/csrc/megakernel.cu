@@ -149,7 +149,7 @@ struct FlatScene {
   }
 };
 
-template <bool HAS_MET, bool HAS_DIE, bool SKY>
+template <bool HAS_MET, bool HAS_DIE, bool SKY, bool COUNT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     flat_kernel(const float* __restrict__ cam_g, FlatScene scene, Frame f) {
   __shared__ float cam[kCamWords];
@@ -159,7 +159,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = f.row0 + blockIdx.y * blockDim.y + threadIdx.y;
-  render_pixel<HAS_MET, HAS_DIE, SKY>(cam, scene, f, x, y, blockIdx.z);
+  render_pixel<HAS_MET, HAS_DIE, SKY, COUNT>(cam, scene, f, x, y,
+                                             blockIdx.z);
 }
 
 // Adds up each pixel's per-sample colours in sample order and writes the
@@ -181,8 +182,10 @@ __global__ void fold_kernel(const float* __restrict__ samples,
   out[3 * (size_t)pid + 2] = b * inv_spp;
 }
 
-// Launches the kernel for `f` or, with `split` set, only writes the
-// sample split a launch of f's image takes (common.cuh, sample_split).
+// Launches the kernel for `f` (its counting instantiation when f.counts
+// is set) or, with `split` set, only writes the sample split a launch of
+// f's image takes (common.cuh, sample_split; that of the kernel that does
+// not count).
 struct FlatLaunch {
   const float* cam;
   FlatScene scene;
@@ -192,7 +195,14 @@ struct FlatLaunch {
 
   template <bool HAS_MET, bool HAS_DIE, bool SKY>
   cudaError_t run() const {
-    auto kernel = flat_kernel<HAS_MET, HAS_DIE, SKY>;
+    if (split == nullptr && f.counts != nullptr) {
+      return go(flat_kernel<HAS_MET, HAS_DIE, SKY, true>);
+    }
+    return go(flat_kernel<HAS_MET, HAS_DIE, SKY, false>);
+  }
+
+  template <class Kernel>
+  cudaError_t go(Kernel kernel) const {
     if (split != nullptr) {
       return sample_split(kernel, 0, f.width, f.rows, f.spp, *split);
     }
@@ -213,9 +223,10 @@ extern "C" {
 // `sph` (ns, 4), `quad` (nq, 12) and `pay` (NA, 16) are 16-byte aligned
 // f32 rows; n_sph / n_quad real rows are walked; quad j's payload row is
 // q_row0 + j. `aabb` (n_blocks, 8), or null with n_blocks 0, turns on the
-// cull over blocks of `chunk` sphere rows. Returns the launch's
-// cudaError_t (0 on success; cudaErrorInvalidValue for a range outside
-// the image); does not synchronise.
+// cull over blocks of `chunk` sphere rows. `counts`, or null, is the
+// device's counter buffer, as tinyrt_megakernel_packed's. Returns the
+// launch's cudaError_t (0 on success; cudaErrorInvalidValue for a range
+// outside the image); does not synchronise.
 int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            int ns, const float* quad, int n_quad,
                            const float* pay, int q_row0, const float* aabb,
@@ -224,15 +235,17 @@ int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            unsigned int seed, unsigned int spp_offset,
                            int spp, int max_bounces, float inv_spp,
                            int split, int has_met, int has_die, int sky,
-                           int pix0, int npix, void* stream) {
+                           int pix0, int npix, unsigned long long* counts,
+                           void* stream) {
   const FlatScene scene{reinterpret_cast<const float4*>(sph),
                         reinterpret_cast<const float4*>(quad),
                         reinterpret_cast<const float4*>(pay),
                         reinterpret_cast<const float4*>(aabb),
                         n_sph, ns, n_quad, q_row0, n_blocks, chunk};
-  const Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
-                             spp_offset, spp, max_bounces, split, inv_spp);
+  Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
+                       spp_offset, spp, max_bounces, split, inv_spp);
   if (f.npix == 0) return (int)cudaErrorInvalidValue;
+  f.counts = counts;
   const FlatLaunch launch{cam, scene, f, static_cast<cudaStream_t>(stream),
                           nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);

@@ -106,7 +106,7 @@ struct PackedScene {
   }
 };
 
-template <bool HAS_MET, bool HAS_DIE, bool SKY>
+template <bool HAS_MET, bool HAS_DIE, bool SKY, bool COUNT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     packed_kernel(const float* __restrict__ cam_g,
                   const float* __restrict__ tab_g, int nw, int n_sph,
@@ -121,11 +121,14 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = f.row0 + blockIdx.y * blockDim.y + threadIdx.y;
   const PackedScene scene{smem + kCamWords, n_sph, n_quad};
-  render_pixel<HAS_MET, HAS_DIE, SKY>(smem, scene, f, x, y, blockIdx.z);
+  render_pixel<HAS_MET, HAS_DIE, SKY, COUNT>(smem, scene, f, x, y,
+                                             blockIdx.z);
 }
 
-// Launches the kernel for `f` or, with `split` set, only writes the
-// sample split a launch of f's image takes (common.cuh, sample_split).
+// Launches the kernel for `f` (its counting instantiation when f.counts
+// is set) or, with `split` set, only writes the sample split a launch of
+// f's image takes (common.cuh, sample_split; always that of the kernel
+// that does not count, so counting leaves the launch's shape alone).
 struct PackedLaunch {
   const float* cam;
   const float* tab;
@@ -136,7 +139,14 @@ struct PackedLaunch {
 
   template <bool HAS_MET, bool HAS_DIE, bool SKY>
   cudaError_t run() const {
-    auto kernel = packed_kernel<HAS_MET, HAS_DIE, SKY>;
+    if (split == nullptr && f.counts != nullptr) {
+      return go(packed_kernel<HAS_MET, HAS_DIE, SKY, true>);
+    }
+    return go(packed_kernel<HAS_MET, HAS_DIE, SKY, false>);
+  }
+
+  template <class Kernel>
+  cudaError_t go(Kernel kernel) const {
     const size_t smem = sizeof(float) * (size_t)(kCamWords + nw);
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
@@ -160,18 +170,23 @@ extern "C" {
 // a (height, width) image on `stream` (common.cuh, Frame): the mean
 // radiance into `out` (npix, 3) when split is 1; with split > 1 each
 // sample's colour into `samples` (spp, npix, 3), for tinyrt_fold_samples.
-// Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue
-// for a range outside the image); does not synchronise.
+// `counts`, or null, is the device's counter buffer: when set, the
+// counting kernel adds its lane segments and warp passes to it
+// (common.cuh, count_lanes). Returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue for a range outside the image); does not
+// synchronise.
 int tinyrt_megakernel_packed(const float* cam, const float* tab, int nw,
                              int n_sph, int n_quad, float* out,
                              float* samples, int width, int height,
                              unsigned int seed, unsigned int spp_offset,
                              int spp, int max_bounces, float inv_spp,
                              int split, int has_met, int has_die, int sky,
-                             int pix0, int npix, void* stream) {
-  const Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
-                             spp_offset, spp, max_bounces, split, inv_spp);
+                             int pix0, int npix, unsigned long long* counts,
+                             void* stream) {
+  Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
+                       spp_offset, spp, max_bounces, split, inv_spp);
   if (f.npix == 0) return (int)cudaErrorInvalidValue;
+  f.counts = counts;
   const PackedLaunch launch{cam, tab, nw, n_sph, n_quad, f,
                             static_cast<cudaStream_t>(stream), nullptr};
   return (int)dispatch_kinds(has_met != 0, has_die != 0, sky != 0, launch);

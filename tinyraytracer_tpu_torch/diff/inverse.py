@@ -52,6 +52,7 @@ from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.ops.intersect_kernel import compact_rows
 from tinyraytracer_tpu_torch.ops.scene_table import host_background
 from tinyraytracer_tpu_torch.renderer import resolve_device
+from tinyraytracer_tpu_torch.utils import profiling
 
 _MASK = 0xFFFFFFFF
 
@@ -523,7 +524,12 @@ def make_fused_train_step(
         return loss, grads
 
     def step(params, opt_state, step_idx):
-        s = apply_params(scene, params)
+        with profiling.annotate("tinyrt.train.step"):
+            return _step(params, opt_state, step_idx)
+
+    def _step(params, opt_state, step_idx):
+        with profiling.annotate("tinyrt.train.table"):
+            s = apply_params(scene, params)
         base = int(step_idx) * stride
         if grad_chunks == 1:
             loss, grads = chunk(s, spp, base)
@@ -536,16 +542,18 @@ def make_fused_train_step(
             loss = sum(losses) / grad_chunks
             grads = {k: _median0(torch.stack([g[k] for g in gs]))
                      for k in gs[0]}
-        grads = {k: torch.where(torch.isfinite(g), g, 0.0)
-                 for k, g in grads.items() if k != "background"}
-        if trainset is not None:
-            grads = {k: g if k in trainset else torch.zeros_like(g)
-                     for k, g in grads.items()}
-        if row_mask is not None:
-            grads = {k: g * row_mask[k] if k in row_mask else g
-                     for k, g in grads.items()}
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = optim.apply_updates(params, updates)
+        with profiling.annotate("tinyrt.train.grads"):
+            grads = {k: torch.where(torch.isfinite(g), g, 0.0)
+                     for k, g in grads.items() if k != "background"}
+            if trainset is not None:
+                grads = {k: g if k in trainset else torch.zeros_like(g)
+                         for k, g in grads.items()}
+            if row_mask is not None:
+                grads = {k: g * row_mask[k] if k in row_mask else g
+                         for k, g in grads.items()}
+        with profiling.annotate("tinyrt.train.adam"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = optim.apply_updates(params, updates)
         return params, opt_state, loss
 
     params0 = scene_params(scene)

@@ -40,6 +40,7 @@ from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.ops import diff_schedule
 from tinyraytracer_tpu_torch.ops.scene_table import host_background
+from tinyraytracer_tpu_torch.utils import profiling
 
 _T_MIN = 1.0e-3
 _MISS = 3.0e38
@@ -223,7 +224,9 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
     On a CPU tensor it runs the plain twin
     diffkernel_packed.packed_diff_reference; on a CUDA tensor it launches
     csrc/diffkernel.cu, built at first use, and raises if the launch
-    fails. `classic_diff.launches` counts launches."""
+    fails. Each launch adds one to the host counter `launches.classic_diff`
+    (utils/profiling.py); while a profiler records, the launcher times its
+    stages as `k4.<stage>` (diffkernel_packed.STAGES)."""
     from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
 
     begin, npix = dkp._check(tab, cam, target, spec, width, height, spp,
@@ -232,9 +235,24 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
               max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
               pixels=pixels)
     if tab.device.type == "cpu":
-        return dkp.packed_diff_reference(tab, cam, target, **kw)
+        with profiling.annotate("tinyrt.train.launch"):
+            return dkp.packed_diff_reference(tab, cam, target, **kw)
     if tab.device.type != "cuda":
         raise ValueError(f"no diff kernel for device {tab.device}")
+    with profiling.annotate("tinyrt.train.launch"):
+        img, acc = _launch_classic(tab, cam, target, spec, width, height,
+                                   spp, max_bounces, seed, spp_offset,
+                                   begin, npix)
+    profiling.count("launches.classic_diff")
+    with profiling.annotate("tinyrt.train.grads"):
+        return (img, *dkp.tables_from_acc(acc, spec))
+
+
+def _launch_classic(tab, cam, target, spec, width, height, spp,
+                    max_bounces, seed, spp_offset, begin, npix):
+    """classic_diff's launch on the card: (image, summed accumulator)."""
+    from tinyraytracer_tpu_torch.ops import diffkernel_packed as dkp
+
     lib = _build.load()
     dev = tab.device
     na = spec.acc_width
@@ -256,6 +274,7 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
         acc = torch.empty((na,), **f32)
         srows, qrows = _scope_tensors(spec.surr_s, spec.surr_q, str(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _handles, events = dkp.stage_handles("k4", dev)
         err = lib.tinyrt_diff_classic(
             cam.data_ptr(), tab.data_ptr(), spec.n_sph, spec.n_quad,
             spec.n_lights, spec.nm, spec.light_quad, srows.data_ptr(),
@@ -265,16 +284,12 @@ def classic_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             plan.slots, width, height, seed & _MASK, spp_offset & _MASK,
             spp, max_bounces, float(np.float32(1.0 / spp)),
             *map(int, flags), split, samples.data_ptr(), begin, npix,
-            stream)
+            events, stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel launch failed: CUDA error {err} "
                            f"({msg})")
-    classic_diff.launches += 1
-    return (img, *dkp.tables_from_acc(acc, spec))
-
-
-classic_diff.launches = 0
+    return img, acc
 
 
 @functools.lru_cache(maxsize=32)

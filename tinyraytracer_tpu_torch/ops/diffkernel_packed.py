@@ -22,8 +22,10 @@ pixel:
 `packed_diff` is the kernel's wrapper: on a CPU tensor it runs
 `packed_diff_reference`, the plain PyTorch twin; on a CUDA tensor it
 launches csrc/diffkernel_packed.cu (an image kernel for step 1, then the
-fused kernel), built at first use, and raises if the launch fails.
-`packed_diff.launches` counts launches.
+fused kernel), built at first use, and raises if the launch fails. Each
+launch adds one to the host counter `launches.packed_diff`
+(utils/profiling.py); while a profiler records, the launcher times its
+three stages (`STAGES`) as `k5.<stage>`.
 `render_value_and_grad_packed` takes a scene to (loss, image, grads)
 through the wrapper; `render_value_and_grad_packed_reference` does the
 same through the twin. The flat table (`packed_flat_table`), the spec
@@ -57,6 +59,7 @@ import torch
 
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.ops import diff_schedule, rng, scene_table
+from tinyraytracer_tpu_torch.utils import profiling
 from tinyraytracer_tpu_torch.ops.diffkernel import (
     _MISS,
     _T_MIN,
@@ -341,6 +344,25 @@ def _check(tab, cam, target, spec, width, height, spp, max_bounces,
     return begin, count
 
 
+# The stages a K5 or K4 launcher times while a profiler records
+# (csrc/diff_common.cuh, Stage): the image kernel, the replay and adjoint
+# (K4's walk), the reduce of the gradient parts.
+STAGES = ("image", "adjoint", "reduce")
+
+
+def stage_handles(prefix: str, device):
+    """The stage events of a K5 or K4 launch while a profiler records, as
+    (a ctypes array of their handles, its address for the launcher): the
+    caller keeps the array alive across the call. (None, None)
+    otherwise."""
+    events = profiling.stage_events(prefix, STAGES, device)
+    if events is None:
+        return None, None
+    handles = (ctypes.c_void_p * len(events))(*[e.cuda_event
+                                                 for e in events])
+    return handles, ctypes.addressof(handles)
+
+
 def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
                 *, spec: PackedSpec, width: int, height: int, spp: int,
                 max_bounces: int, seed: int = 0, spp_offset: int = 0,
@@ -361,9 +383,22 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
               max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
               pixels=pixels)
     if tab.device.type == "cpu":
-        return packed_diff_reference(tab, cam, target, **kw)
+        with profiling.annotate("tinyrt.train.launch"):
+            return packed_diff_reference(tab, cam, target, **kw)
     if tab.device.type != "cuda":
         raise ValueError(f"no diff kernel for device {tab.device}")
+    with profiling.annotate("tinyrt.train.launch"):
+        img, acc = _launch_packed(tab, cam, target, spec, width, height,
+                                  spp, max_bounces, seed, spp_offset, begin,
+                                  npix)
+    profiling.count("launches.packed_diff")
+    with profiling.annotate("tinyrt.train.grads"):
+        return (img, *tables_from_acc(acc, spec))
+
+
+def _launch_packed(tab, cam, target, spec, width, height, spp, max_bounces,
+                   seed, spp_offset, begin, npix):
+    """packed_diff's launch on the card: (image, summed accumulator)."""
     if spec.acc_width > DIFF_PACKED_MAX_ACC:
         raise ValueError(f"the scene needs {spec.acc_width} gradient "
                          f"accumulators per thread; the kernel holds "
@@ -387,6 +422,7 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
         part = torch.empty((plan.blocks, na), **f32)
         acc = torch.empty((na,), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _handles, events = stage_handles("k5", dev)
         err = lib.tinyrt_diff_packed(
             cam.data_ptr(), tab.data_ptr(), tab.numel(), spec.n_sph,
             spec.n_quad, spec.n_lights, spec.nm, spec.light_quad,
@@ -396,16 +432,12 @@ def packed_diff(tab: torch.Tensor, cam: torch.Tensor, target: torch.Tensor,
             float(np.float32(1.0 / spp)), int(nee), int(sil), int(met),
             int(die), int(bool(spec.surr_s)), int(bool(spec.surr_q)),
             plan.blocks, plan.slots, int(shared), split, samples.data_ptr(),
-            begin, npix, stream)
+            begin, npix, events, stream)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"diffkernel_packed launch failed: CUDA error "
                            f"{err} ({msg})")
-    packed_diff.launches += 1
-    return (img, *tables_from_acc(acc, spec))
-
-
-packed_diff.launches = 0
+    return img, acc
 
 
 @functools.lru_cache(maxsize=256)
@@ -1399,9 +1431,10 @@ def _value_and_grad(fn, scene, camera, target, *, spp, max_bounces,
     tables (the loss with them, in dmisc) sum in mesh order."""
     from tinyraytracer_tpu_torch.parallel import sharded
 
-    st, tab, cam, tgt, spec = _inputs(scene, camera, target, background,
-                                      static, nee, silhouette, surr_sph,
-                                      surr_quad)
+    with profiling.annotate("tinyrt.train.table"):
+        st, tab, cam, tgt, spec = _inputs(scene, camera, target, background,
+                                          static, nee, silhouette, surr_sph,
+                                          surr_quad)
     if mesh is None:
         mesh = sharded.one_cell(tab.device)
     w, h = camera.width, camera.height
@@ -1410,18 +1443,20 @@ def _value_and_grad(fn, scene, camera, target, *, spp, max_bounces,
               spp_offset=int(spp_offset))
     ranges = sharded.split_pixels(w * h, mesh.size)
     rows = tgt.view(-1, 3)
-    imgs, flats = [], []
+    imgs, parts = [], []
     for c in mesh.cells:
         b, n = ranges[c.index]
         img, *tables = fn(tab.to(c.device), cam.to(c.device),
                           rows[b:b + n].to(c.device), pixels=(b, n), **kw)
         imgs.append(img)
-        flats.append(torch.cat([t.reshape(-1) for t in tables]))
-    img = mesh.concat(imgs, ranges).view(h, w, 3)
-    flat = mesh.sum(flats).to(tab.device)
-    tables = [part.view(t.shape) for part, t in zip(
-        torch.split(flat, [t.numel() for t in tables]), tables)]
-    grads = _grads_to_scene(scene, st, *tables)
+        parts.append(tables)
+    with profiling.annotate("tinyrt.train.grads"):
+        flats = [torch.cat([t.reshape(-1) for t in ts]) for ts in parts]
+        img = mesh.concat(imgs, ranges).view(h, w, 3)
+        flat = mesh.sum(flats).to(tab.device)
+        tables = [part.view(t.shape) for part, t in zip(
+            torch.split(flat, [t.numel() for t in tables]), tables)]
+        grads = _grads_to_scene(scene, st, *tables)
     return tables[4][0, 3], img, grads
 
 

@@ -12,9 +12,9 @@ design: the winner's t is recomputed differentiably by
 `closest_hit_reference`, the plain PyTorch twin, which follows the Pallas
 kernel's own formulas (intersect_pallas.py:185-241); on a CUDA tensor it
 launches csrc/closest_hit.cu, built at first use, and raises if the launch
-fails. `closest_hit.launches` counts kernel launches. `need_j=False` (a
-shadow ray's occluder test) returns only t: the kernel then tracks and
-stores no winner.
+fails. Each launch adds one to the host counter `launches.closest_hit`
+(utils/profiling.py). `need_j=False` (a shadow ray's occluder test)
+returns only t: the kernel then tracks and stores no winner.
 
 `compact_rows` lowers a scene's valid primitives (scene_table.compact_scene,
 bitwise equal to the JAX package's) into the rows the kernel reads: device
@@ -33,6 +33,7 @@ import torch
 
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.ops import scene_table
+from tinyraytracer_tpu_torch.utils import profiling
 from tinyraytracer_tpu_torch.ops.intersect import (
     MISS_T,
     T_MIN,
@@ -178,11 +179,9 @@ def closest_hit(cs: CompactRows, o: torch.Tensor, d: torch.Tensor,
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"closest_hit launch failed: CUDA error {err} "
                            f"({msg})")
-    closest_hit.launches += 1
+    profiling.count("launches.closest_hit")
     return t, j
 
-
-closest_hit.launches = 0
 
 
 def closest_hit_reference(cs: CompactRows, o: torch.Tensor, d: torch.Tensor,

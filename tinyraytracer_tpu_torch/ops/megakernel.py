@@ -15,8 +15,9 @@ mode: the same sampler as the packed kernel over the compacted scene rows
 of `scene_table.lower_flat`, for scenes of any size, with an optional
 per-block AABB cull of the sphere rows. On a CPU tensor it runs
 `render_flat_reference`, the plain twin; on a CUDA tensor it launches
-csrc/megakernel.cu and raises if the launch fails. `render_flat.launches`
-counts kernel launches.
+csrc/megakernel.cu and raises if the launch fails. Each launch adds one to
+the host counter `launches.render_flat` (utils/profiling.py), and counts
+lanes as K1 does.
 
 `MegakernelRenderer` binds a scene and camera and renders (H, W, 3)
 linear radiance: scenes of at most PACKED_MAX_PRIMS real primitives
@@ -35,6 +36,7 @@ from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays
 from tinyraytracer_tpu_torch.ops import rng, scene_table
+from tinyraytracer_tpu_torch.utils import profiling
 
 T_MIN = 1.0e-3      # sampler/cpu.rs:48
 MISS = 3.0e38
@@ -353,6 +355,13 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
     return out if pixels is not None else out.view(height, width, 3)
 
 
+def counts_ptr(device) -> int | None:
+    """The device's counter buffer for a forward launch (K1 or K2) while a
+    profiler records, else None: the kernel that does not count."""
+    buf = profiling.device_counters(device)
+    return None if buf is None else buf.data_ptr()
+
+
 def launch_forward(lib, device, width: int, height: int, spp: int, pixels,
                    split_query, launch):
     """Runs one forward kernel (K1 or K2) over the flat pixel ids `pixels`
@@ -462,6 +471,7 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
     lib = _build.load(fmad=fmad)
     ns = sph.shape[0]
     flags = (int(has_met), int(has_die), int(sky))
+    counts = counts_ptr(sph.device)
 
     def launch(out, samples, split, inv_spp, pix0, npix, stream):
         return lib.tinyrt_megakernel_flat(
@@ -471,7 +481,7 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
             aabbs.shape[0] if aabbs is not None else 0,
             min(scene_table.ROW_CHUNK, ns), out, samples, width, height,
             seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
-            inv_spp, split, *flags, pix0, npix, stream)
+            inv_spp, split, *flags, pix0, npix, counts, stream)
 
     out, err = launch_forward(
         lib, sph.device, width, height, spp, pixels,
@@ -482,11 +492,8 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"megakernel_flat launch failed: CUDA error "
                            f"{err} ({msg})")
-    render_flat.launches += 1
+    profiling.count("launches.render_flat")
     return out
-
-
-render_flat.launches = 0
 
 
 def flat_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
@@ -633,13 +640,15 @@ class MegakernelRenderer:
         back, one K1 or K2 launch per frame (per mesh cell with `mesh=`),
         with no host sync between them (megakernel.py:1434-1452, where
         JAX bakes the seeds into one program)."""
-        frames = [self.render(spp=spp, max_bounces=max_bounces,
-                              seed=int(s), **kw).to(self.device)
-                  for s in seeds]
-        if not frames:
-            return torch.zeros((0, self.camera.height, self.camera.width,
-                                3), dtype=torch.float32, device=self.device)
-        return torch.stack(frames)
+        with profiling.annotate("tinyrt.render"):
+            frames = [self.render(spp=spp, max_bounces=max_bounces,
+                                  seed=int(s), **kw).to(self.device)
+                      for s in seeds]
+            if not frames:
+                return torch.zeros((0, self.camera.height,
+                                    self.camera.width, 3),
+                                   dtype=torch.float32, device=self.device)
+            return torch.stack(frames)
 
     def render(self, *, spp: int, max_bounces: int, seed: int = 0,
                spp_offset: int = 0, packed: bool | None = None,
@@ -664,18 +673,25 @@ class MegakernelRenderer:
         w, h = self.camera.width, self.camera.height
 
         def part(device, begin, count, spp_part, offset):
-            if not packed:
-                return render_flat(**self.flat_args(
-                    spp=spp_part, max_bounces=max_bounces, seed=seed,
-                    spp_offset=offset, device=device,
-                    pixels=(begin, count)))
-            low = self.lowered
-            table, cam = self.packed_tensors(device)
-            return mkp.render_packed(
-                table, cam, n_sph=low.n_sph, n_quad=low.n_quad, width=w,
-                height=h, spp=spp_part, max_bounces=max_bounces, seed=seed,
-                spp_offset=offset, has_met=low.has_met, has_die=low.has_die,
-                sky=low.sky, pixels=(begin, count))
+            # the host lowering and its device copy, made at first use
+            with profiling.annotate("tinyrt.render.lower"):
+                if not packed:
+                    args = self.flat_args(
+                        spp=spp_part, max_bounces=max_bounces, seed=seed,
+                        spp_offset=offset, device=device,
+                        pixels=(begin, count))
+                else:
+                    low = self.lowered
+                    table, cam = self.packed_tensors(device)
+            with profiling.annotate("tinyrt.render.launch"):
+                if not packed:
+                    return render_flat(**args)
+                return mkp.render_packed(
+                    table, cam, n_sph=low.n_sph, n_quad=low.n_quad,
+                    width=w, height=h, spp=spp_part,
+                    max_bounces=max_bounces, seed=seed, spp_offset=offset,
+                    has_met=low.has_met, has_die=low.has_die, sky=low.sky,
+                    pixels=(begin, count))
 
         img = sharded.render_sharded(mesh, part, npix=w * h, spp=spp,
                                      spp_offset=spp_offset)

@@ -12,8 +12,10 @@ radiance over the samples.
 `render_packed` is the wrapper. On a CPU tensor it runs
 `render_packed_reference`, the plain PyTorch twin; on a CUDA tensor it
 launches the hand-written CUDA kernel (csrc/megakernel_packed.cu), built
-at first use, and raises if the launch fails. `render_packed.launches`
-counts kernel launches.
+at first use, and raises if the launch fails. Each launch adds one to
+the host counter `launches.render_packed` (utils/profiling.py); while a
+profiler records, the counting kernel adds its lane segments and warp
+passes to the device's counter buffer.
 
 The RNG keys off the pixel id alone, so how pixels map to threads or
 lanes never changes the image: the TPU's (S, L) tiling is not carried
@@ -28,6 +30,7 @@ import torch
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.ops import megakernel as mk
 from tinyraytracer_tpu_torch.ops.scene_table import QUAD_STRIDE, SPH_STRIDE
+from tinyraytracer_tpu_torch.utils import profiling
 
 # Most real primitives the packed route takes; larger scenes belong to the
 # classic-layout kernel. The kernel itself loops over the table at run
@@ -87,13 +90,14 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
         raise ValueError(f"no megakernel for device {table.device}")
     lib = _build.load(fmad=fmad)
     flags = (int(has_met), int(has_die), int(sky))
+    counts = mk.counts_ptr(table.device)
 
     def launch(out, samples, split, inv_spp, pix0, npix, stream):
         return lib.tinyrt_megakernel_packed(
             cam.data_ptr(), table.data_ptr(), table.numel(), n_sph, n_quad,
             out, samples, width, height, seed & 0xFFFFFFFF,
             spp_offset & 0xFFFFFFFF, spp, max_bounces, inv_spp, split,
-            *flags, pix0, npix, stream)
+            *flags, pix0, npix, counts, stream)
 
     out, err = mk.launch_forward(
         lib, table.device, width, height, spp, pixels,
@@ -104,11 +108,8 @@ def render_packed(table: torch.Tensor, cam: torch.Tensor, *, n_sph: int,
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"megakernel_packed launch failed: CUDA error "
                            f"{err} ({msg})")
-    render_packed.launches += 1
+    profiling.count("launches.render_packed")
     return out
-
-
-render_packed.launches = 0
 
 
 def render_packed_reference(table: torch.Tensor, cam: torch.Tensor, *,

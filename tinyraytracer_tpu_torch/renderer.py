@@ -27,9 +27,18 @@ from tinyraytracer_tpu_torch.ops import tonemap
 from tinyraytracer_tpu_torch.ops.bvh import build_bvh
 from tinyraytracer_tpu_torch.ops.megakernel import MegakernelRenderer
 from tinyraytracer_tpu_torch.parallel import sharded
+from tinyraytracer_tpu_torch.utils import profiling
 from tinyraytracer_tpu_torch.utils.device import resolve_device
 from tinyraytracer_tpu_torch.utils.image import Image
 from tinyraytracer_tpu_torch.utils.progress import ProgressBar
+
+
+def _build(world):
+    """The scene arrays of a World (built here), or `world` itself."""
+    if not isinstance(world, World):
+        return world
+    with profiling.annotate("tinyrt.render.build"):
+        return world.build()
 
 
 class RenderHandle:
@@ -47,9 +56,11 @@ class RenderHandle:
 
     def result(self) -> Image:
         """Waits for the render; returns the gamma-2.2 Image."""
-        if self._event is not None:
-            self._event.synchronize()
-        return Image.from_linear(self._fb, gamma=tonemap.GAMMA)
+        with profiling.annotate("tinyrt.render"):
+            if self._event is not None:
+                with profiling.annotate("tinyrt.render.readback"):
+                    self._event.synchronize()
+            return Image.from_linear(self._fb, gamma=tonemap.GAMMA)
 
 
 class Renderer:
@@ -74,41 +85,43 @@ class Renderer:
         image lands on the first, and `device` may only name that one.
         samples_per_pixel must divide by sample_parallel, with or without
         a mesh (the JAX package's check)."""
-        self.samples_per_pixel = int(samples_per_pixel)
-        self.max_bounces = int(max_bounces)
-        self.progressbar = bool(progressbar)
-        # default background is black (renderer.rs:33); a ((r,g,b),
-        # (r,g,b)) pair is a gradient sky [bottom, top]
-        self.background_color = (
-            (0.0, 0.0, 0.0) if background_color is None
-            else tuple(background_color)
-        )
-        self.seed = int(seed)
-        self.spp_per_round = int(spp_per_round) if spp_per_round else 0
-        # "auto" and "megakernel": the megakernels (their twins on the
-        # CPU); "bvh": the modular tracer with BVH selection; "none": the
-        # modular tracer with dense selection (the oracle)
-        if accelerator not in ("auto", "megakernel", "bvh", "none"):
-            raise ValueError(f"unknown accelerator {accelerator!r}")
-        self.accelerator = accelerator
-        self.sample_parallel = int(sample_parallel) if sample_parallel else 1
-        if self.samples_per_pixel % self.sample_parallel:
-            raise ValueError(
-                f"samples_per_pixel={self.samples_per_pixel} not divisible "
-                f"by sample_parallel={self.sample_parallel}")
-        self.mesh = None
-        if devices is not None and len(devices) > 1:
-            self.mesh = sharded.make_mesh(
-                devices, sample_parallel=self.sample_parallel)
-            if (device is not None
-                    and resolve_device(device) != self.mesh.device):
-                raise ValueError(f"device {device!r} is not the mesh's "
-                                 f"first device {self.mesh.device}")
-            self.device = self.mesh.device
-        else:
-            if device is None:
-                device = devices[0] if devices else "cuda"
-            self.device = resolve_device(device)
+        with profiling.annotate("tinyrt.renderer.init"):
+            self.samples_per_pixel = int(samples_per_pixel)
+            self.max_bounces = int(max_bounces)
+            self.progressbar = bool(progressbar)
+            # default background is black (renderer.rs:33); a ((r,g,b),
+            # (r,g,b)) pair is a gradient sky [bottom, top]
+            self.background_color = (
+                (0.0, 0.0, 0.0) if background_color is None
+                else tuple(background_color)
+            )
+            self.seed = int(seed)
+            self.spp_per_round = int(spp_per_round) if spp_per_round else 0
+            # "auto" and "megakernel": the megakernels (their twins on
+            # the CPU); "bvh": the modular tracer with BVH selection;
+            # "none": the modular tracer with dense selection (the oracle)
+            if accelerator not in ("auto", "megakernel", "bvh", "none"):
+                raise ValueError(f"unknown accelerator {accelerator!r}")
+            self.accelerator = accelerator
+            self.sample_parallel = (int(sample_parallel) if sample_parallel
+                                    else 1)
+            if self.samples_per_pixel % self.sample_parallel:
+                raise ValueError(
+                    f"samples_per_pixel={self.samples_per_pixel} not "
+                    f"divisible by sample_parallel={self.sample_parallel}")
+            self.mesh = None
+            if devices is not None and len(devices) > 1:
+                self.mesh = sharded.make_mesh(
+                    devices, sample_parallel=self.sample_parallel)
+                if (device is not None
+                        and resolve_device(device) != self.mesh.device):
+                    raise ValueError(f"device {device!r} is not the mesh's "
+                                     f"first device {self.mesh.device}")
+                self.device = self.mesh.device
+            else:
+                if device is None:
+                    device = devices[0] if devices else "cuda"
+                self.device = resolve_device(device)
 
     def _sampler(self, camera: Camera, scene: SceneArrays):
         """f(spp, seed, spp_offset) -> (H, W, 3) mean radiance over samples
@@ -119,8 +132,9 @@ class Renderer:
         (`"bvh"`; the BVH is built here, once per sampler)."""
         mesh = self.mesh or sharded.one_cell(self.device)
         if self.accelerator not in ("none", "bvh"):
-            mk = MegakernelRenderer(scene, camera, self.background_color,
-                                    self.device)
+            with profiling.annotate("tinyrt.render.lower"):
+                mk = MegakernelRenderer(scene, camera,
+                                        self.background_color, self.device)
             return lambda spp, seed, spp_offset=0: mk.render(
                 spp=spp, max_bounces=self.max_bounces, seed=seed,
                 spp_offset=spp_offset, mesh=mesh)
@@ -139,24 +153,25 @@ class Renderer:
 
     def render(self, camera: Camera, world: World) -> Image:
         """Full render to a gamma-2.2 Image (the reference's end product)."""
-        scene = world.build() if isinstance(world, World) else world
-        if self.progressbar:
-            fb = self._render_with_progress(camera, scene)
-        else:
-            fb = self.render_array(camera, scene)
-        return Image.from_linear(fb, gamma=tonemap.GAMMA)
+        with profiling.annotate("tinyrt.render"):
+            scene = _build(world)
+            if self.progressbar:
+                fb = self._render_with_progress(camera, scene)
+            else:
+                fb = self.render_array(camera, scene)
+            return Image.from_linear(fb, gamma=tonemap.GAMMA)
 
     def render_async(self, camera: Camera, world: World) -> "RenderHandle":
         """Start a render and return at once; the reference's
         `JoinHandle<Image>` (renderer/renderer.rs:37-79). The launch is
         queued on the current CUDA stream; `.result()` waits for it."""
-        scene = world.build() if isinstance(world, World) else world
-        fb = self.render_array(camera, scene)
-        event = None
-        if fb.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(fb.device))
-        return RenderHandle(fb, event)
+        with profiling.annotate("tinyrt.render"):
+            fb = self.render_array(camera, _build(world))
+            event = None
+            if fb.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(fb.device))
+            return RenderHandle(fb, event)
 
     def render_batch_array(self, camera: Camera, scene: SceneArrays,
                            seeds) -> torch.Tensor:
@@ -165,7 +180,7 @@ class Renderer:
         seeds[k]: the frames render one after another from one scene
         lowering (one BVH build on the BVH route)."""
         seeds = [int(s) for s in seeds]
-        scene = scene.build() if isinstance(scene, World) else scene
+        scene = _build(scene)
         if not seeds:
             return torch.zeros((0, camera.height, camera.width, 3),
                                dtype=torch.float32, device=self.device)
@@ -177,8 +192,12 @@ class Renderer:
         """One gamma-2.2 Image per seed, each bitwise equal to `render`
         with that seed: `render_batch_array`'s frames, brought back in one
         host copy."""
-        frames = self.render_batch_array(camera, world, seeds).cpu().numpy()
-        return [Image.from_linear(f, gamma=tonemap.GAMMA) for f in frames]
+        with profiling.annotate("tinyrt.render"):
+            frames = self.render_batch_array(camera, world, seeds)
+            with profiling.annotate("tinyrt.render.readback"):
+                frames = frames.cpu().numpy()
+            return [Image.from_linear(f, gamma=tonemap.GAMMA)
+                    for f in frames]
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
         """Chunk samples into rounds (global sample ids [off, off + n)) so

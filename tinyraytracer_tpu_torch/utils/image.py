@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from tinyraytracer_tpu_torch.ops import tonemap
+from tinyraytracer_tpu_torch.utils import profiling
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -50,7 +51,8 @@ class Image:
         if data.ndim != 3 or data.shape[-1] != 3:
             raise ValueError(f"expected (H, W, 3), got {data.shape}")
         if gamma is not None:
-            data = np.maximum(data, 0.0) ** (1.0 / gamma)
+            with profiling.annotate("tinyrt.render.gamma"):
+                data = np.maximum(data, 0.0) ** (1.0 / gamma)
         self._data = data
 
     @staticmethod
@@ -58,7 +60,9 @@ class Image:
         """From a linear (H, W, 3) framebuffer: numpy array or tensor on
         any device (copied to the host)."""
         if hasattr(data, "detach"):
-            data = data.detach().cpu().numpy()
+            # the wait for the render, then the copy
+            with profiling.annotate("tinyrt.render.readback"):
+                data = data.detach().cpu().numpy()
         return Image(np.asarray(data), gamma=gamma)
 
     @property

@@ -10,7 +10,8 @@ one full wave of threads (the best of 3 after a warm-up, as the probe
 does) and reads the SM clock while a timed launch runs. Its `sphere`,
 `quad` and `transcendental` rates are what `sol.CAND_COUNTED_OPS_PER_SEC`,
 `sol.QUAD_COUNTED_OPS_PER_SEC` and `sol.FIXED_COUNTED_OPS_PER_SEC` hold.
-`microbench.launches` counts kernel launches.
+Each launch adds one to the host counter `launches.microbench`
+(utils/profiling.py).
 
 The twin runs the kernel's chains op by op on tensors: `select`,
 `sphere` and `quad` (megakernel.sphere_ts and quad_ts, the twins of
@@ -30,7 +31,7 @@ import torch
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.ops.intersect import sqrt_rn
 from tinyraytracer_tpu_torch.ops.megakernel import quad_ts, sphere_ts
-from tinyraytracer_tpu_torch.utils import sol
+from tinyraytracer_tpu_torch.utils import profiling, sol
 from tinyraytracer_tpu_torch.utils.device import resolve_device
 
 MIXES = ("fma", "select", "sphere", "transcendental", "quad")
@@ -203,11 +204,9 @@ def microbench(mix: str, x0: torch.Tensor, iters: int) -> torch.Tensor:
         msg = lib.tinyrt_error_string(err).decode()
         raise RuntimeError(f"microbench launch failed: CUDA error {err} "
                            f"({msg})")
-    microbench.launches += 1
+    profiling.count("launches.microbench")
     return out
 
-
-microbench.launches = 0
 
 
 def wave(mix: str, device="cuda") -> int:

@@ -11,7 +11,8 @@ and raises if the library does not build or the launch fails; on the CPU
 it runs the plain twin (`*_reference`), which runs the kernel's
 operations in the kernel's order, one torch op at a time, over one grid
 step (the output does not depend on the grid). Each wrapper counts its
-launches (`packgrad.launches`, ...).
+launches in the host counter `launches.<wrapper>` (`launches.packgrad`,
+...; utils/profiling.py).
 
 A grid step of the TPU becomes a CUDA block (or, for P4, the blocks of
 one step's rays), all steps side by side, each storing the whole output
@@ -41,7 +42,7 @@ import torch
 
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.ops.intersect import sqrt_rn
-from tinyraytracer_tpu_torch.utils import sol
+from tinyraytracer_tpu_torch.utils import profiling, sol
 from tinyraytracer_tpu_torch.utils.device import resolve_device
 
 # --- the probes' constants -----------------------------------------------------
@@ -266,11 +267,9 @@ def packgrad(body: str, device="cuda", grid: int = P2_GRID,
         err = lib.tinyrt_probe_packgrad(out.data_ptr(), "AB".index(body),
                                         int(grid), int(bounces), _stream(dev))
     _raise("probe_packgrad", err)
-    packgrad.launches += 1
+    profiling.count("launches.packgrad")
     return out
 
-
-packgrad.launches = 0
 
 
 # --- P3: gather (C) and scalar-sum table (D) ----------------------------------
@@ -364,11 +363,9 @@ def packgrad2(body: str, pay=None, device="cuda", grid: int = P3_GRID,
             pay.data_ptr() if body == "C" else None, out.data_ptr(),
             "CD".index(body), int(grid), int(bounces), _stream(dev))
     _raise("probe_packgrad2", err)
-    packgrad2.launches += 1
+    profiling.count("launches.packgrad2")
     return out
 
-
-packgrad2.launches = 0
 
 
 # --- P4: per-segment layouts, A (gather) and B (scalars, selects) --------------
@@ -625,11 +622,9 @@ def seglayout(body: str, shape, tables: dict, grid: int = P4_GRID,
                 out.data_ptr(), out.numel(), shape[1], int(grid),
                 int(segments), _stream(dev))
     _raise("probe_seglayout", err)
-    seglayout.launches += 1
+    profiling.count("launches.seglayout")
     return out
 
-
-seglayout.launches = 0
 
 
 # --- P1: block shapes ----------------------------------------------------------
@@ -680,11 +675,9 @@ def sublanes(x: torch.Tensor, grid: int = P1_GRID,
                                         x.numel(), int(grid), int(iters),
                                         _stream(x.device))
     _raise("probe_sublanes", err)
-    sublanes.launches += 1
+    profiling.count("launches.sublanes")
     return out
 
-
-sublanes.launches = 0
 
 
 # --- counts, bounds, timing ----------------------------------------------------
