@@ -362,12 +362,14 @@ SPLIT_EDGE_WIDTH = 320
 # image kernel (image_thread, phase 1) has one.
 DIFF_VOTE_LOOPS = 3
 # Back edges of each kernel that are not its vote-latched loops: walks
-# over sphere, quad, light and surrogate rows, the table loads and the
-# fixed-order sums, read off the SASS of the shipped build. NEE adds the
+# over sphere, quad, light and surrogate rows, K2's BVH walk (one loop,
+# five back edges as built), the table loads and the fixed-order sums,
+# read off the SASS of the shipped build. NEE adds the
 # shadow ray's and the light's walks, the silhouette its row walks. A
 # sample or bounce loop rebuilt on a thread's own counters would add one.
-PLAIN_BACK_EDGES = {"flat_kernel": 8, "packed_kernel": 7, "K5": 24,
-                    "K4": 22, "K5 image": 8, "K4 image": 8}
+PLAIN_BACK_EDGES = {"flat_kernel": 8, "flat_kernel bvh": 5,
+                    "packed_kernel": 7, "K5": 24, "K4": 22, "K5 image": 8,
+                    "K4 image": 8}
 PLAIN_BACK_EDGES_NEE = {"K5": 6, "K4": 6, "K5 image": 2, "K4 image": 2}
 PLAIN_BACK_EDGES_SIL = {"K5": 2, "K4": 2}
 # The K5 lane model at cfg5f reads every K5_LANE_EVERY-th warp of the
@@ -518,6 +520,8 @@ def sass_phase(build):
         if not kind:
             kind = next((k for k in ("flat_kernel", "packed_kernel")
                          if k in name), None)
+            if kind == "flat_kernel" and "BvhScene" in name:
+                kind = "flat_kernel bvh"     # the BVH walk: its one loop
         if not kind:
             continue
         want = DIFF_VOTE_LOOPS if kind in ("K5", "K4") else 1
@@ -706,7 +710,7 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
         "K1": lambda w, h: lib.tinyrt_megakernel_packed_split(
             low.table.size, w, h, spp, *k1_flags),
         "K2": lambda w, h: lib.tinyrt_megakernel_flat_split(
-            w, h, spp, *k2_flags)}
+            w, h, spp, *k2_flags, int(r.bvh))}
     for kid, query in queries.items():
         shapes = split_threshold(query)
         splits = [query(*wh) for wh in shapes]
@@ -1010,7 +1014,8 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
             in_bytes = sum(4 * a.size for a in (f.sph, f.quad, f.pay, f.cam))
             flags = (f.has_met, f.has_die)
             split = lib.tinyrt_megakernel_flat_split(
-                w, h, spp, int(f.has_met), int(f.has_die), int(f.sky))
+                w, h, spp, int(f.has_met), int(f.has_die), int(f.sky),
+                int(r.bvh))
         reps = 2 if label == "cfg4" else 3
         ms = time_kernel(torch, kernel, reps)
         torch.cuda.reset_peak_memory_stats()

@@ -94,14 +94,17 @@ def test_declare_types_every_exported_function():
     assert packed[13] is ctypes.c_float
     assert packed[18] is packed[19] is ctypes.c_int     # the pixel range
     flat = lib.tinyrt_megakernel_flat.argtypes
-    assert len(flat) == 28
+    assert len(flat) == 30
+    # ... the BVH's nodes (or None) and their count after the AABBs'
     assert [k for k, t in enumerate(flat) if t is p] == [0, 1, 4, 6, 8, 11,
-                                                         12, 26, 27]
-    assert flat[24] is flat[25] is ctypes.c_int
-    assert flat[19] is ctypes.c_float
-    assert flat[15] is flat[16] is ctypes.c_uint
+                                                         13, 14, 28, 29]
+    assert flat[12] is ctypes.c_int
+    assert flat[26] is flat[27] is ctypes.c_int
+    assert flat[21] is ctypes.c_float
+    assert flat[17] is flat[18] is ctypes.c_uint
     assert lib.tinyrt_megakernel_packed_split.argtypes == [ctypes.c_int] * 7
-    assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 6
+    # ... and whether the launch walks the BVH
+    assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 7
     fold = lib.tinyrt_fold_samples.argtypes
     assert fold == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
     k3 = lib.tinyrt_closest_hit.argtypes

@@ -18,7 +18,7 @@ from tinyraytracer_tpu_torch.ops import megakernel as mk
 from tinyraytracer_tpu_torch.ops import megakernel_packed as mkp
 from tinyraytracer_tpu_torch.ops import trace as trace_ops
 from tinyraytracer_tpu_torch.utils import profiling
-from torch_k3_scenes import k3_world
+from torch_k3_scenes import bench_world, k3_world
 
 # Kernel vs twin on one card. Both use the card's sinf/cosf/expf/logf,
 # IEEE sqrt and division, and no FMA contraction (the kernel is built
@@ -180,7 +180,8 @@ def test_kernels_equal_twins_on_each_side_of_the_sample_split(cuda, name,
             int(low.has_die), int(low.sky))
     else:
         split = lambda h: lib.tinyrt_megakernel_flat_split(  # noqa: E731
-            width, h, spp, int(f.has_met), int(f.has_die), int(f.sky))
+            width, h, spp, int(f.has_met), int(f.has_die), int(f.sky),
+            int(r.bvh))
     height = 8
     while split(height) > 1:
         height += 8
@@ -200,6 +201,58 @@ def test_kernels_equal_twins_on_each_side_of_the_sample_split(cuda, name,
             del args["aabbs"]
             want = mk.render_flat_reference(**args)
         assert torch.equal(got, want), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rtiow_final", "quads"])
+def test_flat_kernel_bvh_route_equals_dense(cuda, name):
+    """K2's BVH walk against its dense search bit for bit, and both
+    against the twin: the final scene (which the rule routes to the walk)
+    and 36 spheres in the Cornell box's 18 quads (forced), under one wave
+    (the samples split over threads), over mesh shards' pixel ranges, and
+    over a whole image above one wave (no split)."""
+    from tinyraytracer_tpu_torch import _build
+
+    lib = _build.load()
+
+    def renderers(w, h):
+        world, camera, kw = (bench_world("rtiow_final", w, h)
+                             if name == "rtiow_final"
+                             else k3_world("cornell_box", extra=36, width=w,
+                                           height=h))
+        scene = world.build()
+        walk = mk.MegakernelRenderer(scene, camera, kw["background"], cuda,
+                                     bvh=None if name == "rtiow_final"
+                                     else True)
+        dense = mk.MegakernelRenderer(scene, camera, kw["background"], cuda,
+                                      bvh=False)
+        assert walk.bvh and not walk.chunk_cull
+        assert not dense.bvh and not dense.chunk_cull
+        return walk, dense
+
+    walk, dense = renderers(64, 36)
+    f = walk.flat
+    assert f.n_sph + f.n_quad > mkp.PACKED_MAX_PRIMS
+    assert f.nodes.shape == (2 * (f.n_sph + f.n_quad) - 1, 8)
+    flags = (int(f.has_met), int(f.has_die), int(f.sky))
+    assert lib.tinyrt_megakernel_flat_split(64, 36, 4, *flags, 1) > 1
+    args = dict(spp=4, max_bounces=8, seed=3_000_000_019, spp_offset=2)
+    got = walk.render(**args)
+    assert torch.equal(got, dense.render(**args))
+    twin = dense.flat_args(**args)
+    twin.pop("aabbs")
+    twin = mk.render_flat_reference(**twin)
+    assert torch.equal(got, twin)
+    for b, n in ((0, 1), (70, 300), (2200, 104)):
+        shard = mk.render_flat(**walk.flat_args(**args, pixels=(b, n)))
+        assert torch.equal(shard, got.reshape(-1, 3)[b:b + n])
+    walk, dense = renderers(640, 360)
+    assert lib.tinyrt_megakernel_flat_split(640, 360, 2, *flags, 1) == 1
+    args = dict(spp=2, max_bounces=16, seed=7)
+    before = profiling.counter("launches.render_flat")
+    got = walk.render(**args)
+    assert torch.equal(got, dense.render(**args))
+    assert profiling.counter("launches.render_flat") == before + 2
 
 
 @pytest.mark.cuda

@@ -193,10 +193,39 @@ def test_lane_segments_are_the_reference_segments(cuda, config, kernel):
                                       width=w, spp=spp, seed=seed,
                                       max_bounces=mb)
     assert torch.equal(img.reshape(-1, 3).cpu(), want.float().cpu())
-    assert snap["device"]["lane_segments"] == round(seg * w * h * spp)
-    eff = snap["device"]["lane_segments"] / (
-        32.0 * snap["device"]["warp_passes"])
+    dev = snap["device"]
+    assert dev["lane_segments"] == round(seg * w * h * spp)
+    eff = dev["lane_segments"] / (32.0 * dev["warp_passes"])
     assert 0.0 < eff <= 1.0
+    # K1 leaves the walk counters alone; K2 (the final scene walks its
+    # BVH) tests fewer nodes a segment than the scene has rows, and a
+    # warp's walk loop runs its busiest lane's tests
+    if kernel == "render_packed":
+        assert dev["walk_steps"] == dev["walk_iters"] == 0
+    else:
+        assert 0 < dev["walk_steps"] < 500 * dev["lane_segments"]
+        assert dev["walk_steps"] <= dev["walk_iters"]
+
+
+@pytest.mark.cuda
+def test_dense_k2_counts_every_row_a_segment(cuda):
+    """K2's dense search counts its rows: every segment tests each of the
+    scene's rows, so walk_steps is rows x lane_segments, and each warp
+    pass runs the row loop once: walk_iters is 32 x rows x warp_passes."""
+    from tinyraytracer_tpu_torch.ops import megakernel as mk
+
+    w, h = 24, 16
+    desc, world, camera, _, _ = _reference_scene("rtiow_final", w, h)
+    r = mk.MegakernelRenderer(world.build(), camera,
+                              tuple(desc["background"]), cuda, bvh=False)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        r.render(spp=3, max_bounces=8, seed=3)
+        torch.cuda.synchronize()
+    dev = profiling.snapshot()["device"]
+    rows = r.n_sph + r.n_quad
+    assert dev["walk_steps"] == rows * dev["lane_segments"]
+    assert dev["walk_iters"] == 32 * rows * dev["warp_passes"]
 
 
 @pytest.mark.cuda

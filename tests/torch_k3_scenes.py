@@ -1,5 +1,10 @@
 """The closest-hit kernel K3's edge scenes, one builder for its CPU tests
-(tests/test_torch_k3_plan.py) and its card tests (tests/test_torch_cuda.py)."""
+(tests/test_torch_k3_plan.py) and its card tests (tests/test_torch_cuda.py),
+and the benchmark's scenes for K2's tests."""
+
+import json
+import os
+import sys
 
 from tinyraytracer_tpu_torch.models import presets
 from tinyraytracer_tpu_torch.models.geometry import Sphere
@@ -24,3 +29,19 @@ def k3_world(name, n=None, extra=0, coincident=False, width=32, height=24):
         last = [g for g in world.geometries if isinstance(g, Sphere)][-1]
         world.add_geometry(Sphere(last.center, last.radius, "k3_extra"))
     return world, camera, pkw
+
+
+def bench_world(config, width, height):
+    """The benchmark's scene `config` (perfbench/configs/) through the
+    port's public API, at width x height: (world, camera, kw), kw holding
+    its background."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench import scenes
+
+    with open(os.path.join(root, "perfbench", "configs",
+                           f"{config}.json")) as f:
+        desc = scenes.description(json.load(f))
+    world, camera = scenes.port_scene(desc, width, height)
+    return world, camera, dict(background=tuple(desc["background"]))

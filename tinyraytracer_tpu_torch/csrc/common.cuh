@@ -368,17 +368,45 @@ inline Frame make_frame(float* out, float* samples, int width, int height,
 // its loop passes to counts[1], one atomic each from the warp's first
 // lane. Every thread of the warp calls it, converged; the passes are the
 // same on every lane (the loop's exit is a warp vote). segments / (32 x
-// passes) is the share of issued lanes that did useful work.
+// passes) is the share of issued lanes that did useful work. With WALK
+// it also adds the warp's closest-hit tests (summed over its lanes) to
+// counts[2] and 32 x its walk iterations (count_walk) to counts[3].
+template <bool WALK>
 __device__ __forceinline__ void count_lanes(unsigned long long* counts,
                                             unsigned int segments,
-                                            unsigned int passes) {
+                                            unsigned int passes,
+                                            unsigned int steps,
+                                            unsigned int iters) {
+  unsigned long long steps64 = steps, iters64 = iters;
   for (int o = 16; o > 0; o >>= 1) {
     segments += __shfl_down_sync(0xffffffffu, segments, o);
+    if (WALK) {
+      steps64 += __shfl_down_sync(0xffffffffu, steps64, o);
+      iters64 += __shfl_down_sync(0xffffffffu, iters64, o);
+    }
   }
   if (((threadIdx.y * blockDim.x + threadIdx.x) & 31u) == 0u) {
     atomicAdd(counts, (unsigned long long)segments);
     atomicAdd(counts + 1, (unsigned long long)passes);
+    if (WALK) {
+      atomicAdd(counts + 2, steps64);
+      atomicAdd(counts + 3, 32ull * iters64);
+    }
   }
+}
+
+// Adds a segment's closest-hit tests (node and row tests) to the lane's
+// `steps` and, on the first of the lanes that run the segment together,
+// the most tests any of them ran to `iters`: a walk loop runs as many
+// iterations as its busiest lane.
+__device__ __forceinline__ void count_walk(unsigned int tests,
+                                           unsigned int& steps,
+                                           unsigned int& iters) {
+  const unsigned int mask = __activemask();
+  const unsigned int most = __reduce_max_sync(mask, tests);
+  steps += tests;
+  const unsigned int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31u;
+  if (lane == (unsigned int)(__ffs(mask) - 1)) iters += most;
 }
 
 // Renders part `part` of pixel (x, y)'s samples (see Frame), one bounce
@@ -389,10 +417,11 @@ __device__ __forceinline__ void count_lanes(unsigned long long* counts,
 // back to the loop head, which makes a bounce loop inside a sample loop
 // again, with the warp reconverging at the end of every sample.
 // `scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w)` is the kernel's
-// own search: the strict-`<` first minimum over spheres, then quads, and
-// the winner's payload (zero on a miss). COUNT adds the warp's segments
-// and passes to f.counts at exit (count_lanes); without it the loop is
-// the same code as ever.
+// own search: the first minimum over spheres, then quads (the lowest row
+// at the least t), and the winner's payload (zero on a miss). COUNT adds
+// the warp's segments and passes to f.counts at exit (count_lanes) and,
+// where Scene::kCountsWalk, the tests its closest_hit returns
+// (count_walk); without COUNT the loop is the same code as ever.
 template <bool HAS_MET, bool HAS_DIE, bool SKY, bool COUNT, class Scene>
 __device__ __forceinline__ void render_pixel(const float* cam,
                                              const Scene& scene,
@@ -414,6 +443,7 @@ __device__ __forceinline__ void render_pixel(const float* cam,
   bool alive = true;
   int b = 0;  // bounce within the current sample
   unsigned int segments = 0, passes = 0;  // COUNT only
+  unsigned int steps = 0, iters = 0;  // COUNT and kCountsWalk only
   while (__any_sync(0xffffffffu, active)) {
     if (COUNT) ++passes;
     if (active) {
@@ -427,7 +457,12 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       }
       float best;
       Payload w;
-      scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w);
+      if constexpr (COUNT && Scene::kCountsWalk) {
+        count_walk(scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w), steps,
+                   iters);
+      } else {
+        scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w);
+      }
       float u1, u2, u3, u4;  // scatter randomness: stream 1 + bounce
       uniform4(pid, samp, 1u + (uint32_t)b, f.seed, u1, u2, u3, u4);
       shade_bounce<HAS_MET, HAS_DIE, SKY>(ox, oy, oz, dx, dy, dz, tr, tg,
@@ -453,7 +488,9 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       }
     }
   }
-  if (COUNT) count_lanes(f.counts, segments, passes);
+  if (COUNT) {
+    count_lanes<Scene::kCountsWalk>(f.counts, segments, passes, steps, iters);
+  }
   if (in_image && f.split == 1) {
     float* o = f.out + 3 * (size_t)i;
     o[0] = acc_r * f.inv_spp;

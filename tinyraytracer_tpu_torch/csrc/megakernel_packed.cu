@@ -43,6 +43,7 @@ constexpr int kQuadFields = 15;
 
 // The scene table in shared memory.
 struct PackedScene {
+  static constexpr bool kCountsWalk = false;  // no walk counters (common.cuh)
   const float* tab;
   int n_sph, n_quad;
 

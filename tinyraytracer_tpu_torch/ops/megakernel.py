@@ -12,17 +12,34 @@ run the same arithmetic per pixel. It works on tensors of any one shape.
 `render_flat` is the wrapper of K2, the port of the JAX package's
 `megakernel._make_kernel` (ops/megakernel.py:489) in its default regen
 mode: the same sampler as the packed kernel over the compacted scene rows
-of `scene_table.lower_flat`, for scenes of any size, with an optional
-per-block AABB cull of the sphere rows. On a CPU tensor it runs
-`render_flat_reference`, the plain twin; on a CUDA tensor it launches
-csrc/megakernel.cu and raises if the launch fails. Each launch adds one to
-the host counter `launches.render_flat` (utils/profiling.py), and counts
-lanes as K1 does.
+of `scene_table.lower_flat`, for scenes of any size. Its closest-hit
+search takes one of three routes: every real row (dense), the sphere rows
+in blocks with a per-block AABB cull (`aabbs`), or a per-thread walk of a
+threaded BVH over the rows (`nodes`). The cull and the walk select the
+dense search's winner, exact ties included, for every ray whose hit
+tests' own f32 rounding keeps a reported hit inside the row's box
+(padded 5e-5 a side), so the image is the same bit for bit; a ray tested
+from about a thousand units away can get a "hit" outside a small sphere
+from the dense search that a box culls (PERF.md §6: one sample in 405
+million at the final scene's full size). On a CPU tensor it runs
+`render_flat_reference`, the plain (dense) twin; on a CUDA tensor it
+launches csrc/megakernel.cu and raises if the launch fails. Each launch
+adds one to the host counter `launches.render_flat`
+(utils/profiling.py), and counts lanes as K1 does and, in the device
+counters `walk_steps` and `walk_iters`, its closest-hit tests.
+
+What bounds K2 on each route is in csrc/megakernel.cu's note: FP32
+issue over the tests a ray runs. The walk runs a few dozen node and row
+tests where the dense search runs every row, at a lower rate (dependent
+node loads, lanes that disagree); it is the route from BVH_MIN_PRIMS real
+primitives up. Above AUTO_CULL_ROWS padded rows K2 keeps the JAX
+package's Morton order and block cull.
 
 `MegakernelRenderer` binds a scene and camera and renders (H, W, 3)
 linear radiance: scenes of at most PACKED_MAX_PRIMS real primitives
 through the packed kernel (ops/megakernel_packed.py), larger ones through
-K2, as the JAX package routes them.
+K2, as the JAX package routes them, and picks K2's route from the
+scene's primitive and row counts.
 """
 
 from __future__ import annotations
@@ -49,6 +66,13 @@ TWO_PI = 6.283185307179586   # used as f32: 6.2831855
 # one threshold is, so that both packages Morton-order the rows of the
 # same scenes: row order decides exact ties.
 AUTO_CULL_ROWS = 4096
+
+# K2 walks a BVH from this many real primitives up, to the cull's
+# AUTO_CULL_ROWS: on the H100 the walk beat the dense search at every
+# size of the sweep (PERF.md §6: 49-500 spheres, 1.5-7.5x), whose
+# smallest is K2's smallest scene by the packed route's rule; smaller
+# scenes forced onto K2 keep the dense search.
+BVH_MIN_PRIMS = 49
 
 # Most elements of one candidate matrix (rows x pixels) the twin builds
 # when no pixel chunk is given (16 MiB of f32 per intermediate).
@@ -398,11 +422,13 @@ def launch_forward(lib, device, width: int, height: int, spp: int, pixels,
 
 # --- K2: the classic-layout megakernel ------------------------------------
 
-def _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
-                spp, max_bounces):
+def _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
+                height, spp, max_bounces):
     ts = dict(sph=sph, quad=quad, pay=pay, cam=cam)
     if aabbs is not None:
         ts["aabbs"] = aabbs
+    if nodes is not None:
+        ts["nodes"] = nodes
     for name, t in ts.items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got "
@@ -427,6 +453,13 @@ def _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
         if tuple(aabbs.shape) != (k, 8):
             raise ValueError(f"aabbs must be ({k}, 8), got "
                              f"{tuple(aabbs.shape)}")
+    if nodes is not None:
+        m = 2 * (n_sph + n_quad) - 1
+        if tuple(nodes.shape) != (m, 8):
+            raise ValueError(f"nodes must be ({m}, 8), got "
+                             f"{tuple(nodes.shape)}")
+        if aabbs is not None:
+            raise ValueError("K2 takes aabbs or nodes, not both")
     if width < 2 or height < 2:
         raise ValueError(f"image must be at least 2x2, got {width}x{height}")
     if spp < 1 or max_bounces < 1:
@@ -435,7 +468,8 @@ def _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
 
 
 def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
-                cam: torch.Tensor, aabbs: torch.Tensor | None = None, *,
+                cam: torch.Tensor, aabbs: torch.Tensor | None = None,
+                nodes: torch.Tensor | None = None, *,
                 n_sph: int, n_quad: int, width: int, height: int, spp: int,
                 max_bounces: int, seed: int = 0, spp_offset: int = 0,
                 has_met: bool = True, has_die: bool = True,
@@ -449,12 +483,15 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
     The inputs are `scene_table.FlatScene`'s arrays as tensors. With
     `aabbs` the kernel skips a block of ROW_CHUNK sphere rows when the
     pixel's ray does not enter the block's AABB before its best hit so
-    far; the cull is exact, so the image is the same. `fmad=True` selects
-    a build compiled with FMA contraction, for numerics comparisons only.
-    The CPU twin ignores `aabbs` and `fmad`.
+    far; with `nodes` (`scene_table.bvh_nodes`, whose links and rows the
+    kernel trusts) each thread walks the BVH instead of the rows. Both
+    select the dense search's winner (see the module's docstring for
+    the rounding limit), so the image is the same. `fmad=True` selects a
+    build compiled with FMA contraction, for numerics comparisons only.
+    The CPU twin ignores `aabbs`, `nodes` and `fmad`.
     """
-    _check_flat(sph, quad, pay, cam, aabbs, n_sph, n_quad, width, height,
-                spp, max_bounces)
+    _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
+                height, spp, max_bounces)
     pixel_range(width, height, pixels)
     kw = dict(n_sph=n_sph, n_quad=n_quad, width=width, height=height,
               spp=spp, max_bounces=max_bounces, seed=seed,
@@ -464,10 +501,10 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
         return render_flat_reference(sph, quad, pay, cam, **kw)
     if sph.device.type != "cuda":
         raise ValueError(f"no megakernel for device {sph.device}")
-    rows = [t for t in (sph, quad, pay, aabbs) if t is not None]
+    rows = [t for t in (sph, quad, pay, aabbs, nodes) if t is not None]
     if any(t.data_ptr() % 16 for t in rows):
-        raise ValueError("sph, quad, pay and aabbs must be 16-byte aligned: "
-                         "the kernel reads their rows as float4")
+        raise ValueError("sph, quad, pay, aabbs and nodes must be 16-byte "
+                         "aligned: the kernel reads their rows as float4")
     lib = _build.load(fmad=fmad)
     ns = sph.shape[0]
     flags = (int(has_met), int(has_die), int(sky))
@@ -479,14 +516,16 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
             n_quad, pay.data_ptr(), ns if n_sph else 0,
             aabbs.data_ptr() if aabbs is not None else None,
             aabbs.shape[0] if aabbs is not None else 0,
-            min(scene_table.ROW_CHUNK, ns), out, samples, width, height,
-            seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp, max_bounces,
-            inv_spp, split, *flags, pix0, npix, counts, stream)
+            min(scene_table.ROW_CHUNK, ns),
+            nodes.data_ptr() if nodes is not None else None,
+            nodes.shape[0] if nodes is not None else 0, out, samples, width,
+            height, seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp,
+            max_bounces, inv_spp, split, *flags, pix0, npix, counts, stream)
 
     out, err = launch_forward(
         lib, sph.device, width, height, spp, pixels,
-        lambda rows: lib.tinyrt_megakernel_flat_split(width, rows, spp,
-                                                      *flags),
+        lambda rows: lib.tinyrt_megakernel_flat_split(
+            width, rows, spp, *flags, int(nodes is not None)),
         launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
@@ -509,22 +548,24 @@ def flat_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
 
 
 def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
-                          pay: torch.Tensor, cam: torch.Tensor, *,
+                          pay: torch.Tensor, cam: torch.Tensor,
+                          nodes: torch.Tensor | None = None, *,
                           n_sph: int, n_quad: int, width: int, height: int,
                           spp: int, max_bounces: int, seed: int = 0,
                           spp_offset: int = 0, has_met: bool = True,
                           has_die: bool = True, sky: bool = False,
                           pixel_chunk: int = 0,
                           pixels: tuple | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of K2 (no cull: the cull is exact, so this is
-    what the culled and the unculled kernel are both held to), over the
-    whole image or the flat pixel ids `pixels` (begin, count).
+    """Plain PyTorch twin of K2, dense on every route: the cull and the
+    BVH walk select the dense search's winner, so this is what the
+    kernel is held to on all three, and `nodes` is checked and ignored.
+    Over the whole image or the flat pixel ids `pixels` (begin, count).
 
     The closest hit is `flat_closest_hit`. Pixels go in chunks of
     `pixel_chunk` (0: as many as keep the candidate matrix within
     CANDIDATE_BUDGET elements)."""
-    _check_flat(sph, quad, pay, cam, None, n_sph, n_quad, width, height,
-                spp, max_bounces)
+    _check_flat(sph, quad, pay, cam, None, nodes, n_sph, n_quad, width,
+                height, spp, max_bounces)
     if not pixel_chunk:
         pixel_chunk = max(1, CANDIDATE_BUDGET // (n_sph + n_quad))
     return lockstep_render(
@@ -546,12 +587,17 @@ class MegakernelRenderer:
     Nothing is lowered onto it or launched before `render`.
     `chunk_cull` (K2 only): None culls when the scene has more than
     AUTO_CULL_ROWS padded active rows and at least one sphere, as the JAX
-    package does; True or False forces it. Host lowerings and their
+    package does; True or False forces it. `bvh` (K2 only, for tests):
+    None walks a BVH when the scene has at least BVH_MIN_PRIMS real
+    primitives and at most AUTO_CULL_ROWS padded rows, and the cull is
+    not forced on; True or False forces it (True turns the automatic
+    cull off; with a forced cull it raises). Host lowerings and their
     device copies are made at first use and kept, one copy per device.
     """
 
     def __init__(self, scene: SceneArrays, camera: Camera, background,
-                 device="cuda", chunk_cull: bool | None = None):
+                 device="cuda", chunk_cull: bool | None = None,
+                 bvh: bool | None = None):
         self.device = torch.device(device)
         self.scene = scene
         self.camera = camera
@@ -561,11 +607,18 @@ class MegakernelRenderer:
         self.n_quad = int(a["quad_valid"].sum())
         if self.n_sph + self.n_quad == 0:
             raise ValueError("scene has no primitives")
+        rows = ((scene_table.pad8(self.n_sph) if self.n_sph else 0)
+                + (scene_table.pad8(self.n_quad) if self.n_quad else 0))
+        if bvh is None:
+            bvh = (not chunk_cull and rows <= AUTO_CULL_ROWS
+                   and self.n_sph + self.n_quad >= BVH_MIN_PRIMS)
         if chunk_cull is None:
-            rows = ((scene_table.pad8(self.n_sph) if self.n_sph else 0)
-                    + (scene_table.pad8(self.n_quad) if self.n_quad else 0))
-            chunk_cull = rows > AUTO_CULL_ROWS
+            chunk_cull = rows > AUTO_CULL_ROWS and not bvh
+        self.bvh = bool(bvh)
         self.chunk_cull = bool(chunk_cull) and self.n_sph > 0
+        if self.bvh and self.chunk_cull:
+            raise ValueError("K2 takes the chunk cull or the BVH walk, not "
+                             "both")
         self._copies: dict = {}
 
     @functools.cached_property
@@ -578,7 +631,8 @@ class MegakernelRenderer:
         """K2's host lowering."""
         return scene_table.lower_flat(self.scene, self.camera,
                                       self.background,
-                                      chunk_cull=self.chunk_cull)
+                                      chunk_cull=self.chunk_cull,
+                                      bvh=self.bvh)
 
     def _on(self, name: str, device, make):
         key = (name, torch.device(device))
@@ -606,10 +660,12 @@ class MegakernelRenderer:
         f = self.flat
 
         def make(d):
-            dev = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+            def dev(a):
+                return None if a is None else torch.from_numpy(a).to(d)
+
             return dict(sph=dev(f.sph), quad=dev(f.quad), pay=dev(f.pay),
-                        cam=dev(f.cam),
-                        aabbs=None if f.aabbs is None else dev(f.aabbs))
+                        cam=dev(f.cam), aabbs=dev(f.aabbs),
+                        nodes=dev(f.nodes))
 
         return self._on("flat", device, make)
 

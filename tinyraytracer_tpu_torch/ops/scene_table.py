@@ -15,6 +15,8 @@ bit:
 - `morton_order`, `build_chunk_aabbs`: the spatial sphere order and the
   per-block AABBs of the culled row sweep (megakernel._morton_order,
   megakernel._build_chunk_aabbs).
+- `bvh_nodes`: ops/bvh.py's threaded BVH over K2's rows, as K2's walk
+  reads it (the port's own route; the JAX package has no such lowering).
 
 `lower` runs them for the packed kernel (K1), `lower_flat` for the
 classic-layout kernel (K2).
@@ -31,6 +33,7 @@ import torch
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.models.camera import Camera
 from tinyraytracer_tpu_torch.models.world import SceneArrays
+from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
 
 _FAR = 1.0e30  # inert-primitive displacement: never intersected
 
@@ -340,6 +343,38 @@ def build_chunk_aabbs(cs: CompactScene, chunk: int) -> tuple:
     return cmin, cmax
 
 
+def bvh_nodes(scene: SceneArrays, cs: CompactScene) -> np.ndarray:
+    """(M, 8) f32: `ops.bvh.build_bvh`'s threaded BVH (the native build)
+    over the real rows of `cs` in scene order, for K2's walk.
+
+    Node i is (min xyz, leaf, max xyz, miss), `leaf` and `miss` int32
+    stored as their bits. An inner node's leaf is -1 and its hit link,
+    i + 1 in DFS preorder, is left implicit; a leaf's is its K2 row:
+    sphere k is row k, quad j row q_row0 + j, with q_row0 = cs.ns when the
+    scene has spheres, else 0 (render_flat's numbering). miss is the node
+    after i's subtree, M after the last."""
+    t = bvh_ops.build_bvh(scene).numpy()
+    a = scene.numpy()
+    n_global = a["sph_center"].shape[0] + a["quad_corner"].shape[0]
+    ns, nq = cs.n_sph_real, cs.n_quad_real
+    q_row0 = cs.ns if ns else 0
+    row = np.full((n_global,), -1, np.int32)
+    row[cs.index_map[:ns]] = np.arange(ns, dtype=np.int32)
+    row[cs.index_map[cs.ns:cs.ns + nq]] = q_row0 + np.arange(nq,
+                                                             dtype=np.int32)
+    m = t["leaf_prim"].shape[0]
+    inner = t["leaf_prim"] < 0
+    if not np.array_equal(t["hit_link"][inner], np.nonzero(inner)[0] + 1):
+        raise ValueError("an inner node's hit link is not the next node")
+    nodes = np.zeros((m, 8), np.float32)
+    nodes[:, 0:3] = t["node_min"]
+    nodes[:, 4:7] = t["node_max"]
+    bits = nodes.view(np.int32)
+    bits[:, 3] = np.where(inner, -1, row[np.maximum(t["leaf_prim"], 0)])
+    bits[:, 7] = t["miss_link"]
+    return nodes
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatScene:
     """Everything the classic-layout megakernel (K2) reads, on the host.
@@ -355,6 +390,7 @@ class FlatScene:
     pay: np.ndarray      # (NA, 16) f32: the sphere block's payload rows
                          # (when there are spheres), then the quad block's
     aabbs: Optional[np.ndarray]  # (K, 8) f32: min xyz, 0, max xyz, 0
+    nodes: Optional[np.ndarray]  # (M, 8) f32: bvh_nodes, or None
     cam: np.ndarray      # (32,) f32 camera vector
     n_sph: int           # real spheres (rows [0, n_sph) of `sph`)
     n_quad: int          # real quads (rows [0, n_quad) of `quad`)
@@ -364,11 +400,15 @@ class FlatScene:
 
 
 def lower_flat(scene: SceneArrays, camera: Camera, background, *,
-               chunk_cull: bool) -> FlatScene:
+               chunk_cull: bool, bvh: bool = False) -> FlatScene:
     """K2's inputs. With `chunk_cull` the spheres are Morton-ordered and
     each ROW_CHUNK block gets an AABB, as the JAX package lowers a scene
     it culls; without it the rows keep scene order and `aabbs` is None.
-    The payload is megakernel._active_payload's (16, NA), transposed."""
+    With `bvh` (not with `chunk_cull`) `nodes` holds `bvh_nodes`, else
+    None. The payload is megakernel._active_payload's (16, NA),
+    transposed."""
+    if chunk_cull and bvh:
+        raise ValueError("K2 takes the chunk cull or the BVH walk, not both")
     order = None
     if chunk_cull:
         a = scene.numpy()
@@ -395,6 +435,7 @@ def lower_flat(scene: SceneArrays, camera: Camera, background, *,
              cs.quad_cb], 1), np.float32),
         pay=np.ascontiguousarray(pay[:, lo:hi].T),
         aabbs=aabbs,
+        nodes=bvh_nodes(scene, cs) if bvh else None,
         cam=camera_vector(camera, background)[0],
         n_sph=cs.n_sph_real,
         n_quad=cs.n_quad_real,

@@ -53,7 +53,13 @@ the reduce stages in the `--profile` export only.
 Device counters (K1 and K2, csrc/common.cuh `render_pixel`):
 `lane_segments`, the bounce segments every in-image thread ran, and
 `warp_passes`, the passes of each warp's bounce loop:
-simt_efficiency.render = lane_segments / (32 x warp_passes).
+simt_efficiency.render = lane_segments / (32 x warp_passes). K2 alone
+(`count_walk`; K1 leaves them 0): `walk_steps`, the closest-hit tests
+every in-image thread ran (BVH nodes visited, leaves included; a dense
+segment's rows; the cull's blocks and the rows of the blocks it enters),
+and `walk_iters`, 32 x the iterations of each warp's search loop (its
+busiest lane's tests, each segment): walk_steps.render = walk_steps /
+lane_segments, walk_efficiency.render = walk_steps / walk_iters.
 
 Host counters: `launches.<wrapper>`, one per kernel launch of each
 wrapper (render_packed K1, render_flat K2, closest_hit K3, classic_diff
@@ -84,7 +90,8 @@ from typing import Iterator
 
 import torch
 
-DEVICE_COUNTERS = ("lane_segments", "warp_passes")
+DEVICE_COUNTERS = ("lane_segments", "warp_passes", "walk_steps",
+                   "walk_iters")
 
 _NOOP = contextlib.nullcontext()
 _local = threading.local()
