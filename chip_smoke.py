@@ -22,6 +22,9 @@ Phases, each printed on its own lines:
    equal K1 bit for bit. Then the sampler's edges (max_bounces=1, spp=7
    at spp_offset=3, a 61x37 image) and an image on each side of the
    sample split's threshold (one wave of the card), for both kernels.
+   K2 with participating media (its HAS_MED instantiations) on one
+   scene of 60 spheres, two quads and two media: the BVH walk, the dense
+   search and the twin bit for bit.
 4. Main path: `Renderer(...).render(camera, world)` for BASELINE configs
    1-4 and 4b at full size, one warm-up then one timed render each; the
    PNG goes to output/ through the native encoder (native/, built at
@@ -29,6 +32,12 @@ Phases, each printed on its own lines:
    non-negative radiance and the
    Cornell box's orientation. Both launch counters are zeroed before this
    phase; K1's must rise on configs 1-3 only, K2's on 4 and 4b only.
+   Then the benchmark's media scene (perfbench/configs/rtnw_final.json:
+   Ray Tracing: The Next Week's final scene, 2 401 quads, 1 006 spheres,
+   2 media) at its size, 800x800 with 40 bounces, at spp=2: one render
+   through `Renderer.render`, which must be one HAS_MED launch on the BVH
+   walk (K2's counter zeroed just before), and a band of 64 image rows
+   through the ball that holds a medium held to K2's twin bit for bit.
 5. Where the time goes: the steps of one render (lowering, copies,
    kernel, readback, gamma) timed one by one beside whole renders.
 6. Kernel vs twin at the configs' shapes: kernel time (CUDA events) next
@@ -361,6 +370,10 @@ SPLIT_EDGE_WIDTH = 320
 # diff_thread): stage R, stage A and the chunk loop around them. Each
 # image kernel (image_thread, phase 1) has one.
 DIFF_VOTE_LOOPS = 3
+# K2's HAS_MED instantiations (a scene with media): the dense and culled
+# searches add the media's row walk; the BVH walk stays one loop.
+MED_DENSE_BACK_EDGES = 9
+MED_BVH_BACK_EDGES = 5
 # Back edges of each kernel that are not its vote-latched loops: walks
 # over sphere, quad, light and surrogate rows, K2's BVH walk (one loop,
 # five back edges as built), the table loads and the fixed-order sums,
@@ -368,6 +381,8 @@ DIFF_VOTE_LOOPS = 3
 # shadow ray's and the light's walks, the silhouette its row walks. A
 # sample or bounce loop rebuilt on a thread's own counters would add one.
 PLAIN_BACK_EDGES = {"flat_kernel": 8, "flat_kernel bvh": 5,
+                    "flat_kernel med": MED_DENSE_BACK_EDGES,
+                    "flat_kernel bvh med": MED_BVH_BACK_EDGES,
                     "packed_kernel": 7, "K5": 24, "K4": 22, "K5 image": 8,
                     "K4 image": 8}
 PLAIN_BACK_EDGES_NEE = {"K5": 6, "K4": 6, "K5 image": 2, "K4 image": 2}
@@ -522,6 +537,10 @@ def sass_phase(build):
                          if k in name), None)
             if kind == "flat_kernel" and "BvhScene" in name:
                 kind = "flat_kernel bvh"     # the BVH walk: its one loop
+            elif kind == "flat_kernel" and "BvhMedScene" in name:
+                kind = "flat_kernel bvh med"
+            elif kind == "flat_kernel" and "FlatMedScene" in name:
+                kind = "flat_kernel med"
         if not kind:
             continue
         want = DIFF_VOTE_LOOPS if kind in ("K5", "K4") else 1
@@ -710,7 +729,7 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
         "K1": lambda w, h: lib.tinyrt_megakernel_packed_split(
             low.table.size, w, h, spp, *k1_flags),
         "K2": lambda w, h: lib.tinyrt_megakernel_flat_split(
-            w, h, spp, *k2_flags, int(r.bvh))}
+            w, h, spp, *k2_flags, int(r.bvh), 0)}
     for kid, query in queries.items():
         shapes = split_threshold(query)
         splits = [query(*wh) for wh in shapes]
@@ -727,6 +746,36 @@ def parity_phase(torch, np, presets, mk, mkp, lib):
                 k2("random_spheres_500", "random_spheres", dict(n=500),
                    False, w, h, spp=spp)
     return worst
+
+
+def media_phase(torch, mk):
+    """K2's HAS_MED route on one scene with media (tests/torch_media_scenes
+    "walk": 60 spheres of every kind, two quads, a medium in a glass
+    ball's place and a fog around everything) at 64x48 spp=4, 12
+    bounces: the walk (the route the rule takes), the dense search and
+    the twin bit for bit, the walk's launch repeated bit for bit."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_media_scenes import port_world
+
+    world, camera, bg = port_world("walk", 64, 48)
+    scene = world.build()
+    walk = mk.MegakernelRenderer(scene, camera, bg, "cuda")
+    dense = mk.MegakernelRenderer(scene, camera, bg, "cuda", bvh=False)
+    if not walk.bvh or walk.flat.n_med != 2:
+        raise RuntimeError("the media scene does not take the walk")
+    args = dict(spp=4, max_bounces=12, seed=3)
+    got = walk.render(**args)
+    torch.cuda.synchronize()
+    _repeat_check(torch, "K2 media walk", lambda: walk.render(**args), got)
+    twin = dense.flat_args(**args)
+    twin.pop("aabbs")
+    same = (torch.equal(got, dense.render(**args)),
+            torch.equal(got, mk.render_flat_reference(**twin)))
+    log(f"[parity] K2 media (2 media, {walk.n_sph} spheres, {walk.n_quad} "
+        f"quads) 64x48 spp=4 mb=12: walk == dense {same[0]}, == twin "
+        f"{same[1]}")
+    if not all(same):
+        raise RuntimeError("K2 with media differs from its twin")
 
 
 def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
@@ -790,6 +839,74 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
     if min(launches.values()) < 1:
         raise RuntimeError("the main path did not launch every kernel")
     return launches, results
+
+
+# The media scene of the main path (phase 4): the benchmark's rtnw_final
+# at its size and bounces, spp=2; the twin's band (image rows
+# [RTNW_BAND[0], +RTNW_BAND[1])) crosses the glass ball that holds a
+# medium.
+RTNW = dict(config="perfbench/configs/rtnw_final.json", width=800,
+            height=800, spp=2, max_bounces=40, seed=2_718_281_828)
+RTNW_BAND = (560, 64)
+
+
+def rtnw_main_path(torch, np, mk, Image, Renderer, card):
+    """The benchmark's media scene through `Renderer.render` at 800x800,
+    40 bounces: one HAS_MED launch on the BVH walk; a band of the image
+    equal to the twin's bit for bit."""
+    from perfbench.traffic import render_media
+    from tinyraytracer_tpu_torch.ops import tonemap
+
+    with open(os.path.join(ROOT, RTNW["config"])) as f:
+        desc = render_media.description(json.load(f))
+    w, h, spp, mb = (RTNW[k] for k in ("width", "height", "spp",
+                                        "max_bounces"))
+    world, camera = render_media.port_scene(desc, w, h)
+    bg = tuple(desc["background"])
+    renderer = Renderer(spp, max_bounces=mb, background_color=bg,
+                        seed=RTNW["seed"], device="cuda")
+    r = mk.MegakernelRenderer(world.build(), camera, bg, "cuda")
+    if not r.bvh or r.n_med != 2:
+        raise RuntimeError("rtnw_final: the media scene does not take the "
+                           "walk")
+    torch.cuda.synchronize()
+    zero_launches(mk.render_flat)
+    t0 = time.perf_counter()
+    image = renderer.render(camera, world)   # ends in a host copy
+    dt = time.perf_counter() - t0
+    rose = n_launches(mk.render_flat)
+    if rose != 1:
+        raise RuntimeError(f"rtnw_final: K2 launched {rose} times, "
+                           "expected 1")
+    fb = renderer.render_array(camera, world.build())
+    if not np.array_equal(Image.from_linear(fb, gamma=tonemap.GAMMA).data,
+                          image.data):
+        raise RuntimeError("rtnw_final: a second render differs")
+    if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
+        raise RuntimeError("rtnw_final: radiance not finite / negative")
+    row0, rows = RTNW_BAND
+    twin = r.flat_args(spp=spp, max_bounces=mb, seed=RTNW["seed"],
+                       pixels=(row0 * w, rows * w))
+    twin.pop("aabbs")
+    twin["pixel_chunk"] = max(1, TWIN_CANDIDATES // (r.n_sph + r.n_quad
+                                                      + r.n_med))
+    want, twin_ms = time_once(torch,
+                              lambda: mk.render_flat_reference(**twin))
+    got = fb.reshape(-1, 3)[row0 * w:(row0 + rows) * w]
+    same = torch.equal(got, want)
+    path = os.path.join(ROOT, "output", "chip_smoke_rtnw_final.png")
+    image.save(path)
+    mrays = w * h * spp / dt / 1e6
+    log(f"[main] rtnw_final {w}x{h} spp={spp} mb={mb} ({r.n_sph} spheres, "
+        f"{r.n_quad} quads, {r.n_med} media; walk): Renderer.render "
+        f"{dt * 1e3:.1f} ms, {mrays:.1f} camera Mrays/s on {card}; K2 "
+        f"launches +{rose}; image rows {row0}-{row0 + rows - 1} == twin "
+        f"{same} (twin {twin_ms:.0f} ms); wrote "
+        f"{os.path.relpath(path, ROOT)}")
+    if not same:
+        raise RuntimeError("rtnw_final: K2 differs from its twin")
+    return dict(width=w, height=h, spp=spp, max_bounces=mb, render_s=dt,
+                mrays_s=mrays, mean=float(fb.mean()), kernel="K2")
 
 
 def breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
@@ -929,14 +1046,14 @@ def count_work(torch, mk, fn, width, height, blocks=None, device="cuda"):
             tot["warp_rows"] += int((per_warp(enter) * lens).sum())
         return shade(*a, **k)
 
-    def counting_dense(sph, quad, pay):
-        inner = dense(sph, quad, pay)
+    def counting_dense(sph, quad, pay, med=None):
+        inner = dense(sph, quad, pay, med)
 
-        def hit(ox, oy, oz, dx, dy, dz):
+        def hit(ox, oy, oz, dx, dy, dz, **key):
             if blocks is not None:
                 last["enter"], last["lens"] = culled_blocks(
                     ox, oy, oz, dx, dy, dz)
-            return inner(ox, oy, oz, dx, dy, dz)
+            return inner(ox, oy, oz, dx, dy, dz, **key)
         return hit
 
     def culled_blocks(ox, oy, oz, dx, dy, dz):
@@ -1015,7 +1132,7 @@ def kernel_vs_twin_phase(torch, np, presets, mk, mkp, card, results, lib):
             flags = (f.has_met, f.has_die)
             split = lib.tinyrt_megakernel_flat_split(
                 w, h, spp, int(f.has_met), int(f.has_die), int(f.sky),
-                int(r.bvh))
+                int(r.bvh), int(f.n_med > 0))
         reps = 2 if label == "cfg4" else 3
         ms = time_kernel(torch, kernel, reps)
         torch.cuda.reset_peak_memory_stats()
@@ -4540,8 +4657,11 @@ def main(argv=None) -> int:
     results = {}
     if "forward" in only:
         worst = parity_phase(torch, np, presets, mk, mkp, _build.load())
+        media_phase(torch, mk)
         launches, results = main_path_phase(torch, np, presets, mk, mkp,
                                             Renderer, card)
+        results["rtnw_final"] = rtnw_main_path(torch, np, mk, Image,
+                                               Renderer, card)
         breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
                         results)
         for k, v in kernel_vs_twin_phase(torch, np, presets, mk, mkp, card,

@@ -94,17 +94,18 @@ def test_declare_types_every_exported_function():
     assert packed[13] is ctypes.c_float
     assert packed[18] is packed[19] is ctypes.c_int     # the pixel range
     flat = lib.tinyrt_megakernel_flat.argtypes
-    assert len(flat) == 30
-    # ... the BVH's nodes (or None) and their count after the AABBs'
+    assert len(flat) == 33
+    # ... the BVH's nodes (or None) and their count after the AABBs'; the
+    # media's rows (or None), their count and first payload row at the end
     assert [k for k, t in enumerate(flat) if t is p] == [0, 1, 4, 6, 8, 11,
-                                                         13, 14, 28, 29]
-    assert flat[12] is ctypes.c_int
+                                                         13, 14, 28, 29, 30]
+    assert flat[12] is flat[31] is flat[32] is ctypes.c_int
     assert flat[26] is flat[27] is ctypes.c_int
     assert flat[21] is ctypes.c_float
     assert flat[17] is flat[18] is ctypes.c_uint
     assert lib.tinyrt_megakernel_packed_split.argtypes == [ctypes.c_int] * 7
-    # ... and whether the launch walks the BVH
-    assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 7
+    # ... whether the launch walks the BVH, and whether it has media
+    assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 8
     fold = lib.tinyrt_fold_samples.argtypes
     assert fold == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
     k3 = lib.tinyrt_closest_hit.argtypes

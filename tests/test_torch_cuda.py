@@ -181,7 +181,7 @@ def test_kernels_equal_twins_on_each_side_of_the_sample_split(cuda, name,
     else:
         split = lambda h: lib.tinyrt_megakernel_flat_split(  # noqa: E731
             width, h, spp, int(f.has_met), int(f.has_die), int(f.sky),
-            int(r.bvh))
+            int(r.bvh), 0)
     height = 8
     while split(height) > 1:
         height += 8
@@ -235,7 +235,7 @@ def test_flat_kernel_bvh_route_equals_dense(cuda, name):
     assert f.n_sph + f.n_quad > mkp.PACKED_MAX_PRIMS
     assert f.nodes.shape == (2 * (f.n_sph + f.n_quad) - 1, 8)
     flags = (int(f.has_met), int(f.has_die), int(f.sky))
-    assert lib.tinyrt_megakernel_flat_split(64, 36, 4, *flags, 1) > 1
+    assert lib.tinyrt_megakernel_flat_split(64, 36, 4, *flags, 1, 0) > 1
     args = dict(spp=4, max_bounces=8, seed=3_000_000_019, spp_offset=2)
     got = walk.render(**args)
     assert torch.equal(got, dense.render(**args))
@@ -247,7 +247,7 @@ def test_flat_kernel_bvh_route_equals_dense(cuda, name):
         shard = mk.render_flat(**walk.flat_args(**args, pixels=(b, n)))
         assert torch.equal(shard, got.reshape(-1, 3)[b:b + n])
     walk, dense = renderers(640, 360)
-    assert lib.tinyrt_megakernel_flat_split(640, 360, 2, *flags, 1) == 1
+    assert lib.tinyrt_megakernel_flat_split(640, 360, 2, *flags, 1, 0) == 1
     args = dict(spp=2, max_bounces=16, seed=7)
     before = profiling.counter("launches.render_flat")
     got = walk.render(**args)

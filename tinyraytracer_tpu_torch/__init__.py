@@ -6,7 +6,9 @@ it is tested against. This package imports neither JAX nor the JAX
 package. It has:
 
 - the scene API: cameras, spheres, quads, groups, materials, worlds,
-  presets; the `Ray` and `Transform` value types;
+  presets; participating media (`ConstantMedium`: a constant density
+  inside a sphere, an isotropic phase; rendered by K2 alone); the `Ray`
+  and `Transform` value types;
 - the forward render path: `Renderer.render` -> scene lowering -> the
   packed megakernel (K1) for scenes of up to 48 primitives, the
   classic-layout megakernel (K2) above -> gamma-2.2 `Image` -> PNG;
@@ -33,7 +35,13 @@ first use); `device="cpu"` runs each kernel's plain PyTorch twin.
 """
 
 from tinyraytracer_tpu_torch.models.camera import Camera
-from tinyraytracer_tpu_torch.models.geometry import Group, Quad, Sphere, make_box
+from tinyraytracer_tpu_torch.models.geometry import (
+    ConstantMedium,
+    Group,
+    Quad,
+    Sphere,
+    make_box,
+)
 from tinyraytracer_tpu_torch.models.materials import (
     Dielectric,
     Lambertian,
@@ -58,6 +66,7 @@ __all__ = [
     "Quad",
     "Group",
     "make_box",
+    "ConstantMedium",
     "Lambertian",
     "Metal",
     "Dielectric",

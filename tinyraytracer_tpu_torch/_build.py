@@ -164,10 +164,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i
     fn = lib.tinyrt_megakernel_flat
     fn.argtypes = [p, p, i, i, p, i, p, i, p, i, i, p, i, p, p, i, i, u, u, i,
-                   i, f, i, i, i, i, i, i, p, p]
+                   i, f, i, i, i, i, i, i, p, p, p, i, i]
     fn.restype = i
     fn = lib.tinyrt_megakernel_flat_split
-    fn.argtypes = [i, i, i, i, i, i, i]
+    fn.argtypes = [i, i, i, i, i, i, i, i]
     fn.restype = i
     fn = lib.tinyrt_fold_samples
     fn.argtypes = [p, p, i, i, f, p]

@@ -39,6 +39,13 @@
 //   which the twin computes identically.
 // - (1-cos)^5 is x2 = x*x; x4 = x2*x2; x4*x, XLA's integer_pow order.
 // - A uniform is (float)(int)(bits >> 8) * 2^-24: exact.
+//
+// Participating media (K2 alone; models/geometry.py ConstantMedium) sit
+// behind the HAS_MED flag: a scene type with `kHasMed` (megakernel.cu's
+// FlatMedScene and BvhMedScene) makes render_pixel pass its closest hit
+// the key of each medium's free-flight draw (`MedKey`, `medium_hit_t`)
+// and the shading add the isotropic lobe; every other kernel compiles
+// the code it had.
 
 #pragma once
 
@@ -46,6 +53,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace tinyrt {
 
@@ -109,6 +117,29 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   z = z * inv;
 }
 
+// A medium's free-flight draw (ops/megakernel.py, medium_stream): stream
+// kMediumStream | k << 16 | b for the medium of ordinal k at bounce b of
+// a sample, outside the camera's stream 0 and the scatter streams 1 + b
+// (the host keeps b < 2^16 and k < 2^15).
+constexpr uint32_t kMediumStream = 0x80000000u;
+
+__device__ __forceinline__ uint32_t medium_stream(uint32_t b, uint32_t k) {
+  return kMediumStream | (k << 16) | b;
+}
+
+// What the media's draws of one bounce key off: the pixel, the sample,
+// the bounce within the sample and the seed.
+struct MedKey {
+  uint32_t pid, samp, b, seed;
+};
+
+// Whether a scene type searches media (its `kHasMed`): K2's HAS_MED.
+template <class Scene, class = void>
+struct HasMed : std::false_type {};
+template <class Scene>
+struct HasMed<Scene, std::void_t<decltype(Scene::kHasMed)>>
+    : std::integral_constant<bool, Scene::kHasMed> {};
+
 // Winner payload: normal source (quad unit normal, or sphere center) and
 // the material block. All zero on a miss.
 struct Payload {
@@ -140,6 +171,38 @@ __device__ __forceinline__ float sphere_hit_t(float cx, float cy, float cz,
   return disc >= 0.0f ? ts : kMiss;
 }
 
+// A ConstantMedium's hit distance (models/geometry.py; twin:
+// ops/megakernel.py medium_ts): t1, t2 the boundary sphere's (centre c,
+// radius^2 r2) roots over the whole line, t1 raised to T_MIN; the hit is
+// t1 + nid * ln(u) / |d| (nid = -1/density, u medium k's uniform) where
+// that lies below t2, else MISS, as when the line misses the sphere or
+// t1 >= t2. u = 0 gives +inf: no hit. A medium whose t1 is not below
+// `best` cannot win (its hit is at least t1, and a tie goes to the lower
+// row, which a medium never is), so the draw is skipped there.
+__device__ __forceinline__ float medium_hit_t(float cx, float cy, float cz,
+                                              float r2, float nid, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz, float best,
+                                              const MedKey& key,
+                                              uint32_t k) {
+  const float ocx = ox - cx;
+  const float ocy = oy - cy;
+  const float ocz = oz - cz;
+  const float half_b = ocx * dx + ocy * dy + ocz * dz;
+  const float c_term = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+  const float disc = half_b * half_b - c_term;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t_in = fmaxf(-half_b - sq, kTMin);
+  const float t_out = -half_b + sq;
+  if (!(disc >= 0.0f && t_in < t_out && t_in < best)) return kMiss;
+  float u, u2, u3, u4;
+  uniform4(key.pid, key.samp, medium_stream(key.b, k), key.seed, u, u2, u3,
+           u4);
+  const float len = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float th = t_in + nid * logf(u) / len;
+  return th < t_out ? th : kMiss;
+}
+
 // Quad hit distance from its plane (normal n, dp = n.corner) and planar
 // coordinate rows (av, ca), (bv, cb), half-open [0, 1) bounds; MISS when
 // none (quad.rs:33-54). A zero normal (pad row) fails the den guard.
@@ -166,7 +229,9 @@ __device__ __forceinline__ float quad_hit_t(float nx, float ny, float nz,
 // HAS_MET / HAS_DIE drop a material kind that no valid primitive uses:
 // its lobe is only taken through its own winner select, so this is
 // value-preserving. SKY lerps a gradient background on the miss y.
-template <bool HAS_MET, bool HAS_DIE, bool SKY>
+// HAS_MED adds the isotropic lobe of a medium's winner (kind ISOTROPIC
+// = 4): the Lambertian's unit vector alone, never absorbed.
+template <bool HAS_MET, bool HAS_DIE, bool SKY, bool HAS_MED = false>
 __device__ __forceinline__ void shade_bounce(
     float& ox, float& oy, float& oz, float& dx, float& dy, float& dz,
     float& tr, float& tg, float& tb, float& cr, float& cg, float& cb,
@@ -279,9 +344,15 @@ __device__ __forceinline__ void shade_bounce(
       sz = is_lam ? lz : gz;
     }
   }
+  if (HAS_MED && w.kind > 3.5f) {  // isotropic phase: a unit vector
+    sx = bx * bnorm;
+    sy = by * bnorm;
+    sz = bz * bnorm;
+  }
   normalize3(sx, sy, sz);
 
-  const bool absorbed = w.kind >= 2.5f;  // LIGHT = 3
+  // LIGHT = 3 absorbs; ISOTROPIC = 4 scatters
+  const bool absorbed = w.kind >= 2.5f && !(HAS_MED && w.kind > 3.5f);
   const bool scat = hit_live && !absorbed;
   const float sf = scat ? 1.0f : 0.0f;
   const float inv_sf = 1.0f - sf;
@@ -370,13 +441,15 @@ inline Frame make_frame(float* out, float* samples, int width, int height,
 // same on every lane (the loop's exit is a warp vote). segments / (32 x
 // passes) is the share of issued lanes that did useful work. With WALK
 // it also adds the warp's closest-hit tests (summed over its lanes) to
-// counts[2] and 32 x its walk iterations (count_walk) to counts[3].
-template <bool WALK>
+// counts[2] and 32 x its walk iterations (count_walk) to counts[3]; with
+// MED the warp's segments that ended in a medium to counts[4].
+template <bool WALK, bool MED = false>
 __device__ __forceinline__ void count_lanes(unsigned long long* counts,
                                             unsigned int segments,
                                             unsigned int passes,
                                             unsigned int steps,
-                                            unsigned int iters) {
+                                            unsigned int iters,
+                                            unsigned int meds = 0u) {
   unsigned long long steps64 = steps, iters64 = iters;
   for (int o = 16; o > 0; o >>= 1) {
     segments += __shfl_down_sync(0xffffffffu, segments, o);
@@ -384,6 +457,7 @@ __device__ __forceinline__ void count_lanes(unsigned long long* counts,
       steps64 += __shfl_down_sync(0xffffffffu, steps64, o);
       iters64 += __shfl_down_sync(0xffffffffu, iters64, o);
     }
+    if (MED) meds += __shfl_down_sync(0xffffffffu, meds, o);
   }
   if (((threadIdx.y * blockDim.x + threadIdx.x) & 31u) == 0u) {
     atomicAdd(counts, (unsigned long long)segments);
@@ -392,6 +466,7 @@ __device__ __forceinline__ void count_lanes(unsigned long long* counts,
       atomicAdd(counts + 2, steps64);
       atomicAdd(counts + 3, 32ull * iters64);
     }
+    if (MED) atomicAdd(counts + 4, (unsigned long long)meds);
   }
 }
 
@@ -421,7 +496,10 @@ __device__ __forceinline__ void count_walk(unsigned int tests,
 // at the least t), and the winner's payload (zero on a miss). COUNT adds
 // the warp's segments and passes to f.counts at exit (count_lanes) and,
 // where Scene::kCountsWalk, the tests its closest_hit returns
-// (count_walk); without COUNT the loop is the same code as ever.
+// (count_walk); without COUNT the loop is the same code as ever. A scene
+// with media (HasMed: K2's HAS_MED) takes the bounce's MedKey as the
+// closest hit's last argument, shades with the isotropic lobe and, with
+// COUNT, counts the segments whose winner is a medium.
 template <bool HAS_MET, bool HAS_DIE, bool SKY, bool COUNT, class Scene>
 __device__ __forceinline__ void render_pixel(const float* cam,
                                              const Scene& scene,
@@ -442,8 +520,10 @@ __device__ __forceinline__ void render_pixel(const float* cam,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   bool alive = true;
   int b = 0;  // bounce within the current sample
+  constexpr bool kMed = HasMed<Scene>::value;
   unsigned int segments = 0, passes = 0;  // COUNT only
   unsigned int steps = 0, iters = 0;  // COUNT and kCountsWalk only
+  unsigned int meds = 0;  // COUNT and kMed only
   while (__any_sync(0xffffffffu, active)) {
     if (COUNT) ++passes;
     if (active) {
@@ -457,7 +537,15 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       }
       float best;
       Payload w;
-      if constexpr (COUNT && Scene::kCountsWalk) {
+      if constexpr (kMed) {
+        const MedKey key{pid, samp, (uint32_t)b, f.seed};
+        const unsigned int tests =
+            scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w, key);
+        if constexpr (COUNT) {
+          count_walk(tests, steps, iters);
+          meds += (best < kMiss && w.kind > 3.5f) ? 1u : 0u;
+        }
+      } else if constexpr (COUNT && Scene::kCountsWalk) {
         count_walk(scene.closest_hit(ox, oy, oz, dx, dy, dz, best, w), steps,
                    iters);
       } else {
@@ -465,10 +553,10 @@ __device__ __forceinline__ void render_pixel(const float* cam,
       }
       float u1, u2, u3, u4;  // scatter randomness: stream 1 + bounce
       uniform4(pid, samp, 1u + (uint32_t)b, f.seed, u1, u2, u3, u4);
-      shade_bounce<HAS_MET, HAS_DIE, SKY>(ox, oy, oz, dx, dy, dz, tr, tg,
-                                          tb, cr, cg, cb, alive, best,
-                                          best < kMiss, w, u1, u2, u3, u4,
-                                          cam);
+      shade_bounce<HAS_MET, HAS_DIE, SKY, kMed>(ox, oy, oz, dx, dy, dz, tr,
+                                                tg, tb, cr, cg, cb, alive,
+                                                best, best < kMiss, w, u1,
+                                                u2, u3, u4, cam);
       ++b;
       // the sample ends when the path died or spent the budget (which
       // kills it without a background add)
@@ -489,7 +577,8 @@ __device__ __forceinline__ void render_pixel(const float* cam,
     }
   }
   if (COUNT) {
-    count_lanes<Scene::kCountsWalk>(f.counts, segments, passes, steps, iters);
+    count_lanes<Scene::kCountsWalk, kMed>(f.counts, segments, passes, steps,
+                                          iters, meds);
   }
   if (in_image && f.split == 1) {
     float* o = f.out + 3 * (size_t)i;

@@ -67,12 +67,43 @@
 // faster than the read-only broadcast at config 4), a warp-level cull
 // vote (a warp walks the union of its lanes' blocks, about 15 % more rows
 // than one lane: the most a vote could save).
+//
+// Media (HAS_MED: FlatMedScene, BvhMedScene, launched by
+// tinyrt_megakernel_flat with n_med > 0): a ConstantMedium is one more row, after
+// the quads (its payload row after theirs), tested by common.cuh's
+// medium_hit_t: the boundary's two roots, then the free-flight distance
+// from the medium's own draw. The dense and culled searches test every
+// medium after the quads; in the walk a medium is a leaf whose box is
+// its boundary's. A medium's hit lies between its boundary's roots, so
+// inside that box, and the walk's cull keeps the dense winner as for a
+// sphere. The sampled distance makes paths long: a camera ray inside a
+// thin fog, or a path inside a dense ball, scatters every few units, so
+// media move path lengths and lane divergence as well as the tests.
 
 #include "common.cuh"
 
 namespace {
 
 using namespace tinyrt;
+
+// Media rows (scene_table.medium_rows): medium k is two float4s, (c xyz,
+// r^2) and (-1/density, 0, 0, 0), and payload row m_row0 + k.
+struct MedRows {
+  const float4* med;
+  int n_med, m_row0;
+};
+
+// Medium k's hit distance (common.cuh, medium_hit_t).
+__device__ __forceinline__ float medium_row_t(const MedRows& m, int k,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float best,
+                                              const MedKey& key) {
+  const float4 a = __ldg(m.med + 2 * k);
+  const float4 b = __ldg(m.med + 2 * k + 1);
+  return medium_hit_t(a.x, a.y, a.z, a.w, b.x, ox, oy, oz, dx, dy, dz, best,
+                      key, (uint32_t)k);
+}
 
 // The winner's payload: row `win` of `pay` (NA, 16), or the miss payload
 // for -1. Row: isq c(3) | nhat(3) kind | albedo(3) fuzz | ior emit(3).
@@ -127,7 +158,8 @@ __device__ __forceinline__ void slab(float mnx, float mny, float mnz,
 
 // Compacted rows in device memory (scene_table.FlatScene), searched
 // densely, or by blocks with AABBs. closest_hit returns the lane's tests:
-// rows, plus blocks where it culls.
+// rows, plus blocks where it culls (`search<true>`, FlatMedScene's: and
+// every medium after the quads).
 struct FlatScene {
   static constexpr bool kCountsWalk = true;
   const float4* sph;   // (ns): cx cy cz r2
@@ -149,11 +181,14 @@ struct FlatScene {
     }
   }
 
-  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float& best, Payload& w) const {
+  template <bool MED>
+  __device__ __forceinline__ int search(float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& best, int& win,
+                                        const MedRows& m,
+                                        const MedKey& key) const {
     best = kMiss;
-    int win = -1;
+    win = -1;
     int tests = n_quad;
     if (n_blocks > 0) {
       const float inv_dx = safe_inv(dx);
@@ -191,6 +226,43 @@ struct FlatScene {
         win = q_row0 + j;
       }
     }
+    if (MED) {
+      tests += m.n_med;
+      for (int k = 0; k < m.n_med; ++k) {
+        const float ts = medium_row_t(m, k, ox, oy, oz, dx, dy, dz, best,
+                                      key);
+        if (ts < best) {
+          best = ts;
+          win = m.m_row0 + k;
+        }
+      }
+    }
+    return tests;
+  }
+
+  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float& best, Payload& w) const {
+    int win;
+    const int tests =
+        search<false>(ox, oy, oz, dx, dy, dz, best, win, MedRows{}, MedKey{});
+    load_payload(pay, win, w);
+    return tests;
+  }
+};
+
+// FlatScene with media (HAS_MED).
+struct FlatMedScene : FlatScene {
+  static constexpr bool kHasMed = true;
+  MedRows m;
+
+  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float& best, Payload& w,
+                                             const MedKey& key) const {
+    int win;
+    const int tests =
+        search<true>(ox, oy, oz, dx, dy, dz, best, win, m, key);
     load_payload(pay, win, w);
     return tests;
   }
@@ -200,8 +272,9 @@ struct FlatScene {
 // node i is two float4s, (min xyz, leaf) and (max xyz, miss), the ints
 // stored as their bits. An inner node has leaf -1 and its first child at
 // i + 1 (DFS preorder); a leaf holds one row, sphere k as k and quad j as
-// q_row0 + j; miss is the node after i's subtree, n_nodes after the last.
-// closest_hit returns the lane's tests: nodes visited, leaves included.
+// q_row0 + j, medium k (BvhMedScene) as m_row0 + k; miss is the node
+// after i's subtree, n_nodes after the last. closest_hit returns the
+// lane's tests: nodes visited, leaves included.
 struct BvhScene {
   static constexpr bool kCountsWalk = true;
   const float4* sph;    // (ns): cx cy cz r2
@@ -210,11 +283,13 @@ struct BvhScene {
   const float4* nodes;  // (n_nodes, 2)
   int n_nodes, q_row0;
 
-  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float& best, Payload& w) const {
+  template <bool MED>
+  __device__ __forceinline__ int walk(float ox, float oy, float oz, float dx,
+                                      float dy, float dz, float& best,
+                                      int& win, const MedRows& m,
+                                      const MedKey& key) const {
     best = kMiss;
-    int win = -1;
+    win = -1;
     const float inv_dx = safe_inv(dx);
     const float inv_dy = safe_inv(dy);
     const float inv_dz = safe_inv(dz);
@@ -226,7 +301,10 @@ struct BvhScene {
       const int row = __float_as_int(a.w);
       if (row >= 0) {
         float ts;
-        if (row < q_row0) {
+        if (MED && row >= m.m_row0) {
+          ts = medium_row_t(m, row - m.m_row0, ox, oy, oz, dx, dy, dz, best,
+                            key);
+        } else if (row < q_row0) {
           const float4 s = __ldg(sph + row);
           ts = sphere_hit_t(s.x, s.y, s.z, s.w, ox, oy, oz, dx, dy, dz);
         } else {
@@ -251,6 +329,31 @@ struct BvhScene {
         node = lo <= fminf(t_far, best) ? node + 1 : __float_as_int(b.w);
       }
     }
+    return tests;
+  }
+
+  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float& best, Payload& w) const {
+    int win;
+    const int tests =
+        walk<false>(ox, oy, oz, dx, dy, dz, best, win, MedRows{}, MedKey{});
+    load_payload(pay, win, w);
+    return tests;
+  }
+};
+
+// BvhScene with media (HAS_MED).
+struct BvhMedScene : BvhScene {
+  static constexpr bool kHasMed = true;
+  MedRows m;
+
+  __device__ __forceinline__ int closest_hit(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float& best, Payload& w,
+                                             const MedKey& key) const {
+    int win;
+    const int tests = walk<true>(ox, oy, oz, dx, dy, dz, best, win, m, key);
     load_payload(pay, win, w);
     return tests;
   }
@@ -342,9 +445,15 @@ extern "C" {
 // the cull over blocks of `chunk` sphere rows; `nodes` (n_nodes, 8), or
 // null with n_nodes 0, the BVH walk instead (BvhScene: its links and rows
 // are trusted). `counts`, or null, is the device's counter buffer, as
-// tinyrt_megakernel_packed's. Returns the launch's cudaError_t (0 on
-// success; cudaErrorInvalidValue for a range outside the image, or for
-// both AABBs and nodes); does not synchronise.
+// tinyrt_megakernel_packed's. `med` (n_med, 8), 16-byte aligned f32 rows
+// (scene_table.medium_rows), medium k's payload row m_row0 + k (after the
+// quads'), or null with n_med 0: with n_med > 0 the HAS_MED kernel
+// (FlatMedScene, BvhMedScene) runs, and every route also tests the media:
+// the dense and culled searches after the quads, the walk at their leaves
+// (`nodes` then holds them); with `counts` it adds its segments that
+// ended in a medium to counts[4]. Returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue for a range outside the image, for both
+// AABBs and nodes, or for n_med < 0); does not synchronise.
 int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            int ns, const float* quad, int n_quad,
                            const float* pay, int q_row0, const float* aabb,
@@ -355,47 +464,65 @@ int tinyrt_megakernel_flat(const float* cam, const float* sph, int n_sph,
                            int max_bounces, float inv_spp, int split,
                            int has_met, int has_die, int sky, int pix0,
                            int npix, unsigned long long* counts,
-                           void* stream) {
+                           void* stream, const float* med, int n_med,
+                           int m_row0) {
   Frame f = make_frame(out, samples, width, height, pix0, npix, seed,
                        spp_offset, spp, max_bounces, split, inv_spp);
-  if (f.npix == 0 || (n_blocks > 0 && n_nodes > 0)) {
+  if (f.npix == 0 || (n_blocks > 0 && n_nodes > 0) || n_med < 0) {
     return (int)cudaErrorInvalidValue;
   }
   f.counts = counts;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_nodes > 0) {
-    const BvhScene scene{reinterpret_cast<const float4*>(sph),
-                         reinterpret_cast<const float4*>(quad),
-                         reinterpret_cast<const float4*>(pay),
-                         reinterpret_cast<const float4*>(nodes), n_nodes,
-                         q_row0};
-    return (int)dispatch_flat(cam, scene, f, s, nullptr, has_met, has_die,
-                              sky);
+  const BvhScene bvh{reinterpret_cast<const float4*>(sph),
+                     reinterpret_cast<const float4*>(quad),
+                     reinterpret_cast<const float4*>(pay),
+                     reinterpret_cast<const float4*>(nodes), n_nodes,
+                     q_row0};
+  const FlatScene flat{reinterpret_cast<const float4*>(sph),
+                       reinterpret_cast<const float4*>(quad),
+                       reinterpret_cast<const float4*>(pay),
+                       reinterpret_cast<const float4*>(aabb),
+                       n_sph, ns, n_quad, q_row0, n_blocks, chunk};
+  cudaError_t e;
+  if (n_med > 0) {
+    const MedRows m{reinterpret_cast<const float4*>(med), n_med, m_row0};
+    e = n_nodes > 0
+            ? dispatch_flat(cam, BvhMedScene{bvh, m}, f, s, nullptr,
+                            has_met, has_die, sky)
+            : dispatch_flat(cam, FlatMedScene{flat, m}, f, s, nullptr,
+                            has_met, has_die, sky);
+  } else {
+    e = n_nodes > 0 ? dispatch_flat(cam, bvh, f, s, nullptr, has_met,
+                                    has_die, sky)
+                    : dispatch_flat(cam, flat, f, s, nullptr, has_met,
+                                    has_die, sky);
   }
-  const FlatScene scene{reinterpret_cast<const float4*>(sph),
-                        reinterpret_cast<const float4*>(quad),
-                        reinterpret_cast<const float4*>(pay),
-                        reinterpret_cast<const float4*>(aabb),
-                        n_sph, ns, n_quad, q_row0, n_blocks, chunk};
-  return (int)dispatch_flat(cam, scene, f, s, nullptr, has_met, has_die,
-                            sky);
+  return (int)e;
 }
 
 // The sample split (parts per pixel) of a launch over `rows` image rows of
 // `width` pixels (the rows a range spans) on the current device, by the
 // kernel of the BVH walk when `bvh` is set, else of the dense or culled
-// search; or minus the cudaError_t of the query.
+// search, its HAS_MED instantiation when `med` is set; or minus the
+// cudaError_t of the query.
 int tinyrt_megakernel_flat_split(int width, int rows, int spp, int has_met,
-                                 int has_die, int sky, int bvh) {
+                                 int has_die, int sky, int bvh, int med) {
   int split = 0;
   const Frame f = make_frame(nullptr, nullptr, width, rows, 0, width * rows,
                              0u, 0u, spp, 0, 1, 0.0f);
   if (f.npix == 0) return -(int)cudaErrorInvalidValue;
-  const cudaError_t e =
-      bvh ? dispatch_flat(nullptr, BvhScene{}, f, nullptr, &split, has_met,
-                          has_die, sky)
-          : dispatch_flat(nullptr, FlatScene{}, f, nullptr, &split, has_met,
-                          has_die, sky);
+  cudaError_t e;
+  if (med) {
+    e = bvh ? dispatch_flat(nullptr, BvhMedScene{}, f, nullptr, &split,
+                            has_met, has_die, sky)
+            : dispatch_flat(nullptr, FlatMedScene{}, f, nullptr, &split,
+                            has_met, has_die, sky);
+  } else {
+    e = bvh ? dispatch_flat(nullptr, BvhScene{}, f, nullptr, &split,
+                            has_met, has_die, sky)
+            : dispatch_flat(nullptr, FlatScene{}, f, nullptr, &split,
+                            has_met, has_die, sky);
+  }
   return e == cudaSuccess ? split : -(int)e;
 }
 

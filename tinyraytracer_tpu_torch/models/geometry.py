@@ -4,7 +4,30 @@ The reference represents geometry as boxed trait objects (hittable/sphere.rs,
 quad.rs) grouped by a missing-but-implied `HittableList` composite
 (src/main.rs:89-125). Here geometry objects are lightweight descriptions that
 World.build() lowers into SoA arrays. Identical to the JAX package's module
-(numpy only), so both packages lower a scene to the same arrays.
+(numpy only), so both packages lower a scene to the same arrays, but for
+`ConstantMedium`, which the port alone has.
+
+`ConstantMedium` is Ray Tracing: The Next Week's participating medium
+(`constant_medium`, section "Volumes"): a constant density inside a
+boundary sphere, scattering with an isotropic phase function. A ray that
+lies along the boundary sphere's line between its two roots t1 < t2 (t1
+raised to T_MIN) samples a free-flight distance -ln(u) / density and hits
+the medium at t1 + distance / |d| when that is below t2; the closest hit
+is the least t over surfaces and media together, and a medium hit
+scatters to a uniform unit direction, its throughput times the medium's
+albedo, with no emission. Departures from the book:
+- `u` is a counter-based draw, a pure function of (pixel, sample, bounce,
+  the medium's ordinal, seed) (ops/megakernel.py `medium_stream`), not
+  the book's next draw of a shared generator; u = 0 gives no hit, as the
+  book's ln(0) = -inf does;
+- the near root is raised to T_MIN (1e-3) where the book raises it to
+  the ray's interval start and then to 0; the book's second boundary hit
+  (the far root past t1 + 1e-4) is the far root itself, so a ray that
+  only grazes the boundary (t1 >= t2 after the raise) misses;
+- the hit is taken while strictly below t2, where the book takes it up
+  to t2 inclusive;
+- the boundary is a sphere only (the book takes any hittable), and the
+  medium is added to the World itself, not inside a Group.
 """
 
 from __future__ import annotations
@@ -52,6 +75,31 @@ class Group:
     @staticmethod
     def of(members: Sequence[Union["Sphere", "Quad", "Group"]]) -> "Group":
         return Group(tuple(members))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantMedium:
+    """A constant-density medium inside `boundary`, with an isotropic
+    phase function of colour `albedo` (the book's `constant_medium` with
+    an `isotropic` material; see the module's docstring for its
+    semantics). The boundary gives only the shape: its material is not
+    used, and the sphere is a surface too only where it is added as one
+    (the book's glass ball that holds a medium). Only the megakernel K2
+    renders media: `Renderer.render` routes a world that holds one there;
+    the other entry points raise."""
+
+    boundary: Sphere
+    density: float
+    albedo: Vec
+
+    def __post_init__(self):
+        if not isinstance(self.boundary, Sphere):
+            raise ValueError("a ConstantMedium's boundary must be a Sphere, "
+                             f"got {type(self.boundary).__name__}")
+        d = float(self.density)
+        if not np.isfinite(d) or d <= 0.0:
+            raise ValueError(f"density must be finite and positive, got "
+                             f"{self.density!r}")
 
 
 Geometry = Union[Sphere, Quad, Group]

@@ -7,7 +7,10 @@ emission}; the megakernel evaluates the scatter lobes of the kinds present
 and selects by kind (see ops/megakernel.py).
 
 These host-side classes are the user-facing construction API; World.build()
-packs them into the table. Same codes and values as the JAX package.
+packs them into the table. Same codes and values as the JAX package, and
+one more that it lacks: ISOTROPIC, the phase function of a
+`geometry.ConstantMedium`, which no surface takes (K2's medium rows
+carry it).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
 LIGHT = 3
+# A medium's phase function: scatter to a uniform unit direction, times
+# the medium's albedo, no emission (the book's `isotropic`).
+ISOTROPIC = 4
 
 
 @dataclasses.dataclass(frozen=True)

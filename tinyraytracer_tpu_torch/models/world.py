@@ -6,6 +6,12 @@ on the host into a `SceneArrays` dataclass of CPU tensors, padded exactly
 as the JAX package pads them, so the two packages give the same arrays bit
 for bit. `scene_from_numpy` takes a scene over from numpy arrays keyed by
 field name (for example the JAX package's leaves) onto any device.
+
+A world's `ConstantMedium`s (the port's own, models/geometry.py) lower to
+four more fields, `med_*`, one unpadded row a medium in the order they
+were added; a scene without media leaves them None, so its arrays stay
+the JAX package's. `require_no_media` is the check of every entry point
+that cannot render media.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from tinyraytracer_tpu_torch.models.geometry import (
+    ConstantMedium,
     Geometry,
     Group,
     Quad,
@@ -57,6 +64,17 @@ class SceneArrays:
     mat_ior: torch.Tensor     # (M,)   f32
     mat_emit: torch.Tensor    # (M, 3) f32
 
+    # ConstantMedium rows, None in a scene without media
+    med_center: Optional[torch.Tensor] = None   # (Nd, 3) f32 boundary centre
+    med_radius: Optional[torch.Tensor] = None   # (Nd,)   f32 boundary radius
+    med_density: Optional[torch.Tensor] = None  # (Nd,)   f32
+    med_albedo: Optional[torch.Tensor] = None   # (Nd, 3) f32 isotropic albedo
+
+    @property
+    def num_media(self) -> int:
+        """ConstantMedium rows (all real)."""
+        return 0 if self.med_center is None else int(self.med_center.shape[0])
+
     @property
     def num_spheres(self) -> int:
         """Sphere rows, padding included (not the valid count)."""
@@ -73,14 +91,16 @@ class SceneArrays:
         return dataclasses.replace(self, **kw)
 
     def numpy(self) -> Dict[str, np.ndarray]:
-        """Host copies of every field, keyed by field name."""
+        """Host copies of every field that is set, keyed by field name."""
         return {f.name: getattr(self, f.name).detach().cpu().numpy()
-                for f in dataclasses.fields(self)}
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     def to(self, device) -> "SceneArrays":
         """The same scene with every field on `device`."""
         return SceneArrays(**{f.name: getattr(self, f.name).to(device)
-                              for f in dataclasses.fields(self)})
+                              for f in dataclasses.fields(self)
+                              if getattr(self, f.name) is not None})
 
 
 _FIELD_DTYPES = {
@@ -91,6 +111,18 @@ _FIELD_DTYPES = {
     "mat_kind": np.int32, "mat_albedo": np.float32, "mat_fuzz": np.float32,
     "mat_ior": np.float32, "mat_emit": np.float32,
 }
+_MEDIUM_FIELDS = ("med_center", "med_radius", "med_density", "med_albedo")
+
+
+def require_no_media(scene, what: str) -> None:
+    """Raises ValueError when `scene` (SceneArrays) holds a ConstantMedium:
+    only K2, `Renderer.render`'s default megakernel route, renders media;
+    `what` names the entry point that cannot."""
+    if getattr(scene, "num_media", 0):
+        raise ValueError(f"{what} cannot render participating media (the "
+                         f"scene has {scene.num_media} ConstantMedium): "
+                         "render it with Renderer(accelerator='auto'), "
+                         "whose megakernel K2 does")
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SceneArrays:
@@ -98,13 +130,19 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SceneArrays:
 
     Carries a scene lowered elsewhere (the JAX package's `SceneArrays`
     leaves, a saved scene) into the port unchanged: every value is kept bit
-    for bit, and a missing field or a wrong dtype raises.
+    for bit, and a missing field or a wrong dtype raises. The `med_*`
+    fields are taken where all four are given (f32).
     """
     missing = set(_FIELD_DTYPES) - set(arrays)
     if missing:
         raise KeyError(f"scene arrays lack fields {sorted(missing)}")
+    given = [k for k in _MEDIUM_FIELDS if k in arrays]
+    if given and len(given) != len(_MEDIUM_FIELDS):
+        raise KeyError(f"scene arrays give {given} of the medium fields "
+                       f"{list(_MEDIUM_FIELDS)}")
+    fields = dict(_FIELD_DTYPES, **{k: np.float32 for k in given})
     out = {}
-    for name, dt in _FIELD_DTYPES.items():
+    for name, dt in fields.items():
         a = np.asarray(arrays[name])
         if a.dtype != dt:
             raise TypeError(f"{name}: expected {np.dtype(dt)}, got {a.dtype}")
@@ -216,6 +254,7 @@ class World:
     def __init__(self):
         self._materials: Dict[str, Material] = {}
         self._geometries: List[Geometry] = []
+        self._media: List[ConstantMedium] = []
         # mutation counter: build() caches its lowering per version, so
         # repeated renders of an unmodified world reuse one SceneArrays
         self._version = 0
@@ -230,13 +269,25 @@ class World:
     def get_material(self, name: str) -> Optional[Material]:
         return self._materials.get(name)
 
-    def add_geometry(self, geometry: Geometry) -> None:
-        self._geometries.append(geometry)
+    def add_geometry(self, geometry) -> None:
+        """Adds a Sphere, Quad or Group, or a ConstantMedium (kept apart
+        from the surfaces: its boundary is no surface unless added as
+        one)."""
+        if isinstance(geometry, ConstantMedium):
+            self._media.append(geometry)
+        else:
+            self._geometries.append(geometry)
         self._version += 1
 
     @property
     def geometries(self) -> Sequence[Geometry]:
+        """The surfaces, in the order they were added."""
         return tuple(self._geometries)
+
+    @property
+    def media(self) -> Sequence[ConstantMedium]:
+        """The ConstantMediums, in the order they were added."""
+        return tuple(self._media)
 
     @property
     def material_names(self) -> Sequence[str]:
@@ -324,4 +375,13 @@ class World:
             a["mat_fuzz"][i] = m.fuzz
             a["mat_ior"][i] = m.ior
             a["mat_emit"][i] = m.emission
+        if self._media:
+            a["med_center"] = np.asarray(
+                [m.boundary.center for m in self._media], np.float32)
+            a["med_radius"] = np.asarray(
+                [m.boundary.radius for m in self._media], np.float32)
+            a["med_density"] = np.asarray(
+                [m.density for m in self._media], np.float32)
+            a["med_albedo"] = np.asarray(
+                [m.albedo for m in self._media], np.float32)
         return scene_from_numpy(a, "cpu")

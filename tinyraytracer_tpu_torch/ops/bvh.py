@@ -182,24 +182,41 @@ def _build_host(bb_min: np.ndarray, bb_max: np.ndarray, prim_ids: np.ndarray):
     return node_min, node_max, hit_link, miss_link, leaf_prim
 
 
-def build_bvh(scene, use_native: bool = True) -> BVHArrays:
-    """The flattened BVH of a scene, built on the host, on the device of
-    the scene's tensors: by the port's C++ builder (native/, compiled at
-    first use; a failed build raises), or with `use_native=False` by the
-    numpy `_build_host`. Both give the same arrays, bit for bit."""
-    bb_min, bb_max, prim_ids = primitive_aabbs(scene)
+def medium_aabbs(scene) -> Tuple[np.ndarray, np.ndarray]:
+    """Host AABBs of a scene's ConstantMedium boundaries, in their order:
+    centre ± radius, padded as a sphere's (K2's walk; the accelerator
+    here renders no media)."""
+    c = np.asarray(scene.med_center.detach().cpu().numpy(), np.float32)
+    r = np.asarray(scene.med_radius.detach().cpu().numpy(),
+                   np.float32)[:, None]
+    return c - np.abs(r) - AABB_PAD, c + np.abs(r) + AABB_PAD
+
+
+def build_tree(bb_min: np.ndarray, bb_max: np.ndarray, prim_ids: np.ndarray,
+               use_native: bool = True) -> tuple:
+    """(node_min, node_max, hit_link, miss_link, leaf_prim) of the boxes,
+    a leaf's prim its box's entry of `prim_ids`: by the port's C++
+    builder (native/, compiled at first use; a failed build raises), or
+    with `use_native=False` by the numpy `_build_host`. Both give the
+    same arrays, bit for bit."""
     if bb_min.shape[0] == 0:
         raise ValueError("cannot build a BVH over an empty scene")
-    if use_native:
-        from tinyraytracer_tpu_torch.native import runtime
+    if not use_native:
+        return _build_host(bb_min, bb_max, prim_ids)
+    from tinyraytracer_tpu_torch.native import runtime
 
-        nm, nx, hl, ml, lp = runtime.bvh_build(bb_min, bb_max)
-        # the native builder works in local prim order: map to global ids
-        lp = np.where(lp >= 0, prim_ids[np.maximum(lp, 0)], -1).astype(
-            np.int32)
-        built = (nm, nx, hl, ml, lp)
-    else:
-        built = _build_host(bb_min, bb_max, prim_ids)
+    nm, nx, hl, ml, lp = runtime.bvh_build(bb_min, bb_max)
+    # the native builder works in local prim order: map to prim_ids
+    lp = np.where(lp >= 0, prim_ids[np.maximum(lp, 0)], -1).astype(np.int32)
+    return nm, nx, hl, ml, lp
+
+
+def build_bvh(scene, use_native: bool = True) -> BVHArrays:
+    """The flattened BVH of a scene, built on the host (`build_tree`), on
+    the device of the scene's tensors. The walk here renders no media: a
+    scene with a ConstantMedium raises."""
+    _world.require_no_media(scene, "the BVH accelerator (ops/bvh.py)")
+    built = build_tree(*primitive_aabbs(scene), use_native=use_native)
     return bvh_from_numpy(dict(zip(_FIELDS, built)),
                           scene.sph_center.device)
 

@@ -38,6 +38,7 @@ import torch
 
 from tinyraytracer_tpu_torch import _build
 from tinyraytracer_tpu_torch.models import materials as mat
+from tinyraytracer_tpu_torch.models.world import require_no_media
 from tinyraytracer_tpu_torch.ops import diff_schedule
 from tinyraytracer_tpu_torch.ops.scene_table import host_background
 from tinyraytracer_tpu_torch.utils import profiling
@@ -80,6 +81,7 @@ class DiffStatic:
 
 
 def build_diff_static(scene) -> DiffStatic:
+    require_no_media(scene, "the fused train step (K5, K4)")
     a = scene.numpy()
     s_rows = np.nonzero(a["sph_valid"])[0]
     q_rows = np.nonzero(a["quad_valid"])[0]

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from tinyraytracer_tpu_torch import _build
+from tinyraytracer_tpu_torch.models.world import require_no_media
 from tinyraytracer_tpu_torch.ops import scene_table
 from tinyraytracer_tpu_torch.utils import profiling
 from tinyraytracer_tpu_torch.ops.intersect import (
@@ -87,7 +88,9 @@ class CompactRows:
 def compact_rows(scene, device, plain: bool = False) -> CompactRows:
     """Host compaction of `scene` (valid primitives only, quad planes
     precomputed) copied to `device`; the bank bytes packed from the same
-    host arrays when the real rows fit BANK_MAX_ROWS."""
+    host arrays when the real rows fit BANK_MAX_ROWS. A scene with media
+    raises: K3 searches surfaces only."""
+    require_no_media(scene, "the closest-hit kernel K3")
     cs = scene_table.compact_scene(scene)
     dev = torch.device(device)
     sph = np.ascontiguousarray(np.concatenate([cs.sph_c, cs.sph_r2], 1),

@@ -9,6 +9,14 @@ run the same arithmetic per pixel. It works on tensors of any one shape.
 `lockstep_render` is the sample and bounce loop both twins share, and
 `dense_closest_hit` their closest-hit search.
 
+Participating media (`ConstantMedium`, models/geometry.py) render on K2
+alone, behind its HAS_MED flag: `medium_ts` is the medium's hit (the
+boundary sphere's two roots, a free-flight distance from its own draw of
+stream `medium_stream(b, k)`), which the closest hit takes over the
+surfaces and the media together, and `shade_bounce(has_med=True)` adds
+the isotropic lobe. Scenes without media run the same operations as
+before, bit for bit.
+
 `render_flat` is the wrapper of K2, the port of the JAX package's
 `megakernel._make_kernel` (ops/megakernel.py:489) in its default regen
 mode: the same sampler as the packed kernel over the compacted scene rows
@@ -78,6 +86,20 @@ BVH_MIN_PRIMS = 49
 # when no pixel chunk is given (16 MiB of f32 per intermediate).
 CANDIDATE_BUDGET = 1 << 22
 
+# A medium's free-flight draw: stream MEDIUM_STREAM | k << 16 | b for the
+# medium of ordinal k at bounce b of a sample, outside the streams 0 (the
+# camera ray) and 1 + b (the scatter) of any budget below 2^31, so a
+# scene without media keeps every draw. b and k must fit their fields.
+MEDIUM_STREAM = 0x80000000
+MAX_MEDIUM_BOUNCES = 1 << 16
+MAX_MEDIA = 1 << 15
+
+
+def medium_stream(b: int, k: int) -> int:
+    """The PCG4D stream of medium k's draw at bounce b (csrc/common.cuh,
+    `medium_stream`)."""
+    return MEDIUM_STREAM | (k << 16) | b
+
 
 def normalize3(x, y, z):
     """Unit vector with a 1e-30 floor on the squared length. 1/sqrt is
@@ -100,7 +122,7 @@ def shade_bounce(ox, oy, oz, dx, dy, dz,
                  w_isq, w_ax, w_ay, w_az, w_kind,
                  w_ar, w_ag, w_ab, w_fuzz, w_ior, w_er, w_eg, w_eb,
                  u1, u2, u3, u4, bg, bg2=None,
-                 has_met=True, has_die=True):
+                 has_met=True, has_die=True, has_med=False):
     """One bounce's shading given the winner payload (cpu.rs:47-62).
 
     `w_a*` is the normal source: the quad's unit plane normal when
@@ -109,6 +131,8 @@ def shade_bounce(ox, oy, oz, dx, dy, dz,
     f32 tensors; `bg2`, when given, the top of a gradient sky lerped on
     the miss direction's y. `has_met`/`has_die` False drop a material
     kind's lobe, which no winner select can then take (value-preserving).
+    `has_med` adds the isotropic lobe of a medium's winner (kind
+    ISOTROPIC): the Lambertian's unit vector alone, never absorbed.
     Returns the post-bounce (o, d, throughput, color, alive_f) state.
     """
     hit_live = alive & hit
@@ -207,9 +231,17 @@ def shade_bounce(ox, oy, oz, dx, dy, dz,
         sz = torch.where(is_lam, lz, gz)
     else:
         sx, sy, sz = lx, ly, lz
+    if has_med:
+        # isotropic phase (a medium's winner): a uniform unit vector
+        is_iso = w_kind > 3.5
+        sx = torch.where(is_iso, bx * bnorm, sx)
+        sy = torch.where(is_iso, by * bnorm, sy)
+        sz = torch.where(is_iso, bz * bnorm, sz)
     sx, sy, sz = normalize3(sx, sy, sz)
 
     absorbed = w_kind >= 2.5          # LIGHT = 3
+    if has_med:
+        absorbed = absorbed & ~is_iso
     scat = hit_live & ~absorbed
     sf = scat.to(torch.float32)
     inv_sf = 1.0 - sf
@@ -263,25 +295,60 @@ def quad_ts(quad: torch.Tensor, ox, oy, oz, dx, dy, dz) -> torch.Tensor:
     return torch.where(ok, tq, MISS)
 
 
+def medium_ts(med: torch.Tensor, ox, oy, oz, dx, dy, dz,
+              u: torch.Tensor) -> torch.Tensor:
+    """(D, P) hit distances of rays (P,) in the media `med` (D, 5+):
+    (cx, cy, cz, r^2, -1/density) of the boundary sphere, `u` (D, P) each
+    medium's uniform. t1, t2 are the boundary's roots over the whole line,
+    t1 raised to T_MIN; the hit is t1 + (-1/density) ln(u) / |d| where it
+    lies below t2 (u = 0 gives +inf: no hit); MISS where the line misses
+    the sphere or t1 >= t2 (models/geometry.py: the book's
+    `constant_medium::hit` and its departures). The twin of common.cuh's
+    medium_hit_t, which skips the draw where t1 is not below the best
+    hit so far: such a medium cannot win."""
+    ocx = ox - med[:, 0:1]
+    ocy = oy - med[:, 1:2]
+    ocz = oz - med[:, 2:3]
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    c_term = ocx * ocx + ocy * ocy + ocz * ocz - med[:, 3:4]
+    disc = half_b * half_b - c_term
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t_in = torch.clamp_min(-half_b - sq, T_MIN)
+    t_out = -half_b + sq
+    length = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    th = t_in + med[:, 4:5] * torch.log(u) / length
+    ok = (disc >= 0.0) & (t_in < t_out) & (th < t_out)
+    return torch.where(ok, th, MISS)
+
+
 def dense_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
-                      pay: torch.Tensor):
+                      pay: torch.Tensor, med: torch.Tensor | None = None):
     """Closest hit over a dense (rows, pixels) candidate matrix.
 
     `sph` is (S, 4+) with (cx, cy, cz, r^2) first, `quad` (Q, 12+) with
-    (n, n.corner, av, ca, bv, cb) first, both real rows only; `pay` is
-    (S + Q, 13): is_quad, normal source (3), kind, albedo (3), fuzz, ior,
-    emission (3). argmin's first index over spheres-then-quads is the
+    (n, n.corner, av, ca, bv, cb) first, both real rows only, `med`
+    (D, 5+) the media (`medium_ts`) or None; `pay` is (S + Q + D, 13):
+    is_quad, normal source (3), kind, albedo (3), fuzz, ior, emission
+    (3). argmin's first index over spheres, then quads, then media is the
     kernels' strict-`<` running minimum over the same order. Returns
-    f(ox, oy, oz, dx, dy, dz) -> (best t, hit, 13 payload columns, all
-    zero on a miss)."""
+    f(ox, oy, oz, dx, dy, dz, key=None) -> (best t, hit, 13 payload
+    columns, all zero on a miss); with media, `key` (seed, pixel ids,
+    sample id, bounce) draws each medium's uniform."""
     n_sph, n_quad = sph.shape[0], quad.shape[0]
+    n_med = 0 if med is None else med.shape[0]
 
-    def closest_hit(ox, oy, oz, dx, dy, dz):
+    def closest_hit(ox, oy, oz, dx, dy, dz, key=None):
         ts = []
         if n_sph:
             ts.append(sphere_ts(sph, ox, oy, oz, dx, dy, dz))
         if n_quad:
             ts.append(quad_ts(quad, ox, oy, oz, dx, dy, dz))
+        if n_med:
+            seed, pid, samp, b = key
+            u = torch.stack([rng.uniform4(seed, pid, samp,
+                                          medium_stream(b, k))[0]
+                             for k in range(n_med)])
+            ts.append(medium_ts(med, ox, oy, oz, dx, dy, dz, u))
         ts = torch.cat(ts, 0)
         win = torch.argmin(ts, 0)
         best = ts.gather(0, win[None])[0]
@@ -310,7 +377,8 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
                     height: int, spp: int, max_bounces: int, seed: int,
                     spp_offset: int, has_met: bool, has_die: bool,
                     sky: bool, pixel_chunk: int = 0,
-                    pixels: tuple | None = None) -> torch.Tensor:
+                    pixels: tuple | None = None,
+                    has_med: bool = False) -> torch.Tensor:
     """The twins' sampler: (H, W, 3) f32 mean radiance over samples
     [spp_offset, spp_offset + spp), or with `pixels` (begin, count) the
     (count, 3) radiance of those flat pixel ids.
@@ -320,8 +388,9 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
     as a lane of the JAX regeneration loop does, so each pixel sees the
     kernels' op sequence; chunking the pixels changes no bit.
     `closest_hit(ox, oy, oz, dx, dy, dz)` returns (best t, hit, the 13
-    payload columns of `dense_closest_hit`). `pixel_chunk` 0 takes all
-    pixels at once.
+    payload columns of `dense_closest_hit`); with `has_med` it also takes
+    `key=(seed, pixel ids, sample id, bounce)` and the shading adds the
+    isotropic lobe. `pixel_chunk` 0 takes all pixels at once.
     """
     dev = cam.device
     begin, n = pixel_range(width, height, pixels)
@@ -363,13 +432,17 @@ def lockstep_render(cam: torch.Tensor, closest_hit, *, width: int,
             col = [torch.zeros_like(one) for _ in range(3)]
             alive = torch.ones(pid.shape[0], dtype=torch.bool, device=dev)
             for b in range(max_bounces):
-                best, hit, w = closest_hit(ox, oy, oz, dx, dy, dz)
+                if has_med:
+                    best, hit, w = closest_hit(ox, oy, oz, dx, dy, dz,
+                                               key=(seed, pid, samp, b))
+                else:
+                    best, hit, w = closest_hit(ox, oy, oz, dx, dy, dz)
                 u1, u2, u3, u4 = rng.uniform4(seed, pid, samp, 1 + b)
                 (ox, oy, oz, dx, dy, dz, *tput, c_r, c_g, c_b,
                  alive_f) = shade_bounce(
                     ox, oy, oz, dx, dy, dz, *tput, *col, alive, best, hit,
                     *w, u1, u2, u3, u4, bg, bg2, has_met=has_met,
-                    has_die=has_die)
+                    has_die=has_die, has_med=has_med)
                 col = [c_r, c_g, c_b]
                 alive = alive_f > 0.5
                 if not bool(alive.any()):
@@ -423,12 +496,14 @@ def launch_forward(lib, device, width: int, height: int, spp: int, pixels,
 # --- K2: the classic-layout megakernel ------------------------------------
 
 def _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
-                height, spp, max_bounces):
+                height, spp, max_bounces, med=None, n_med=0):
     ts = dict(sph=sph, quad=quad, pay=pay, cam=cam)
     if aabbs is not None:
         ts["aabbs"] = aabbs
     if nodes is not None:
         ts["nodes"] = nodes
+    if med is not None:
+        ts["med"] = med
     for name, t in ts.items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got "
@@ -440,10 +515,21 @@ def _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
     if quad.dim() != 2 or quad.shape[1] != 12 or quad.shape[0] < 1:
         raise ValueError(f"quad must be (nq, 12), got {tuple(quad.shape)}")
     ns, nq = sph.shape[0], quad.shape[0]
-    if not (0 <= n_sph <= ns and 0 <= n_quad <= nq and n_sph + n_quad):
+    if (med is None) != (n_med == 0) or (
+            med is not None and tuple(med.shape) != (n_med, 8)):
+        raise ValueError(f"med must be ({n_med}, 8) for {n_med} media, or "
+                         f"None for none, got "
+                         f"{None if med is None else tuple(med.shape)}")
+    if n_med and not (n_med <= MAX_MEDIA
+                      and max_bounces <= MAX_MEDIUM_BOUNCES):
+        raise ValueError(f"{n_med} media over {max_bounces} bounces: the "
+                         f"medium draws' streams take at most {MAX_MEDIA} "
+                         f"media and {MAX_MEDIUM_BOUNCES} bounces")
+    if not (0 <= n_sph <= ns and 0 <= n_quad <= nq
+            and n_sph + n_quad + n_med):
         raise ValueError(f"{n_sph} spheres and {n_quad} quads do not fit "
                          f"{ns} sphere and {nq} quad rows")
-    na = (ns if n_sph else 0) + (nq if n_quad else 0)
+    na = (ns if n_sph else 0) + (nq if n_quad else 0) + n_med
     if tuple(pay.shape) != (na, 16):
         raise ValueError(f"pay must be ({na}, 16), got {tuple(pay.shape)}")
     if tuple(cam.shape) != (32,):
@@ -454,7 +540,7 @@ def _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
             raise ValueError(f"aabbs must be ({k}, 8), got "
                              f"{tuple(aabbs.shape)}")
     if nodes is not None:
-        m = 2 * (n_sph + n_quad) - 1
+        m = 2 * (n_sph + n_quad + n_med) - 1
         if tuple(nodes.shape) != (m, 8):
             raise ValueError(f"nodes must be ({m}, 8), got "
                              f"{tuple(nodes.shape)}")
@@ -474,7 +560,9 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
                 max_bounces: int, seed: int = 0, spp_offset: int = 0,
                 has_met: bool = True, has_die: bool = True,
                 sky: bool = False, fmad: bool = False,
-                pixels: tuple | None = None) -> torch.Tensor:
+                pixels: tuple | None = None,
+                med: torch.Tensor | None = None,
+                n_med: int = 0) -> torch.Tensor:
     """(H, W, 3) f32 mean radiance over samples [spp_offset,
     spp_offset + spp) on the device of `sph`; with `pixels` (begin,
     count), the (count, 3) radiance of those flat pixel ids (a mesh
@@ -486,25 +574,30 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
     far; with `nodes` (`scene_table.bvh_nodes`, whose links and rows the
     kernel trusts) each thread walks the BVH instead of the rows. Both
     select the dense search's winner (see the module's docstring for
-    the rounding limit), so the image is the same. `fmad=True` selects a
-    build compiled with FMA contraction, for numerics comparisons only.
-    The CPU twin ignores `aabbs`, `nodes` and `fmad`.
+    the rounding limit), so the image is the same. `med` (n_med, 8), the
+    media's rows (`scene_table.medium_rows`; their payload rows are the
+    last n_med of `pay`), launches the HAS_MED kernel: every route then
+    also tests the media (a medium is a leaf of the walk, with its
+    boundary's box). `fmad=True` selects a build compiled with FMA
+    contraction, for numerics comparisons only. The CPU twin ignores
+    `aabbs`, `nodes` and `fmad`.
     """
     _check_flat(sph, quad, pay, cam, aabbs, nodes, n_sph, n_quad, width,
-                height, spp, max_bounces)
+                height, spp, max_bounces, med, n_med)
     pixel_range(width, height, pixels)
     kw = dict(n_sph=n_sph, n_quad=n_quad, width=width, height=height,
               spp=spp, max_bounces=max_bounces, seed=seed,
               spp_offset=spp_offset, has_met=has_met, has_die=has_die,
-              sky=sky, pixels=pixels)
+              sky=sky, pixels=pixels, med=med, n_med=n_med)
     if sph.device.type == "cpu":
         return render_flat_reference(sph, quad, pay, cam, **kw)
     if sph.device.type != "cuda":
         raise ValueError(f"no megakernel for device {sph.device}")
-    rows = [t for t in (sph, quad, pay, aabbs, nodes) if t is not None]
+    rows = [t for t in (sph, quad, pay, aabbs, nodes, med) if t is not None]
     if any(t.data_ptr() % 16 for t in rows):
-        raise ValueError("sph, quad, pay, aabbs and nodes must be 16-byte "
-                         "aligned: the kernel reads their rows as float4")
+        raise ValueError("sph, quad, pay, aabbs, nodes and med must be "
+                         "16-byte aligned: the kernel reads their rows as "
+                         "float4")
     lib = _build.load(fmad=fmad)
     ns = sph.shape[0]
     flags = (int(has_met), int(has_die), int(sky))
@@ -520,12 +613,15 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
             nodes.data_ptr() if nodes is not None else None,
             nodes.shape[0] if nodes is not None else 0, out, samples, width,
             height, seed & 0xFFFFFFFF, spp_offset & 0xFFFFFFFF, spp,
-            max_bounces, inv_spp, split, *flags, pix0, npix, counts, stream)
+            max_bounces, inv_spp, split, *flags, pix0, npix, counts, stream,
+            med.data_ptr() if med is not None else None, n_med,
+            pay.shape[0] - n_med)
 
     out, err = launch_forward(
         lib, sph.device, width, height, spp, pixels,
         lambda rows: lib.tinyrt_megakernel_flat_split(
-            width, rows, spp, *flags, int(nodes is not None)),
+            width, rows, spp, *flags, int(nodes is not None),
+            int(med is not None)),
         launch)
     if err != 0:
         msg = lib.tinyrt_error_string(err).decode()
@@ -536,15 +632,19 @@ def render_flat(sph: torch.Tensor, quad: torch.Tensor, pay: torch.Tensor,
 
 
 def flat_closest_hit(sph: torch.Tensor, quad: torch.Tensor,
-                     pay: torch.Tensor, n_sph: int, n_quad: int):
-    """`dense_closest_hit` over the real rows of K2's inputs, the winner
-    payload gathered from the (NA, 16) payload rows by index."""
+                     pay: torch.Tensor, n_sph: int, n_quad: int,
+                     med: torch.Tensor | None = None, n_med: int = 0):
+    """`dense_closest_hit` over the real rows of K2's inputs, the media's
+    last, the winner payload gathered from the (NA, 16) payload rows by
+    index."""
     q0 = sph.shape[0] if n_sph else 0
     isq = pay[:, 0:1]
     pay13 = torch.cat([isq, torch.where(isq > 0.5, pay[:, 4:7], pay[:, 1:4]),
                        pay[:, 7:16]], 1)
-    pay13 = torch.cat([pay13[:n_sph], pay13[q0:q0 + n_quad]], 0)
-    return dense_closest_hit(sph[:n_sph], quad[:n_quad], pay13)
+    m0 = pay.shape[0] - n_med
+    pay13 = torch.cat([pay13[:n_sph], pay13[q0:q0 + n_quad],
+                       pay13[m0:m0 + n_med]], 0)
+    return dense_closest_hit(sph[:n_sph], quad[:n_quad], pay13, med)
 
 
 def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
@@ -555,25 +655,27 @@ def render_flat_reference(sph: torch.Tensor, quad: torch.Tensor,
                           spp_offset: int = 0, has_met: bool = True,
                           has_die: bool = True, sky: bool = False,
                           pixel_chunk: int = 0,
-                          pixels: tuple | None = None) -> torch.Tensor:
+                          pixels: tuple | None = None,
+                          med: torch.Tensor | None = None,
+                          n_med: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of K2, dense on every route: the cull and the
     BVH walk select the dense search's winner, so this is what the
     kernel is held to on all three, and `nodes` is checked and ignored.
     Over the whole image or the flat pixel ids `pixels` (begin, count).
 
-    The closest hit is `flat_closest_hit`. Pixels go in chunks of
-    `pixel_chunk` (0: as many as keep the candidate matrix within
-    CANDIDATE_BUDGET elements)."""
+    The closest hit is `flat_closest_hit`, with the media `med` last (the
+    HAS_MED kernel's). Pixels go in chunks of `pixel_chunk` (0: as many
+    as keep the candidate matrix within CANDIDATE_BUDGET elements)."""
     _check_flat(sph, quad, pay, cam, None, nodes, n_sph, n_quad, width,
-                height, spp, max_bounces)
+                height, spp, max_bounces, med, n_med)
     if not pixel_chunk:
-        pixel_chunk = max(1, CANDIDATE_BUDGET // (n_sph + n_quad))
+        pixel_chunk = max(1, CANDIDATE_BUDGET // (n_sph + n_quad + n_med))
     return lockstep_render(
-        cam, flat_closest_hit(sph, quad, pay, n_sph, n_quad),
+        cam, flat_closest_hit(sph, quad, pay, n_sph, n_quad, med, n_med),
         width=width, height=height, spp=spp,
         max_bounces=max_bounces, seed=seed, spp_offset=spp_offset,
         has_met=has_met, has_die=has_die, sky=sky, pixel_chunk=pixel_chunk,
-        pixels=pixels)
+        pixels=pixels, has_med=med is not None)
 
 
 # --- the scene-bound renderer ---------------------------------------------
@@ -591,8 +693,10 @@ class MegakernelRenderer:
     None walks a BVH when the scene has at least BVH_MIN_PRIMS real
     primitives and at most AUTO_CULL_ROWS padded rows, and the cull is
     not forced on; True or False forces it (True turns the automatic
-    cull off; with a forced cull it raises). Host lowerings and their
-    device copies are made at first use and kept, one copy per device.
+    cull off; with a forced cull it raises). A ConstantMedium counts as a
+    primitive and a row, and a scene with media renders on K2 whatever
+    its size (K1 raises). Host lowerings and their device copies are made
+    at first use and kept, one copy per device.
     """
 
     def __init__(self, scene: SceneArrays, camera: Camera, background,
@@ -605,13 +709,16 @@ class MegakernelRenderer:
         a = scene.numpy()
         self.n_sph = int(a["sph_valid"].sum())
         self.n_quad = int(a["quad_valid"].sum())
-        if self.n_sph + self.n_quad == 0:
+        self.n_med = scene.num_media
+        prims = self.n_sph + self.n_quad + self.n_med
+        if prims == 0:
             raise ValueError("scene has no primitives")
         rows = ((scene_table.pad8(self.n_sph) if self.n_sph else 0)
-                + (scene_table.pad8(self.n_quad) if self.n_quad else 0))
+                + (scene_table.pad8(self.n_quad) if self.n_quad else 0)
+                + self.n_med)
         if bvh is None:
             bvh = (not chunk_cull and rows <= AUTO_CULL_ROWS
-                   and self.n_sph + self.n_quad >= BVH_MIN_PRIMS)
+                   and prims >= BVH_MIN_PRIMS)
         if chunk_cull is None:
             chunk_cull = rows > AUTO_CULL_ROWS and not bvh
         self.bvh = bool(bvh)
@@ -665,7 +772,7 @@ class MegakernelRenderer:
 
             return dict(sph=dev(f.sph), quad=dev(f.quad), pay=dev(f.pay),
                         cam=dev(f.cam), aabbs=dev(f.aabbs),
-                        nodes=dev(f.nodes))
+                        nodes=dev(f.nodes), med=dev(f.med))
 
         return self._on("flat", device, make)
 
@@ -685,7 +792,8 @@ class MegakernelRenderer:
                     width=self.camera.width, height=self.camera.height,
                     spp=spp, max_bounces=max_bounces, seed=seed,
                     spp_offset=spp_offset, has_met=f.has_met,
-                    has_die=f.has_die, sky=f.sky, pixels=pixels)
+                    has_die=f.has_die, sky=f.sky, pixels=pixels,
+                    n_med=f.n_med)
 
     def render_burst(self, *, spp: int, max_bounces: int, seeds,
                      **kw) -> torch.Tensor:
@@ -712,7 +820,8 @@ class MegakernelRenderer:
         """(H, W, 3) f32 mean radiance over samples [spp_offset,
         spp_offset + spp), on the renderer's device. `packed` None takes
         the packed kernel for at most PACKED_MAX_PRIMS real primitives and
-        K2 above (megakernel.py:1455-1466); True or False forces one.
+        K2 above (megakernel.py:1455-1466), and K2 for a scene with media;
+        True or False forces one (True raises on media).
 
         `mesh` (parallel/sharded.Mesh) renders cell by cell, one launch
         per cell on the cell's device, each over its tile's pixel range
@@ -723,7 +832,8 @@ class MegakernelRenderer:
         from tinyraytracer_tpu_torch.parallel import sharded
 
         if packed is None:
-            packed = self.n_sph + self.n_quad <= mkp.PACKED_MAX_PRIMS
+            packed = (self.n_sph + self.n_quad <= mkp.PACKED_MAX_PRIMS
+                      and not self.n_med)
         if mesh is None:
             mesh = sharded.one_cell(self.device)
         w, h = self.camera.width, self.camera.height

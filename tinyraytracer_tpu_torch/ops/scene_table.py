@@ -11,12 +11,15 @@ bit:
   its material (megakernel_packed.scene_table).
 - `camera_vector`: the (1, 32) camera/background row
   (megakernel._camera_vector).
-- `used_kind_flags`: which scatter lobes the scene can reach.
+- `used_kind_flags`: which scatter lobes the scene can reach (and, for
+  K2, whether it holds a medium).
+- `medium_rows`: K2's ConstantMedium rows and their payload rows.
 - `morton_order`, `build_chunk_aabbs`: the spatial sphere order and the
   per-block AABBs of the culled row sweep (megakernel._morton_order,
   megakernel._build_chunk_aabbs).
-- `bvh_nodes`: ops/bvh.py's threaded BVH over K2's rows, as K2's walk
-  reads it (the port's own route; the JAX package has no such lowering).
+- `bvh_nodes`: ops/bvh.py's threaded BVH over K2's rows, medium rows
+  included, as K2's walk reads it (the port's own route; the JAX package
+  has no such lowering).
 
 `lower` runs them for the packed kernel (K1), `lower_flat` for the
 classic-layout kernel (K2).
@@ -32,7 +35,7 @@ import torch
 
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.models.camera import Camera
-from tinyraytracer_tpu_torch.models.world import SceneArrays
+from tinyraytracer_tpu_torch.models.world import SceneArrays, require_no_media
 from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
 
 _FAR = 1.0e30  # inert-primitive displacement: never intersected
@@ -139,16 +142,46 @@ def compact_scene(scene: SceneArrays, sphere_order=None) -> CompactScene:
     )
 
 
-def used_kind_flags(scene: SceneArrays) -> tuple:
+def used_kind_flags(scene: SceneArrays, media: bool = False) -> tuple:
     """(has_met, has_die): does any VALID primitive use a Metal /
     Dielectric material? A kernel may drop an absent kind's scatter lobe:
-    its result is only ever taken through that kind's winner select."""
+    its result is only ever taken through that kind's winner select.
+    With `media`, (has_met, has_die, has_med): has_med, whether the scene
+    holds a ConstantMedium (K2's HAS_MED: the medium test and the
+    isotropic lobe)."""
     a = scene.numpy()
     kinds = a["mat_kind"]
     sv, qv = a["sph_valid"], a["quad_valid"]
     used = [kinds[a["sph_mat"][sv]], kinds[a["quad_mat"][qv]]]
     uk = np.concatenate(used)
-    return bool((uk == mat.METAL).any()), bool((uk == mat.DIELECTRIC).any())
+    flags = (bool((uk == mat.METAL).any()),
+             bool((uk == mat.DIELECTRIC).any()))
+    return flags + (scene.num_media > 0,) if media else flags
+
+
+MED_FIELDS = 8      # cx cy cz r2 -1/density 0 0 0
+
+
+def medium_rows(scene: SceneArrays) -> tuple:
+    """(med (Nd, 8), pay (Nd, 16)) f32: each ConstantMedium's K2 row,
+    boundary centre, radius^2 (as compact_scene squares a sphere's) and
+    -1/density, both in f32, then zeros; and its payload row (is_quad 0,
+    the boundary centre as the normal source, kind ISOTROPIC, the albedo,
+    fuzz 0, ior 1, no emission). Nd = 0 without media."""
+    n = scene.num_media
+    med = np.zeros((n, MED_FIELDS), np.float32)
+    pay = np.zeros((n, 16), np.float32)
+    if n:
+        a = scene.numpy()
+        c = a["med_center"].astype(np.float32)
+        med[:, 0:3] = c
+        med[:, 3] = a["med_radius"].astype(np.float32) ** 2
+        med[:, 4] = np.float32(-1.0) / a["med_density"].astype(np.float32)
+        pay[:, 1:4] = c
+        pay[:, 7] = mat.ISOTROPIC
+        pay[:, 8:11] = a["med_albedo"]
+        pay[:, 12] = 1.0
+    return med, pay
 
 
 def payload_matrix(scene: SceneArrays, cs: CompactScene) -> np.ndarray:
@@ -275,6 +308,7 @@ def _is_sky(background) -> bool:
 
 
 def lower(scene: SceneArrays, camera: Camera, background) -> LoweredScene:
+    require_no_media(scene, "the packed megakernel K1")
     cs = compact_scene(scene)
     tab, _ = scene_table(cs, payload_matrix(scene, cs))
     has_met, has_die = used_kind_flags(scene)
@@ -343,17 +377,27 @@ def build_chunk_aabbs(cs: CompactScene, chunk: int) -> tuple:
     return cmin, cmax
 
 
+def medium_row0(cs: CompactScene) -> int:
+    """K2's row of the first medium: after the sphere block (when there
+    are spheres) and the quad block (when there are quads), as the
+    payload rows lie."""
+    return ((cs.ns if cs.n_sph_real else 0)
+            + (cs.nq if cs.n_quad_real else 0))
+
+
 def bvh_nodes(scene: SceneArrays, cs: CompactScene) -> np.ndarray:
-    """(M, 8) f32: `ops.bvh.build_bvh`'s threaded BVH (the native build)
-    over the real rows of `cs` in scene order, for K2's walk.
+    """(M, 8) f32: ops/bvh.py's threaded BVH (the native build, as
+    `build_bvh` builds it over the same boxes) over the real rows of `cs`
+    in scene order and then the media in theirs, for K2's walk.
 
     Node i is (min xyz, leaf, max xyz, miss), `leaf` and `miss` int32
     stored as their bits. An inner node's leaf is -1 and its hit link,
     i + 1 in DFS preorder, is left implicit; a leaf's is its K2 row:
     sphere k is row k, quad j row q_row0 + j, with q_row0 = cs.ns when the
-    scene has spheres, else 0 (render_flat's numbering). miss is the node
+    scene has spheres, else 0 (render_flat's numbering), medium k row
+    `medium_row0(cs)` + k, its box its boundary sphere's. miss is the node
     after i's subtree, M after the last."""
-    t = bvh_ops.build_bvh(scene).numpy()
+    lo, hi, gid = bvh_ops.primitive_aabbs(scene)
     a = scene.numpy()
     n_global = a["sph_center"].shape[0] + a["quad_corner"].shape[0]
     ns, nq = cs.n_sph_real, cs.n_quad_real
@@ -362,16 +406,23 @@ def bvh_nodes(scene: SceneArrays, cs: CompactScene) -> np.ndarray:
     row[cs.index_map[:ns]] = np.arange(ns, dtype=np.int32)
     row[cs.index_map[cs.ns:cs.ns + nq]] = q_row0 + np.arange(nq,
                                                              dtype=np.int32)
-    m = t["leaf_prim"].shape[0]
-    inner = t["leaf_prim"] < 0
-    if not np.array_equal(t["hit_link"][inner], np.nonzero(inner)[0] + 1):
+    rows = row[gid]
+    if scene.num_media:
+        mlo, mhi = bvh_ops.medium_aabbs(scene)
+        lo, hi = np.concatenate([lo, mlo]), np.concatenate([hi, mhi])
+        rows = np.concatenate([rows, medium_row0(cs) + np.arange(
+            scene.num_media, dtype=np.int32)])
+    nmin, nmax, hit, miss, leaf = bvh_ops.build_tree(lo, hi, rows)
+    m = leaf.shape[0]
+    inner = leaf < 0
+    if not np.array_equal(hit[inner], np.nonzero(inner)[0] + 1):
         raise ValueError("an inner node's hit link is not the next node")
     nodes = np.zeros((m, 8), np.float32)
-    nodes[:, 0:3] = t["node_min"]
-    nodes[:, 4:7] = t["node_max"]
+    nodes[:, 0:3] = nmin
+    nodes[:, 4:7] = nmax
     bits = nodes.view(np.int32)
-    bits[:, 3] = np.where(inner, -1, row[np.maximum(t["leaf_prim"], 0)])
-    bits[:, 7] = t["miss_link"]
+    bits[:, 3] = leaf
+    bits[:, 7] = miss
     return nodes
 
 
@@ -397,6 +448,8 @@ class FlatScene:
     has_met: bool
     has_die: bool
     sky: bool
+    med: Optional[np.ndarray] = None  # (n_med, 8) f32: medium_rows, or None
+    n_med: int = 0       # media: payload rows [NA - n_med, NA)
 
 
 def lower_flat(scene: SceneArrays, camera: Camera, background, *,
@@ -406,7 +459,8 @@ def lower_flat(scene: SceneArrays, camera: Camera, background, *,
     it culls; without it the rows keep scene order and `aabbs` is None.
     With `bvh` (not with `chunk_cull`) `nodes` holds `bvh_nodes`, else
     None. The payload is megakernel._active_payload's (16, NA),
-    transposed."""
+    transposed, and then the media's payload rows (`medium_rows`); `med`
+    is None without media."""
     if chunk_cull and bvh:
         raise ValueError("K2 takes the chunk cull or the BVH walk, not both")
     order = None
@@ -415,7 +469,7 @@ def lower_flat(scene: SceneArrays, camera: Camera, background, *,
         order = morton_order(
             a["sph_center"].astype(np.float32)[a["sph_valid"].astype(bool)])
     cs = compact_scene(scene, sphere_order=order)
-    if cs.n_sph_real + cs.n_quad_real == 0:
+    if cs.n_sph_real + cs.n_quad_real + scene.num_media == 0:
         raise ValueError("scene has no primitives")
     pay = payload_matrix(scene, cs)
     lo = 0 if cs.n_sph_real else cs.ns
@@ -426,14 +480,16 @@ def lower_flat(scene: SceneArrays, camera: Camera, background, *,
         aabbs = np.zeros((cmin.shape[0], 8), np.float32)
         aabbs[:, 0:3] = cmin
         aabbs[:, 4:7] = cmax
-    has_met, has_die = used_kind_flags(scene)
+    has_met, has_die, has_med = used_kind_flags(scene, media=True)
+    med, med_pay = medium_rows(scene)
     return FlatScene(
         sph=np.ascontiguousarray(
             np.concatenate([cs.sph_c, cs.sph_r2], 1), np.float32),
         quad=np.ascontiguousarray(np.concatenate(
             [cs.quad_n, cs.quad_dp, cs.quad_av, cs.quad_ca, cs.quad_bv,
              cs.quad_cb], 1), np.float32),
-        pay=np.ascontiguousarray(pay[:, lo:hi].T),
+        pay=np.ascontiguousarray(np.concatenate([pay[:, lo:hi].T, med_pay]),
+                                 np.float32),
         aabbs=aabbs,
         nodes=bvh_nodes(scene, cs) if bvh else None,
         cam=camera_vector(camera, background)[0],
@@ -442,4 +498,6 @@ def lower_flat(scene: SceneArrays, camera: Camera, background, *,
         has_met=has_met,
         has_die=has_die,
         sky=_is_sky(background),
+        med=med if has_med else None,
+        n_med=med.shape[0],
     )

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tinyraytracer_tpu_torch.models import materials as mat
 from tinyraytracer_tpu_torch.models.camera import Camera, generate_rays
+from tinyraytracer_tpu_torch.models.world import require_no_media
 from tinyraytracer_tpu_torch.ops import bvh as bvh_ops
 from tinyraytracer_tpu_torch.ops import intersect as isect
 from tinyraytracer_tpu_torch.ops import rng
@@ -155,8 +156,10 @@ def trace(
     The positional parameters are the reference's
     (tinyraytracer_tpu/ops/trace.py) through `compact`; the rest are
     keyword only, so a call in the reference's positional form binds as
-    there or raises TypeError.
+    there or raises TypeError. A scene with media raises: the modular
+    tracer renders surfaces only.
     """
+    require_no_media(scene, "the modular tracer (ops/trace.py)")
     dev = origins.device
     r = origins.shape[0]
     background = torch.as_tensor(background, dtype=torch.float32, device=dev)

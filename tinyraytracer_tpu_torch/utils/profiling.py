@@ -59,7 +59,11 @@ every in-image thread ran (BVH nodes visited, leaves included; a dense
 segment's rows; the cull's blocks and the rows of the blocks it enters),
 and `walk_iters`, 32 x the iterations of each warp's search loop (its
 busiest lane's tests, each segment): walk_steps.render = walk_steps /
-lane_segments, walk_efficiency.render = walk_steps / walk_iters.
+lane_segments, walk_efficiency.render = walk_steps / walk_iters. A
+medium's test counts as a row's. K2's HAS_MED instantiation alone (a
+scene with a ConstantMedium): `medium_scatters`, the bounce segments
+whose closest hit was a medium's: medium_share.render = medium_scatters
+/ lane_segments.
 
 Host counters: `launches.<wrapper>`, one per kernel launch of each
 wrapper (render_packed K1, render_flat K2, closest_hit K3, classic_diff
@@ -91,7 +95,7 @@ from typing import Iterator
 import torch
 
 DEVICE_COUNTERS = ("lane_segments", "warp_passes", "walk_steps",
-                   "walk_iters")
+                   "walk_iters", "medium_scatters")
 
 _NOOP = contextlib.nullcontext()
 _local = threading.local()
