@@ -30,16 +30,23 @@ Phases, each printed on its own lines:
    PNG goes to output/ through the native encoder (native/, built at
    first use) and must decode back to the image's pixels. Checks finite,
    non-negative radiance and the
-   Cornell box's orientation. Both launch counters are zeroed before this
-   phase; K1's must rise on configs 1-3 only, K2's on 4 and 4b only.
+   Cornell box's orientation. The launch counters are zeroed before this
+   phase; K1's must rise on configs 1-3 only, K2's on 4 and 4b only, the
+   gamma's (G1, csrc/gamma.cu) by one a render, and each image must equal
+   `tonemap.gamma_reference` of the warm-up's framebuffer bit for bit.
    Then the benchmark's media scene (perfbench/configs/rtnw_final.json:
    Ray Tracing: The Next Week's final scene, 2 401 quads, 1 006 spheres,
    2 media) at its size, 800x800 with 40 bounces, at spp=2: one render
    through `Renderer.render`, which must be one HAS_MED launch on the BVH
-   walk (K2's counter zeroed just before), and a band of 64 image rows
-   through the ball that holds a medium held to K2's twin bit for bit.
+   walk and one G1 launch (the counters zeroed just before), its image
+   equal to `gamma_reference` of its framebuffer, and a band of 64 image
+   rows through the ball that holds a medium held to K2's twin bit for
+   bit.
 5. Where the time goes: the steps of one render (lowering, copies,
-   kernel, readback, gamma) timed one by one beside whole renders.
+   kernel, the card's gamma, readback) timed one by one beside whole
+   renders. Then G1 against its twin at cfg3's and cfg4's framebuffers:
+   bit for bit, its device time, its bound, the twin's time, and torch's
+   float64 expression's time and bits.
 6. Kernel vs twin at the configs' shapes: kernel time (CUDA events) next
    to the twin's, and the sample split the kernel took. K1's twin runs at
    full size; K2's at full resolution with fewer samples (printed beside
@@ -411,15 +418,16 @@ _LAUNCH_BASE: dict = {}
 
 def n_launches(fn) -> int:
     """Launches of the kernel wrapper `fn` since zero_launches(fn) (its host
-    counter, utils/profiling.py)."""
-    name = fn.__name__
+    counter, utils/profiling.py); `fn` may be the counter's name after
+    `launches.` ("gamma": tonemap.gamma_cuda's)."""
+    name = fn if isinstance(fn, str) else fn.__name__
     return profiling.counter(f"launches.{name}") - _LAUNCH_BASE.get(name, 0)
 
 
 def zero_launches(*fns) -> None:
     for fn in fns:
-        _LAUNCH_BASE[fn.__name__] = profiling.counter(
-            f"launches.{fn.__name__}")
+        name = fn if isinstance(fn, str) else fn.__name__
+        _LAUNCH_BASE[name] = profiling.counter(f"launches.{name}")
 
 
 def env_phase(torch):
@@ -779,16 +787,23 @@ def media_phase(torch, mk):
 
 
 def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
+    """Configs 1-4b through `Renderer.render`: K1 or K2 twice (warm-up and
+    render) and G1 once a config, the image equal to `gamma_reference` of
+    the warm-up framebuffer bit for bit. Returns the launches and, a
+    config, its results and the warm-up framebuffer."""
+    from tinyraytracer_tpu_torch.ops import tonemap
+
     os.makedirs(os.path.join(ROOT, "output"), exist_ok=True)
-    results = {}
-    zero_launches(mkp.render_packed, mk.render_flat)
+    results, fbs = {}, {}
+    zero_launches(mkp.render_packed, mk.render_flat, "gamma")
     for label, name, pkw, w, h, spp, mb, _ in CONFIGS:
         world, camera, kw = presets.PRESETS[name](width=w, height=h, **pkw)
         renderer = Renderer(spp, max_bounces=mb,
                             background_color=kw["background"], seed=0,
                             device="cuda")
         before = (n_launches(mkp.render_packed),
-                  n_launches(mk.render_flat))
+                  n_launches(mk.render_flat),
+                  n_launches("gamma"))
         fb = renderer.render_array(camera, world.build())   # warm-up
         torch.cuda.synchronize()
         if tuple(fb.shape) != (h, w, 3) or not bool(torch.isfinite(fb).all()):
@@ -802,14 +817,21 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rose = (n_launches(mkp.render_packed) - before[0],
-                n_launches(mk.render_flat) - before[1])
-        want = (2, 0) if label in ("cfg1", "cfg2", "cfg3") else (0, 2)
+                n_launches(mk.render_flat) - before[1],
+                n_launches("gamma") - before[2])
+        want = (2, 0, 1) if label in ("cfg1", "cfg2", "cfg3") else (0, 2, 1)
         if rose != want:
-            raise RuntimeError(f"{label}: launches (K1, K2) rose by {rose}, "
-                               f"expected {want}")
+            raise RuntimeError(f"{label}: launches (K1, K2, G1) rose by "
+                               f"{rose}, expected {want}")
         data = image.data
         if not np.isfinite(data).all() or data.min() < 0:
             raise RuntimeError(f"{label}: image not finite / negative")
+        # the same seed: the render's framebuffer is the warm-up's
+        if not np.array_equal(data, tonemap.gamma_reference(
+                fb.cpu().numpy())):
+            raise RuntimeError(f"{label}: the card's gamma differs from "
+                               "gamma_reference")
+        fbs[label] = fb
         path = os.path.join(ROOT, "output", f"chip_smoke_{label}_{name}.png")
         image.save(path)        # the native encoder
         if not np.array_equal(read_png(np, path), image.to_u8()):
@@ -822,7 +844,8 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
                               else "K2")
         log(f"[main] {label} {name} {w}x{h} spp={spp} mb={mb}: "
             f"Renderer.render {dt * 1e3:.1f} ms, {mrays:.1f} camera Mrays/s "
-            f"on {card}; launches (K1, K2) +{rose}; wrote "
+            f"on {card}; launches (K1, K2, G1) +{rose}, the image == "
+            f"gamma_reference; wrote "
             f"{os.path.relpath(path, ROOT)}")
         if name == "cornell_box":
             third = w // 3
@@ -834,11 +857,12 @@ def main_path_phase(torch, np, presets, mk, mkp, Renderer, card):
             if not (g_ok and r_ok):
                 raise RuntimeError("Cornell box orientation is wrong")
     launches = {"K1": n_launches(mkp.render_packed),
-                "K2": n_launches(mk.render_flat)}
+                "K2": n_launches(mk.render_flat),
+                "G1": n_launches("gamma")}
     log(f"[main] launches in the main path: {launches}")
     if min(launches.values()) < 1:
         raise RuntimeError("the main path did not launch every kernel")
-    return launches, results
+    return launches, results, fbs
 
 
 # The media scene of the main path (phase 4): the benchmark's rtnw_final
@@ -870,18 +894,22 @@ def rtnw_main_path(torch, np, mk, Image, Renderer, card):
         raise RuntimeError("rtnw_final: the media scene does not take the "
                            "walk")
     torch.cuda.synchronize()
-    zero_launches(mk.render_flat)
+    zero_launches(mk.render_flat, "gamma")
     t0 = time.perf_counter()
     image = renderer.render(camera, world)   # ends in a host copy
     dt = time.perf_counter() - t0
-    rose = n_launches(mk.render_flat)
-    if rose != 1:
-        raise RuntimeError(f"rtnw_final: K2 launched {rose} times, "
-                           "expected 1")
+    rose = (n_launches(mk.render_flat), n_launches("gamma"))
+    if rose != (1, 1):
+        raise RuntimeError(f"rtnw_final: launches (K2, G1) rose by {rose}, "
+                           "expected (1, 1)")
     fb = renderer.render_array(camera, world.build())
     if not np.array_equal(Image.from_linear(fb, gamma=tonemap.GAMMA).data,
                           image.data):
         raise RuntimeError("rtnw_final: a second render differs")
+    if not np.array_equal(image.data, tonemap.gamma_reference(
+            fb.cpu().numpy())):
+        raise RuntimeError("rtnw_final: the card's gamma differs from "
+                           "gamma_reference")
     if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
         raise RuntimeError("rtnw_final: radiance not finite / negative")
     row0, rows = RTNW_BAND
@@ -899,8 +927,8 @@ def rtnw_main_path(torch, np, mk, Image, Renderer, card):
     mrays = w * h * spp / dt / 1e6
     log(f"[main] rtnw_final {w}x{h} spp={spp} mb={mb} ({r.n_sph} spheres, "
         f"{r.n_quad} quads, {r.n_med} media; walk): Renderer.render "
-        f"{dt * 1e3:.1f} ms, {mrays:.1f} camera Mrays/s on {card}; K2 "
-        f"launches +{rose}; image rows {row0}-{row0 + rows - 1} == twin "
+        f"{dt * 1e3:.1f} ms, {mrays:.1f} camera Mrays/s on {card}; "
+        f"launches (K2, G1) +{rose}, the image == gamma_reference; image rows {row0}-{row0 + rows - 1} == twin "
         f"{same} (twin {twin_ms:.0f} ms); wrote "
         f"{os.path.relpath(path, ROOT)}")
     if not same:
@@ -909,12 +937,14 @@ def rtnw_main_path(torch, np, mk, Image, Renderer, card):
                 mrays_s=mrays, mean=float(fb.mean()), kernel="K2")
 
 
-def breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
-                    results):
+def breakdown_phase(torch, np, presets, mk, Renderer, card, results):
     """Where one `Renderer.render` call's time goes: the steps it takes
-    called one by one, each ended by a synchronize. Median of 3 (1 at
-    cfg4), beside the median of as many whole `Renderer.render` calls on
-    a world already built, as in the main path."""
+    called one by one, each ended by a synchronize (the gamma: the card's,
+    `launches.gamma` checked, before the copy of its image). Median of 3
+    (1 at cfg4), beside the median of as many whole `Renderer.render`
+    calls on a world already built, as in the main path."""
+    from tinyraytracer_tpu_torch.ops import tonemap
+
     for label, name, pkw, w, h, spp, mb, _ in CONFIGS:
         res = results[label]
         reps = 1 if label == "cfg4" else 3
@@ -940,12 +970,18 @@ def breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
             fb, kernel_ms = time_once(
                 torch, lambda: r.render(spp=spp, max_bounces=mb))
             t["kernel"] = kernel_ms / 1e3
+            before = profiling.counter("launches.gamma")
             t0 = clock()
-            host = fb.cpu().numpy()
-            t["d2h"] = clock() - t0
-            t0 = clock()
-            Image.from_linear(host)
+            corrected = tonemap.gamma_cuda(fb)
+            torch.cuda.synchronize()
             t["gamma"] = clock() - t0
+            rose = profiling.counter("launches.gamma") - before
+            if rose != 1:
+                raise RuntimeError(f"{label}: the card's gamma launched "
+                                   f"{rose} times, expected 1")
+            t0 = clock()
+            corrected.cpu().numpy()
+            t["d2h"] = clock() - t0
             renderer = Renderer(spp, max_bounces=mb,
                                 background_color=kw["background"], seed=0,
                                 device="cuda")
@@ -961,10 +997,78 @@ def breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
         res["breakdown_ms"] = med
         log(f"[time] {label}: Renderer.render {med['e2e']:.2f} ms (median "
             f"of {reps}); steps: lower {med['lower']:.2f}, H2D "
-            f"{med['h2d']:.2f}, kernel {med['kernel']:.2f}, D2H "
-            f"{med['d2h']:.2f}, gamma {med['gamma']:.2f} ms (World.build "
+            f"{med['h2d']:.2f}, kernel {med['kernel']:.2f}, gamma (card) "
+            f"{med['gamma']:.2f}, D2H {med['d2h']:.2f} ms (World.build "
             f"uncached {med['build']:.2f} ms); device busy "
             f"{med['device_busy']:.1%}; on {card}")
+
+
+# G1 (phase 5b): launches timed together; the main path's shapes it is
+# timed and checked at.
+GAMMA_REPS = 200
+GAMMA_CONFIGS = ("cfg3", "cfg4")
+
+
+def gamma_phase(torch, np, lib, card, fbs):
+    """G1 (csrc/gamma.cu) against its twin on the main path's framebuffers
+    (cfg3 600x600, cfg4 1200x675): the output bit for bit with
+    `gamma_reference`; the kernel's device time (CUDA events around
+    GAMMA_REPS launches of the C entry into one output), the host cost of
+    one `gamma_cuda` call (what `tinyrt.render.gamma` wraps on the card),
+    the twin's time on the host, and torch's float64 expression, its time
+    (`library_ms`) and whether it gives the same bits; the bound: 8 bytes
+    an element (4 read, 4 written) at HBM_BYTES_S."""
+    from tinyraytracer_tpu_torch.ops import tonemap
+
+    rows = {}
+    inv = float(tonemap.inv_gamma(tonemap.GAMMA))
+    stream = torch.cuda.current_stream().cuda_stream
+    for label in GAMMA_CONFIGS:
+        fb = fbs[label]
+        host = fb.cpu().numpy()
+        t0 = time.perf_counter()
+        want = tonemap.gamma_reference(host)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = tonemap.gamma_cuda(fb).cpu().numpy()
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"{label}: G1 differs from gamma_reference "
+                               f"(max |d| {err:.3g})")
+        out = torch.empty_like(fb)
+
+        def launch():
+            if lib.tinyrt_gamma(fb.data_ptr(), out.data_ptr(), fb.numel(),
+                                inv, stream):
+                raise RuntimeError(f"{label}: the gamma launch failed")
+
+        ms = time_kernel(torch, launch, GAMMA_REPS)
+        torch.cuda.synchronize()
+        host_cost = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            tonemap.gamma_cuda(fb)
+            host_cost.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+
+        def library():
+            return torch.clamp_min(fb, 0).double().pow(inv).float()
+
+        library_same = torch.equal(library(), out)
+        library_ms = time_kernel(torch, library, GAMMA_REPS)
+        bound_ms = 8 * fb.numel() / sol.HBM_BYTES_S * 1e3
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           max_abs_err=err, library_ms=library_ms,
+                           library_same_bits=library_same,
+                           wrapper_host_ms=float(np.median(host_cost)),
+                           shape=list(fb.shape))
+        log(f"[gamma] {label} {tuple(fb.shape)}: G1 {ms * 1e3:.2f} us a "
+            f"launch (device, {GAMMA_REPS} launches), bound "
+            f"{bound_ms * 1e3:.2f} us (bytes), == gamma_reference True; "
+            f"gamma_cuda's host cost {rows[label]['wrapper_host_ms']:.4f} "
+            f"ms; twin (numpy, host) {plain_ms:.2f} ms; torch's float64 "
+            f"expression {library_ms * 1e3:.2f} us, same bits "
+            f"{library_same}; on {card}")
+    return rows
 
 
 def time_kernel(torch, fn, reps):
@@ -4658,12 +4762,13 @@ def main(argv=None) -> int:
     if "forward" in only:
         worst = parity_phase(torch, np, presets, mk, mkp, _build.load())
         media_phase(torch, mk)
-        launches, results = main_path_phase(torch, np, presets, mk, mkp,
-                                            Renderer, card)
+        launches, results, fbs = main_path_phase(torch, np, presets, mk,
+                                                 mkp, Renderer, card)
         results["rtnw_final"] = rtnw_main_path(torch, np, mk, Image,
                                                Renderer, card)
-        breakdown_phase(torch, np, presets, mk, Image, Renderer, card,
-                        results)
+        breakdown_phase(torch, np, presets, mk, Renderer, card, results)
+        results["gamma"] = gamma_phase(torch, np, _build.load(), card, fbs)
+        del fbs
         for k, v in kernel_vs_twin_phase(torch, np, presets, mk, mkp, card,
                                          results, _build.load()).items():
             worst[k] = max(worst[k], v)
@@ -4757,6 +4862,7 @@ def main(argv=None) -> int:
         }
 
     k3, k4, k5 = results["k3"], results["k4"], results["k5"]
+    g1 = results["gamma"]["cfg3"]
     mbr = results["sol"]["rows"]
 
     def probe_entry(probe):
@@ -4780,6 +4886,17 @@ def main(argv=None) -> int:
               "tinyraytracer_tpu/ops/megakernel_packed.py:125", "cfg3"),
         entry("K2", "megakernel_flat", "megakernel.cu",
               "tinyraytracer_tpu/ops/megakernel.py:489", "cfg4"),
+        {"name": "gamma", "route": "cuda",
+         "source": "tinyraytracer_tpu_torch/csrc/gamma.cu",
+         "replaces": "tinyraytracer_tpu/utils/image.py:27",
+         "launches": launches["G1"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in results["gamma"].values()),
+         "ms": g1["ms"], "plain_ms": g1["plain_ms"],
+         "bound_ms": g1["bound_ms"], "bound_by": "bytes",
+         "library_ms": g1["library_ms"], "config": "cfg3",
+         "plain_shape": "600x600x3, the kernel's own",
+         "ms_at_plain_shape": g1["ms"]},
         {"name": "closest_hit", "route": "cuda",
          "source": "tinyraytracer_tpu_torch/csrc/closest_hit.cu",
          "replaces": "tinyraytracer_tpu/ops/intersect_pallas.py:166",

@@ -19,6 +19,29 @@ def _fake_nvcc(tmp_path, body: str) -> str:
     return str(exe)
 
 
+# every C entry of the library, the error string last
+EXPORTED = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
+            "tinyrt_closest_hit", "tinyrt_diff_packed",
+            "tinyrt_diff_classic", "tinyrt_diff_packed_occupancy",
+            "tinyrt_diff_classic_occupancy",
+            "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
+            "tinyrt_fold_samples", "tinyrt_gamma", "tinyrt_microbench",
+            "tinyrt_microbench_wave", "tinyrt_probe_packgrad",
+            "tinyrt_probe_packgrad2", "tinyrt_probe_seglayout_a",
+            "tinyrt_probe_seglayout_b", "tinyrt_probe_sublanes",
+            "tinyrt_probe_packgrad_info", "tinyrt_probe_packgrad2_info",
+            "tinyrt_probe_seglayout_info", "tinyrt_error_string")
+
+
+def _declared():
+    """A stand-in library with an attribute per C entry, after _declare."""
+    from types import SimpleNamespace
+
+    lib = SimpleNamespace(**{n: SimpleNamespace() for n in EXPORTED})
+    _build._declare(lib)
+    return lib
+
+
 @pytest.fixture
 def fake_tree(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
@@ -69,21 +92,7 @@ def test_build_caches_by_source_and_flag_hash(fake_tree, monkeypatch):
 def test_declare_types_every_exported_function():
     """Each kernel entry point gets argtypes, pointers as c_void_p: with
     untyped arguments ctypes would pass them as 32-bit ints."""
-    from types import SimpleNamespace
-
-    names = ("tinyrt_megakernel_packed", "tinyrt_megakernel_flat",
-             "tinyrt_closest_hit", "tinyrt_diff_packed",
-             "tinyrt_diff_classic", "tinyrt_diff_packed_occupancy",
-             "tinyrt_diff_classic_occupancy",
-             "tinyrt_megakernel_packed_split", "tinyrt_megakernel_flat_split",
-             "tinyrt_fold_samples", "tinyrt_microbench",
-             "tinyrt_microbench_wave", "tinyrt_probe_packgrad",
-             "tinyrt_probe_packgrad2", "tinyrt_probe_seglayout_a",
-             "tinyrt_probe_seglayout_b", "tinyrt_probe_sublanes",
-             "tinyrt_probe_packgrad_info", "tinyrt_probe_packgrad2_info",
-             "tinyrt_probe_seglayout_info", "tinyrt_error_string")
-    lib = SimpleNamespace(**{n: SimpleNamespace() for n in names})
-    _build._declare(lib)
+    lib = _declared()
     p = ctypes.c_void_p
     packed = lib.tinyrt_megakernel_packed.argtypes
     assert len(packed) == 22
@@ -108,6 +117,9 @@ def test_declare_types_every_exported_function():
     assert lib.tinyrt_megakernel_flat_split.argtypes == [ctypes.c_int] * 8
     fold = lib.tinyrt_fold_samples.argtypes
     assert fold == [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+    # in, out, the element count (64-bit), the exponent, the stream
+    assert lib.tinyrt_gamma.argtypes == [p, p, ctypes.c_long, ctypes.c_float,
+                                         p]
     k3 = lib.tinyrt_closest_hit.argtypes
     assert len(k3) == 17
     assert [k for k, t in enumerate(k3) if t is p] == [0, 3, 7, 9, 12, 13,
@@ -150,7 +162,7 @@ def test_declare_types_every_exported_function():
     assert lib.tinyrt_probe_packgrad_info.argtypes == [i, ip]
     assert lib.tinyrt_probe_packgrad2_info.argtypes == [i, ip]
     assert lib.tinyrt_probe_seglayout_info.argtypes == [i, ip]
-    for n in names[:-1]:
+    for n in EXPORTED[:-1]:
         assert getattr(lib, n).restype is ctypes.c_int
 
 
@@ -186,6 +198,22 @@ def test_k5_accumulator_limit_is_the_kernels():
 
     src = (_build.CSRC_DIR / "diffkernel_packed.cu").read_text()
     assert f"constexpr int kMaxAcc = {DIFF_PACKED_MAX_ACC};" in src
+
+
+def test_gamma_entry_is_the_kernels():
+    """The ctypes signature of tinyrt_gamma is the one csrc/gamma.cu
+    exports, its count a 64-bit C `long`; no other source declares it."""
+    src = (_build.CSRC_DIR / "gamma.cu").read_text()
+    assert ("int tinyrt_gamma(const float* in, float* out, long n, "
+            "float inv_gamma,\n                 void* stream)") in src
+    assert "powf(" not in src           # the power is taken in double
+    for other in _build.CSRC_DIR.glob("*.cu*"):
+        if other.name != "gamma.cu":
+            assert "tinyrt_gamma" not in other.read_text()
+    lib = _declared()
+    fn = lib.tinyrt_gamma
+    assert ctypes.sizeof(fn.argtypes[2]) == 8   # C `long` on LP64
+    assert fn.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("name", ["diffkernel.cu", "diff_common.cuh"])

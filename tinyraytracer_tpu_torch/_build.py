@@ -172,6 +172,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tinyrt_fold_samples
     fn.argtypes = [p, p, i, i, f, p]
     fn.restype = i
+    fn = lib.tinyrt_gamma
+    fn.argtypes = [p, p, ctypes.c_long, f, p]
+    fn.restype = i
     ll = ctypes.c_longlong
     fn = lib.tinyrt_closest_hit
     fn.argtypes = [p, ll, ll, p, ll, ll, ctypes.c_char_p, p, i, p, i, i, p,

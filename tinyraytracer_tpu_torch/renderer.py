@@ -191,13 +191,10 @@ class Renderer:
     def render_batch(self, camera: Camera, world: World, seeds) -> list:
         """One gamma-2.2 Image per seed, each bitwise equal to `render`
         with that seed: `render_batch_array`'s frames, brought back in one
-        host copy."""
+        host copy (on a CUDA device after one gamma launch over them)."""
         with profiling.annotate("tinyrt.render"):
             frames = self.render_batch_array(camera, world, seeds)
-            with profiling.annotate("tinyrt.render.readback"):
-                frames = frames.cpu().numpy()
-            return [Image.from_linear(f, gamma=tonemap.GAMMA)
-                    for f in frames]
+            return Image.from_linear_frames(frames, gamma=tonemap.GAMMA)
 
     def _render_with_progress(self, camera: Camera, scene: SceneArrays):
         """Chunk samples into rounds (global sample ids [off, off + n)) so

@@ -1,7 +1,8 @@
 """Host-side image container and PNG output (utils/image.rs:5-111).
 
 The framebuffer stays a tensor on its device until the end; this wrapper
-only handles the host boundary: gamma, quantization, PNG encode.
+only handles the host boundary: gamma (on the card for a CUDA
+framebuffer, `from_linear`; numpy's otherwise), quantization, PNG encode.
 `Image.save` writes through the port's native encoder (native/, built at
 first use; a failed build raises). `encode_png` is its plain version in
 the standard library (zlib + struct): the same 8-bit RGB, one IDAT
@@ -42,6 +43,22 @@ def encode_png(rgb: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+def _to_host(data, gamma):
+    """(host array, the gamma still to apply) of a framebuffer: a CUDA
+    tensor's gamma is applied on the card before the readback (None
+    left); anything else comes back as it is, its gamma left to Image."""
+    if hasattr(data, "detach"):
+        data = data.detach()
+        if data.device.type == "cuda" and gamma is not None:
+            with profiling.annotate("tinyrt.render.gamma"):
+                data = tonemap.gamma_cuda(data.float().contiguous(), gamma)
+            gamma = None
+        # the wait for the render (and the gamma), then the copy
+        with profiling.annotate("tinyrt.render.readback"):
+            data = data.cpu().numpy()
+    return np.asarray(data), gamma
+
+
 class Image:
     """Float image with optional gamma applied at construction, mirroring
     Image::new_with_gamma_correction (image.rs:29-36)."""
@@ -58,12 +75,19 @@ class Image:
     @staticmethod
     def from_linear(data, gamma: float = tonemap.GAMMA) -> "Image":
         """From a linear (H, W, 3) framebuffer: numpy array or tensor on
-        any device (copied to the host)."""
-        if hasattr(data, "detach"):
-            # the wait for the render, then the copy
-            with profiling.annotate("tinyrt.render.readback"):
-                data = data.detach().cpu().numpy()
-        return Image(np.asarray(data), gamma=gamma)
+        any device (copied to the host). A CUDA tensor's gamma runs on the
+        card before the copy (`tonemap.gamma_cuda`); a CPU tensor's and an
+        array's is numpy's, as `Image(data, gamma)` computes it."""
+        data, gamma = _to_host(data, gamma)
+        return Image(data, gamma=gamma)
+
+    @staticmethod
+    def from_linear_frames(frames, gamma: float = tonemap.GAMMA) -> list:
+        """One Image a frame of a linear (N, H, W, 3) stack, each equal to
+        `from_linear` of its frame, the stack brought to the host in one
+        copy (after one gamma launch over it, for a CUDA tensor)."""
+        frames, gamma = _to_host(frames, gamma)
+        return [Image(f, gamma=gamma) for f in frames]
 
     @property
     def data(self) -> np.ndarray:

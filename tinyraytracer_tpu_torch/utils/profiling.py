@@ -35,8 +35,11 @@ each; the rest are read in the trace and the `--profile` export:
   - `tinyrt.render.launch`: the K1/K2 wrapper, its checks, allocations,
     the sample split's occupancy query and the launch (launch_ms.render);
   - `tinyrt.render.readback`: the copy of the image to the host, the
-    wait for the kernel included;
-  - `tinyrt.render.gamma`: Image's numpy gamma (gamma_ms.render).
+    wait for the kernels included;
+  - `tinyrt.render.gamma`: the gamma, on a CUDA framebuffer the launch
+    of its kernel before the readback (`Image.from_linear`,
+    ops/tonemap.py `gamma_cuda`), else Image's numpy power
+    (gamma_ms.render).
 - `tinyrt.train.step`: a fused train step. Its children:
   - `tinyrt.train.table`: the scene from the live parameters, the flat
     table, camera and target on the device (table_ms.train);
@@ -68,8 +71,9 @@ whose closest hit was a medium's: medium_share.render = medium_scatters
 Host counters: `launches.<wrapper>`, one per kernel launch of each
 wrapper (render_packed K1, render_flat K2, closest_hit K3, classic_diff
 K4, packed_diff K5, sublanes P1, packgrad P2, packgrad2 P3, seglayout P4,
-microbench P5): the tests', chip_smoke.py's and bench_torch.py's check of
-which kernel ran.
+microbench P5; `launches.gamma`, tonemap.gamma_cuda's, one a CUDA
+framebuffer or stack brought to the host as Images): the tests',
+chip_smoke.py's and bench_torch.py's check of which kernel ran.
 
 Usage (library):
 
